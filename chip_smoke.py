@@ -8,21 +8,31 @@ of which raises on failure (exit code non-zero, no result line):
 
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
-2. build: the CUDA megakernel, compiled with nvcc for sm_90a from
-   volren_tpu_torch/csrc into build/;
+2. build: the CUDA megakernel, its four <USE_TF, HAS_EMI> instantiations,
+   compiled with nvcc for sm_90a from volren_tpu_torch/csrc into build/,
+   with ptxas's registers and stack of each;
 3. kernel vs plain: the CUDA kernel against its plain torch version on the
    same CUDA tensors, on a random 16^3 grid and on a 64^3 crop of
-   .scene_cache/cloud512.brick, at 64x64 and 16 spp. The kernel is built
-   to round as the plain version does, so the bar is bitwise equality;
-   besides, its RMSE must stay below 1.5x the kernel's own seed-to-seed
-   noise with the mean within 5%, and two runs must be bitwise identical;
-4. kernel vs plain at the main path's shapes: one 4-spp dispatch of the
-   whole cloud512 at 1024x1024 through both, timed, and bitwise equal;
+   .scene_cache/cloud512.brick, at 64x64 and 16 spp, in all four variants
+   (plain, TF with the CLI's --fau LUT, emission from a temperature grid
+   at half resolution, TF + emission). The kernel is built to round as the
+   plain version does, so the bar is bitwise equality, and two runs must be
+   bitwise identical; for the plain variant, besides, its RMSE must stay
+   below 1.5x the kernel's own seed-to-seed noise with the mean within 5%;
+4. kernel vs plain at the paths' shapes: one 4-spp dispatch of the whole
+   cloud512 at 1024x1024 through both, for the plain path, the TF path and
+   the emission path (a 256x256x128 temperature grid made from --seed),
+   timed (CUDA events for the kernel), bitwise equal; the plain run also
+   counts the dispatch's events for the kernel's work bound;
 5. the main path: volren_tpu_torch.cli renders cloud512 at 1024x1024,
    256 spp (four 64-spp dispatches), 100 bounces, under a procedural sky
-   made from --seed; the PNG must exist, the framebuffer must be finite
-   with a positive mean, and the kernel's launch count must have risen
-   during the run.
+   made from --seed;
+6. the TF path: the same through the CLI with --fau;
+7. the emission path: the same scene with the temperature grid, through
+   Renderer.trace(256).
+In phases 5-7 the framebuffer must be finite with a positive mean, the run
+must have used the CUDA kernel, and the launch count of the path's
+variant, set to 0 just before the run, must have risen during it.
 
 The last three lines are the card line from nvidia-smi, a JSON object
 describing each kernel, and the device record
@@ -42,9 +52,15 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLOUD = os.path.join(REPO, ".scene_cache", "cloud512.brick")
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
-RES, SPP, BOUNCES = 1024, 256, 100         # the main path
-MAIN_CMP_SPP = 4                           # kernel vs plain at the main path's shapes
+RES, SPP, BOUNCES = 1024, 256, 100         # the paths' shapes
+MAIN_CMP_SPP = 4                           # kernel vs plain at those shapes
 CMP_RES, CMP_SPP = 64, 16                  # kernel vs plain version
+# the kernels line: name, the scene path that runs it, the TPU kernel it replaces
+KERNELS = (("megakernel", "plain", "volren_tpu/ops/pallas/kernel.py:602"),
+           ("megakernel_tf", "tf", "volren_tpu/ops/pallas/kernel.py:635"),
+           ("megakernel_emission", "emission", "volren_tpu/ops/pallas/kernel.py:636"))
+VARIANT = {"plain": (False, False), "tf": (True, False), "emission": (False, True),
+           "tf+emission": (True, True)}
 
 
 def _run(cmd):
@@ -53,7 +69,7 @@ def _run(cmd):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--seed", type=int, default=7, help="seed of the sky and the renders")
+    ap.add_argument("--seed", type=int, default=7, help="seed of the sky, grids and renders")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -64,9 +80,9 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, REPO)
     from volren_tpu_torch import cli
+    from volren_tpu_torch.measure import kernel_bound, path_renderer
     from volren_tpu_torch.ops.kernels import megakernel
     from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params
-    from volren_tpu_torch.renderer import Renderer
     from volren_tpu_torch.scene.environment import Environment, procedural_sky
     from volren_tpu_torch.utils.hdr import write_hdr
     from volren_tpu_torch.voldata import DenseGrid, Volume, read_brick
@@ -87,8 +103,8 @@ def main(argv=None) -> int:
     # ---- 2. build
     t0 = time.time()
     lib = megakernel.build()
-    print(f"build: {os.path.relpath(lib, REPO)} in {time.time() - t0:.2f} s; ptxas: "
-          f"{megakernel.resource_usage(lib)}", flush=True)
+    print(f"build: {os.path.relpath(lib, REPO)} in {time.time() - t0:.2f} s; ptxas "
+          f"<USE_TF,HAS_EMI>: {megakernel.resource_usage(lib)}", flush=True)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     sky_path = os.path.join(OUT_DIR, "sky.hdr")
@@ -96,15 +112,8 @@ def main(argv=None) -> int:
     sky = Environment(sky_path)
     dev = torch.device("cuda")
 
-    def scene(volume, res, seed, spp, bounces=BOUNCES):
-        r = Renderer(device=dev)
-        r.volume = volume
-        r.scale_and_move_to_unit_cube()
-        r.set_environment(sky)
-        r.bounces = bounces
-        r.seed = seed
-        r.init(res, res)
-        r.commit()
+    def scene(volume, res, seed, spp, path="plain", bounces=BOUNCES):
+        r = path_renderer(volume, sky, res, seed, path, bounces, device=dev)
         ks = r._kernel_scene()
         pool = build_env_pool(r._env_device, seed, 0)
         pf, pi = build_params(ks, r._trace_params(), res, res, 0, spp)
@@ -128,14 +137,6 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3, out
 
-    # ---- 3. kernel vs plain version
-    rng = np.random.default_rng(7)
-    g16 = rng.random((16, 16, 16)).astype(np.float32) * 3.0
-    g16[:4] = 0.0
-    cloud = read_brick(CLOUD)
-    zz, yy, xx = np.meshgrid(np.arange(96, 160), np.arange(224, 288), np.arange(224, 288),
-                             indexing="ij")
-    crop = cloud.lookup(np.stack([xx, yy, zz], -1))
     def compare(name, kernel, plain):
         """Bitwise equality of kernel and plain output; returns max abs error."""
         err = float((kernel - plain).abs().max())
@@ -148,77 +149,120 @@ def main(argv=None) -> int:
             raise AssertionError(f"{name}: the kernel is not bitwise equal to its plain version")
         return err
 
+    # ---- 3. kernel vs plain version, every variant
+    rng = np.random.default_rng(7)
+    g16 = rng.random((16, 16, 16)).astype(np.float32) * 3.0
+    g16[:4] = 0.0
+    cloud = read_brick(CLOUD)
+    zz, yy, xx = np.meshgrid(np.arange(96, 160), np.arange(224, 288), np.arange(224, 288),
+                             indexing="ij")
+    crop = cloud.lookup(np.stack([xx, yy, zz], -1))
     for name, dense in (("random16", g16), ("cloud512_crop64", crop)):
         d, h, w = dense.shape
-        inputs = scene(Volume(DenseGrid(w, h, d, dense)), CMP_RES, args.seed, CMP_SPP)
-        a = megakernel.render(*inputs)
-        b = megakernel.render(*inputs)
-        k_ms = cuda_ms(lambda: megakernel.render(*inputs), 3)
-        p_ms, plain = host_ms(lambda: megakernel.render_plain(*inputs))
-        other = megakernel.render(*scene(Volume(DenseGrid(w, h, d, dense)),
-                                         CMP_RES, args.seed + 1, CMP_SPP))
-        if not torch.equal(a, b):
-            raise AssertionError(f"{name}: the kernel is not bitwise deterministic")
-        compare(f"{name}, {CMP_RES}x{CMP_RES}, {CMP_SPP} spp", a, plain)
-        a, plain, other = (x.cpu().numpy() / CMP_SPP for x in (a, plain, other))
-        noise = float(np.sqrt(((other - a) ** 2).mean()))
-        rmse = float(np.sqrt(((a - plain) ** 2).mean()))
-        mean_rel = float(abs(a[:, :3].mean() - plain[:, :3].mean()) / plain[:, :3].mean())
-        print(f"    rmse {rmse!r} (bar 1.5 x seed-to-seed noise {noise!r}), mean rel "
-              f"{mean_rel!r} (bar 0.05); kernel {k_ms!r} ms, plain {p_ms!r} ms", flush=True)
-        if not (rmse < 1.5 * noise and mean_rel < 0.05):
-            raise AssertionError(f"{name}: kernel disagrees with its plain version")
-    if megakernel.render.launches <= 0:
-        raise AssertionError("the kernel's launch counter did not rise")
+        for path in VARIANT:
+            before = dict(megakernel.render.launches_by_variant)
+            inputs = scene(Volume(DenseGrid(w, h, d, dense)), CMP_RES, args.seed, CMP_SPP, path)
+            a = megakernel.render(*inputs)
+            b = megakernel.render(*inputs)
+            if megakernel.render.launches_by_variant.get(VARIANT[path], 0) != \
+                    before.get(VARIANT[path], 0) + 2:
+                raise AssertionError(f"{name} {path}: the variant's launch count did not rise")
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} {path}: the kernel is not bitwise deterministic")
+            k_ms = cuda_ms(lambda: megakernel.render(*inputs), 3)
+            p_ms, plain = host_ms(lambda: megakernel.render_plain(*inputs))
+            compare(f"{name} {path}, {CMP_RES}x{CMP_RES}, {CMP_SPP} spp", a, plain)
+            print(f"    kernel {k_ms!r} ms, plain {p_ms!r} ms", flush=True)
+            if path != "plain":
+                continue
+            other = megakernel.render(*scene(Volume(DenseGrid(w, h, d, dense)), CMP_RES,
+                                             args.seed + 1, CMP_SPP))
+            a, plain, other = (x.cpu().numpy() / CMP_SPP for x in (a, plain, other))
+            noise = float(np.sqrt(((other - a) ** 2).mean()))
+            rmse = float(np.sqrt(((a - plain) ** 2).mean()))
+            mean_rel = float(abs(a[:, :3].mean() - plain[:, :3].mean()) / plain[:, :3].mean())
+            print(f"    rmse {rmse!r} (bar 1.5 x seed-to-seed noise {noise!r}), mean rel "
+                  f"{mean_rel!r} (bar 0.05)", flush=True)
+            if not (rmse < 1.5 * noise and mean_rel < 0.05):
+                raise AssertionError(f"{name}: kernel disagrees with its plain version")
 
-    # ---- 4. kernel vs plain on one dispatch at the main path's shapes
-    inputs = scene(Volume(CLOUD), RES, args.seed, MAIN_CMP_SPP)
-    kernel_out = megakernel.render(*inputs)
-    ms = cuda_ms(lambda: megakernel.render(*inputs), 3)
-    plain_ms, plain_out = host_ms(lambda: megakernel.render_plain(*inputs))
-    max_abs_err = compare(f"cloud512 {RES}x{RES}, {MAIN_CMP_SPP} spp, {BOUNCES} bounces",
-                          kernel_out, plain_out)
-    print(f"cloud512 {RES}x{RES}, {MAIN_CMP_SPP} spp, {BOUNCES} bounces: kernel {ms!r} ms, "
-          f"plain {plain_ms!r} ms per dispatch, on {gpu_line}", flush=True)
-    del inputs, kernel_out, plain_out
-    torch.cuda.empty_cache()
+    # ---- 4. kernel vs plain on one dispatch at each path's shapes
+    record = {}
+    for kname, path, _ in KERNELS:
+        inputs = scene(Volume(CLOUD), RES, args.seed, MAIN_CMP_SPP, path)
+        kernel_out = megakernel.render(*inputs)
+        ms = cuda_ms(lambda: megakernel.render(*inputs), 3)
+        stats = {}
+        plain_ms, plain_out = host_ms(lambda: megakernel.render_plain(*inputs, stats=stats))
+        label = f"cloud512 {path} {RES}x{RES}, {MAIN_CMP_SPP} spp, {BOUNCES} bounces"
+        max_abs_err = compare(label, kernel_out, plain_out)
+        bound_ms, bound_by, n_bytes, n_ops = kernel_bound(inputs[0], inputs[1], inputs[3], stats)
+        print(f"{label}: kernel {ms!r} ms, plain {plain_ms!r} ms per dispatch; bound "
+              f"{bound_ms!r} ms by {bound_by} ({n_bytes} bytes, {n_ops} f32 operations from "
+              f"events {stats}) on {gpu_line}", flush=True)
+        record[kname] = {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+        del inputs, kernel_out, plain_out
+        torch.cuda.empty_cache()
 
-    # ---- 5. the main path, through the CLI
-    megakernel.render.launches = 0
-    out_png = os.path.join(OUT_DIR, "cloud512.png")
-    r, stats = cli.run([CLOUD, sky_path, "--render", "-w", str(RES), "-h", str(RES),
-                        "--spp", str(SPP), "--bounces", str(BOUNCES), "--output", out_png,
-                        "--device", "cuda"])
-    launches = megakernel.render.launches
-    if launches <= 0:
-        raise AssertionError("the main path did not launch the CUDA kernel")
-    if r.last_engine != "cuda_kernel":
-        raise AssertionError(f"the main path ran {r.last_engine}")
-    for path in stats["outputs"]:
-        if not os.path.getsize(path):
-            raise AssertionError(f"{path} is empty")
-    fb = r.framebuffer()
-    if tuple(fb.shape) != (RES, RES, 4) or not bool(torch.isfinite(fb).all()):
-        raise AssertionError("the framebuffer is not a finite (H, W, 4) image")
-    mean = fb.mean(dim=(0, 1)).tolist()
-    if not mean[0] > 0.0:
-        raise AssertionError(f"the framebuffer is black: mean {mean}")
-    print(f"main path: cloud512 {RES}x{RES}, {SPP} spp, {BOUNCES} bounces: "
-          f"{stats['spp'] / stats['seconds']!r} spp/s ({stats['seconds']!r} s, "
-          f"{launches} kernel launch(es), framebuffer mean {[round(m, 4) for m in mean]}) "
-          f"on {gpu_line}", flush=True)
+    # ---- 5-7. the three paths through the entry points a user calls
+    def check_path(kname, path, run):
+        variant = VARIANT[path]
+        megakernel.render.launches = 0
+        megakernel.render.launches_by_variant.clear()
+        r, seconds = run()
+        launches = megakernel.render.launches_by_variant.get(variant, 0)
+        if launches <= 0 or launches != megakernel.render.launches:
+            raise AssertionError(f"the {path} path did not launch (only) its CUDA kernel "
+                                 f"variant: {megakernel.render.launches_by_variant}")
+        if r.last_engine != "cuda_kernel":
+            raise AssertionError(f"the {path} path ran {r.last_engine}")
+        fb = r.framebuffer()
+        if tuple(fb.shape) != (RES, RES, 4) or not bool(torch.isfinite(fb).all()):
+            raise AssertionError(f"the {path} path's framebuffer is not a finite (H, W, 4) image")
+        mean = fb.mean(dim=(0, 1)).tolist()
+        if not mean[0] > 0.0:
+            raise AssertionError(f"the {path} path's framebuffer is black: mean {mean}")
+        print(f"{path} path: cloud512 {RES}x{RES}, {SPP} spp, {BOUNCES} bounces: "
+              f"{SPP / seconds!r} spp/s ({seconds!r} s, {launches} kernel launch(es), "
+              f"framebuffer mean {[round(m, 4) for m in mean]}) on {gpu_line}", flush=True)
+        record[kname]["launches"] = launches
+
+    def run_cli(*extra):
+        def run():
+            out_png = os.path.join(OUT_DIR, f"cloud512{''.join(extra).replace('-', '_')}.png")
+            r, stats = cli.run([CLOUD, sky_path, "--render", "-w", str(RES), "-h", str(RES),
+                                "--spp", str(SPP), "--bounces", str(BOUNCES), "--output",
+                                out_png, "--device", "cuda", *extra])
+            for png in stats["outputs"]:
+                if not os.path.getsize(png):
+                    raise AssertionError(f"{png} is empty")
+            return r, stats["seconds"]
+        return run
+
+    def run_emission():
+        r = path_renderer(Volume(CLOUD), sky, RES, args.seed, "emission", device=dev)
+        emi_x = r._kernel_scene().emi_x
+        if emi_x is None or not np.array_equal(np.diag(emi_x)[:3], [0.5, 0.5, 0.5]):
+            raise AssertionError("the emission path has no half-resolution temperature grid")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r.trace(SPP)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    check_path("megakernel", "plain", run_cli())
+    check_path("megakernel_tf", "tf", run_cli("--fau"))
+    check_path("megakernel_emission", "emission", run_emission)
 
     print(gpu_line)
-    print(json.dumps({"kernels": [{
-        "name": "megakernel",
-        "route": "cuda",
-        "source": "volren_tpu_torch/csrc/megakernel.cu",
-        "replaces": "volren_tpu/ops/pallas/kernel.py:602",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    print(json.dumps({"kernels": [dict(
+        name=kname, route="cuda", source="volren_tpu_torch/csrc/megakernel.cu",
+        replaces=replaces, launches=record[kname]["launches"],
+        max_abs_err=record[kname]["max_abs_err"], ms=record[kname]["ms"],
+        plain_ms=record[kname]["plain_ms"], bound_ms=record[kname]["bound_ms"],
+        bound_by=record[kname]["bound_by"], library_ms=None)
+        for kname, _path, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

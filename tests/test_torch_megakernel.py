@@ -13,75 +13,25 @@ tests/test_torch_cuda.py.
 
 import numpy as np
 import pytest
+from torch_reference import SPP, jax_renderer, mean_rel, reference_case, rmse
 
-from volren_tpu.ops.megakernel import render_wavefront_chunked
-from volren_tpu.ops.pallas import pack_scene as jpack_scene
-from volren_tpu.ops.pallas.kernel import render_strips
-from volren_tpu.ops.pallas.pack import build_env_pool as jbuild_env_pool
-from volren_tpu.ops.pallas.pack import build_params_rows
-from volren_tpu.renderer import Renderer as JRenderer
-from volren_tpu.scene.environment import Environment as JEnvironment
-from volren_tpu.voldata import DenseGrid as JDenseGrid
-from volren_tpu.voldata import Volume as JVolume
-from volren_tpu_torch.ops import scene as tscene
 from volren_tpu_torch.ops.kernels import megakernel
-from volren_tpu_torch.ops.kernels import pack as tpack
-
-SPP, RES, SEED = 8, 32, 123
-
-
-def _rmse(a, b):
-    return float(np.sqrt(((a - b) ** 2).mean()))
-
-
-def _mean_rel(a, b):
-    return abs(a[:, :3].mean() - b[:, :3].mean()) / max(b[:, :3].mean(), 1e-9)
 
 
 @pytest.fixture(scope="module")
 def case(random_grid16):
     """The JAX scene of test_pallas (random 16^3 grid, white 0.7 sky,
     16 bounces), its reference images, and the same inputs in the port."""
-    r = JRenderer()
-    r.volume = JVolume(JDenseGrid(16, 16, 16, random_grid16))
-    r.scale_and_move_to_unit_cube()
-    r.set_environment(JEnvironment.white(0.7))
-    r.bounces = 16
-    r.seed = SEED
-    r.init(RES, RES)
+    r = jax_renderer(random_grid16)
     r.commit()
-    scene, params = r._scene_device(), r._trace_params()
-    pool = jbuild_env_pool(scene, SEED, 0)
-    pf, pi = build_params_rows(scene, params, RES, RES, 0)
-    pallas = np.asarray(render_strips(
-        jpack_scene(scene), pool, pf, pi, RES * RES, RES, SPP, interpret=True,
-        queue_items=1024, env_rgbe=False, pool_rgbe=False, mip_u8=False)) / SPP
-    cfg = r._config()._replace(use_onehot=False, env_nearest_nee=True)
-    chunked = [np.asarray(render_wavefront_chunked(scene, params, cfg, RES, RES, SPP, base))
-               .reshape(-1, 4) / SPP for base in (0, SPP)]
-
-    g, e = scene.density, scene.env
-    grid, env, pool_t, tp = tscene.from_reference(
-        atlas=np.asarray(g.atlas), brick_meta=np.asarray(g.brick_meta),
-        mip_maj=np.asarray(g.mip_maj), transform=np.asarray(g.transform),
-        inv_transform=np.asarray(g.inv_transform), envmap=np.asarray(e.envmap),
-        alias_packed=np.asarray(e.alias_packed), imp_avg=np.asarray(e.imp_mips[-1]),
-        env_transform=np.asarray(e.transform), env_inv_transform=np.asarray(e.inv_transform),
-        env_strength=np.asarray(e.strength), pool={k: np.asarray(v) for k, v in pool.items()},
-        params={k: np.asarray(v) for k, v in params._asdict().items()})
-    ks = tpack.pack_scene(grid, env)
-    tpf, tpi = tpack.build_params(ks, tp, RES, RES, 0, SPP)
-    return {"pallas": pallas, "chunked": chunked,
-            "noise": _rmse(chunked[1], chunked[0]),
-            "inputs": (ks, pool_t, tpf, tpi),
-            "plain": megakernel.render(ks, pool_t, tpf, tpi).numpy() / SPP}
+    return reference_case(r)
 
 
 def test_plain_matches_pallas_kernel(case):
     got, ref = case["plain"], case["pallas"]
-    assert got.shape == (RES * RES, 4) and np.isfinite(got).all()
-    assert _rmse(got, ref) < 1.5 * case["noise"], (_rmse(got, ref), case["noise"])
-    assert _mean_rel(got, ref) < 0.05
+    assert got.shape == (32 * 32, 4) and np.isfinite(got).all()
+    assert rmse(got, ref) < 1.5 * case["noise"], (rmse(got, ref), case["noise"])
+    assert mean_rel(got, ref) < 0.05
 
 
 def test_plain_matches_pallas_kernel_per_pixel(case):
@@ -95,8 +45,8 @@ def test_plain_matches_pallas_kernel_per_pixel(case):
 
 def test_plain_matches_chunked_engine(case):
     got, ref = case["plain"], case["chunked"][0]
-    assert _rmse(got, ref) < 1.5 * case["noise"], (_rmse(got, ref), case["noise"])
-    assert _mean_rel(got, ref) < 0.05
+    assert rmse(got, ref) < 1.5 * case["noise"], (rmse(got, ref), case["noise"])
+    assert mean_rel(got, ref) < 0.05
 
 
 def test_plain_is_deterministic_and_counts_no_launch(case):

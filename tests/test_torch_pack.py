@@ -106,3 +106,62 @@ def test_params_block_layout(grids, envs):
     assert tuple(pi[tpack.PI_N_BRICKS:tpack.PI_N_BRICKS + 3]) == ks.n_bricks
     assert pi[tpack.PI_MAX_ITERS] == (2048 + 512 * 3) * 8
     assert torch.equal(ks.env, envs[0].envmap.reshape(-1, 3))
+
+
+@pytest.fixture(scope="module")
+def tf_emission_scene(random_grid16):
+    """A JAX scene with a transfer function (moved window) and an emission
+    grid on another index grid, and the same scene in the port."""
+    from torch_reference import jax_renderer, port_inputs
+
+    from volren_tpu.scene.transferfunc import TransferFunction as JTransferFunction
+    from volren_tpu.voldata import DenseGrid as JDenseGrid
+
+    r = jax_renderer(random_grid16)
+    tf = JTransferFunction([(0.9, 0.2, 0.1, 0.3), (0.2, 0.9, 0.6, 0.1), (1.0, 1.0, 1.0, 0.9)])
+    tf.window_left, tf.window_width = 0.2, 0.6
+    r.set_transferfunc(tf)
+    temp = np.random.default_rng(4).random((8, 8, 8)).astype(np.float32) * 2.0
+    r.volume.update_grid_frame(0, JDenseGrid(8, 8, 8, temp, np.diag([2, 2, 2, 1])), "temperature")
+    r.emission_scale = 7.0
+    r.commit()
+    scene, params = r._scene_device(), r._trace_params()
+    pool = jpack.build_env_pool(scene, 5, 0)
+    return scene, params, port_inputs(scene, params, pool)
+
+
+def test_from_reference_takes_tf_and_emission(tf_emission_scene):
+    scene, params, (ref, ks, _pf, _pi) = tf_emission_scene
+    assert np.array_equal(ref.tf.lut.numpy(), np.asarray(scene.tf.lut))
+    assert (ref.tf.window_left, ref.tf.window_width) == (
+        float(np.float32(0.2)), float(np.float32(0.6)))
+    assert (np.diff(ref.tf.lut.numpy()[:, 3]) >= 0).all()   # the CDF rewrite
+    e, meta = ref.emission, np.asarray(scene.emission.brick_meta)
+    assert np.array_equal(e.atlas.numpy(), np.asarray(scene.emission.atlas))
+    assert np.array_equal(e.slot.numpy(), meta[..., 0].reshape(-1).astype(np.int32))
+    assert np.array_equal(e.hi.numpy(), meta[..., 2].reshape(-1))
+    assert e.n_bricks == tuple(scene.emission.n_bricks) == ks.emi_n_bricks == (1, 1, 1)
+    assert ref.params.emission_scale == 7.0
+    assert ref.params.emission_norm == float(np.asarray(params.emission_norm)) != 1.0
+    assert ref.mip_tf is None and ks.mip_tf is None
+
+
+def test_params_slots_of_tf_and_emission_match_reference(tf_emission_scene):
+    """build_params' TF and emission slots against build_params_rows' row:
+    the window, the emission scale and norm, and the composed
+    density-index -> emission-index transform (here diag(1/2))."""
+    scene, params, (_ref, ks, pf, pi) = tf_emission_scene
+    jpf = np.asarray(jpack.build_params_rows(scene, params, 32, 32, 0)[0]).reshape(-1)
+    for ours, theirs in ((tpack.PF_TF_LEFT, jpack.PF_TF_LEFT),
+                         (tpack.PF_TF_WIDTH, jpack.PF_TF_WIDTH),
+                         (tpack.PF_EMI_SCALE, jpack.PF_EMI_SCALE),
+                         (tpack.PF_EMI_NORM, jpack.PF_EMI_NORM),
+                         (tpack.PF_MAJORANT, jpack.PF_MAJORANT),
+                         (tpack.PF_INV_MAJORANT, jpack.PF_INV_MAJORANT)):
+        assert pf[ours] == jpf[theirs], ours
+    emi_x = pf[tpack.PF_EMI_X:tpack.PF_EMI_X + 16]
+    assert np.array_equal(emi_x, jpf[jpack.PF_EMI_X:jpack.PF_EMI_X + 16])
+    assert np.array_equal(emi_x.reshape(4, 4)[:3, :3], np.eye(3) * 0.5)
+    assert pi[tpack.PI_TF_SIZE] == 3
+    assert tuple(pi[tpack.PI_EMI_N_BRICKS:tpack.PI_EMI_N_BRICKS + 3]) == (1, 1, 1)
+    assert pi[tpack.PI_EMI_N_SLOTS] == scene.emission.atlas.shape[0] == ks.emi_atlas.shape[0]

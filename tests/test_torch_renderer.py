@@ -14,11 +14,14 @@ from volren_tpu.renderer import Renderer as JRenderer
 from volren_tpu.voldata import DenseGrid as JDenseGrid
 from volren_tpu.voldata import Volume as JVolume
 from volren_tpu_torch import cli
+from volren_tpu_torch import renderer as renderer_module
 from volren_tpu_torch.ops.kernels import megakernel
 from volren_tpu_torch.ops.kernels import pack as tpack
 from volren_tpu_torch.renderer import DISPATCH_SPP, Renderer
+from volren_tpu_torch.scene.transferfunc import TransferFunction
 from volren_tpu_torch.voldata import DenseGrid, Volume, build_brick_grid, write_brick
 
+LUT = [(0.9, 0.2, 0.1, 0.0), (0.2, 0.9, 0.6, 0.7), (1.0, 1.0, 1.0, 1.0)]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "volren_tpu_torch")
 
@@ -96,14 +99,82 @@ def test_trace_params_match_reference(random_grid16):
 
 
 def test_unported_variants_raise(random_grid16):
+    """The TF and emission variants are ported (below); what is left of
+    them, the colormap LUTs, raises naming its ROADMAP item, and a
+    parameter block built for another variant is refused."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TransferFunction().colormap("viridis")
     r = _renderer(random_grid16)
-    r.transferfunc = object()
-    with pytest.raises(NotImplementedError, match="K2"):
-        r.trace(1)
-    r.transferfunc = None
-    r.volume.grids[0]["temperature"] = r.volume.grids[0]["density"]
-    with pytest.raises(NotImplementedError, match="K3"):
-        r.commit()
+    ks = r._kernel_scene()
+    pf, pi = tpack.build_params(ks, r._trace_params(), 8, 8, 0, 1)
+    pool = tpack.build_env_pool(r._env_device, 5, 0)
+    r.set_transferfunc(TransferFunction(LUT))
+    with pytest.raises(ValueError, match="variant"):
+        megakernel.render(r._kernel_scene(), pool, pf, pi)
+
+
+def test_tf_render_on_cpu(random_grid16, monkeypatch):
+    """A TF scene renders through the plain version; the majorant table is
+    baked once per trace, from the trace's parameters."""
+    bakes = []
+    real_bake = renderer_module.bake_tf_majorant
+
+    def spy_bake(ks, params):
+        bakes.append(params.density_scale)
+        return real_bake(ks, params)
+
+    monkeypatch.setattr(renderer_module, "bake_tf_majorant", spy_bake)
+    r = _renderer(random_grid16, res=16)
+    r.set_transferfunc(TransferFunction(LUT))
+    r.trace(2)
+    assert r.last_engine == "torch_plain" and len(bakes) == 1
+    fb = r.framebuffer()
+    assert fb.shape == (16, 16, 4) and bool(torch.isfinite(fb).all())
+    assert float(fb[..., :3].mean()) > 0.0
+    r.set_transferfunc(None)
+    r.trace(1)
+    assert len(bakes) == 1
+
+
+def test_emission_render_on_cpu(random_grid16):
+    """A frame's temperature grid, on its own index grid at half the
+    density's resolution, makes the volume glow: red above blue."""
+    r = _renderer(random_grid16, res=16)
+    zz, yy, xx = np.meshgrid(*([np.arange(8)] * 3), indexing="ij")
+    hot = np.clip(1.0 - np.sqrt((xx - 4) ** 2 + (yy - 4) ** 2 + (zz - 4) ** 2) / 4.0, 0, 1) ** 2
+    r.volume.update_grid_frame(0, DenseGrid(8, 8, 8, hot, np.diag([2, 2, 2, 1])), "temperature")
+    r.commit()
+    assert r._majorant_emission == 1.0 and r._trace_params().emission_norm == 1.0
+    ks = r._kernel_scene()
+    assert ks.emi_atlas is not None and ks.tf is None
+    assert np.array_equal(ks.emi_x[:3, :3], np.eye(3, dtype=np.float32) * 0.5)
+    r.trace(2)
+    assert r.last_engine == "torch_plain"
+    fb = r.framebuffer()
+    assert fb.shape == (16, 16, 4) and bool(torch.isfinite(fb).all())
+    assert float((fb[..., 0] - fb[..., 2]).max()) > 0.0
+
+
+def test_cli_transfer_function_flags(tmp_path, random_grid16):
+    """A .txt path is a LUT and hides the environment; --fau is the
+    built-in LUT; --tf_left / --tf_width set its window after it is
+    loaded, wherever they stand on the line (volren_tpu.cli's order)."""
+    vol = tmp_path / "grid.brick"
+    write_brick(str(vol), build_brick_grid(random_grid16))
+    lut = tmp_path / "lut.txt"
+    TransferFunction(LUT).write_to_file(str(lut))
+    base = [str(vol), "--render", "-w", "4", "-h", "4", "--spp", "1", "--bounces", "2",
+            "--output", str(tmp_path / "img.png"), "--device", "cpu"]
+    r = cli.run(base + [str(lut), "--tf_width", "0.5"])[0]
+    assert np.array_equal(r.transferfunc.lut, TransferFunction(str(lut)).lut)
+    assert not r.show_environment and r.transferfunc.window_width == 0.5
+    assert r.transferfunc.window_left == 0.0 and r._tf_device.window_width == 0.5
+    r = cli.run(["--tf_left", "0.25"] + base + ["--fau", "--emission", "3"])[0]
+    assert np.array_equal(r.transferfunc.lut, np.asarray(cli.FAU_LUT, np.float32))
+    assert r.show_environment and r.transferfunc.window_left == 0.25
+    assert r.emission_scale == 3.0 and r.last_engine == "torch_plain"
+    assert bool(torch.isfinite(r.framebuffer()).all())
+    assert cli.run(base + ["--tf_left", "0.25"])[0].transferfunc is None
 
 
 def test_cuda_renderer_raises_without_card(monkeypatch):

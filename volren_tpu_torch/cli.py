@@ -1,13 +1,19 @@
 """Command-line interface: the ``--render`` path of volren_tpu.cli.
 
-    python -m volren_tpu_torch.cli VOLUME.brick [ENV.hdr] --render \\
+    python -m volren_tpu_torch.cli VOLUME.brick [ENV.hdr] [LUT.txt] --render \\
         [-w W] [-h H] [--spp N] [--bounces N] [--albedo A] [--density D]
-        [--phase G] [--env_strength S] [--env_rot DEG] [--env_hide]
+        [--emission E] [--phase G] [--env_strength S] [--env_rot DEG]
+        [--env_hide] [--fau] [--tf_left L] [--tf_width W]
         [--cam_pos X Y Z] [--cam_dir X Y Z] [--cam_fov DEG]
         [--exposure E] [--gamma G] [--output out.png] [--device cuda|cpu]
 
 A volume is a .brick or .dense file; without an .hdr the environment is
-white. ``--device`` defaults to cuda, and the CLI raises when no CUDA
+white. A .txt file is a transfer-function LUT (``%f, %f, %f, %f`` rows)
+and hides the environment, as volren_tpu.cli does; ``--fau`` selects the
+built-in 4-entry LUT instead. ``--tf_left`` / ``--tf_width`` set the
+density window of the LUT, after it is loaded, wherever they stand.
+``--emission`` scales a volume's emission grid; the port reads no VDB
+file yet, so emission grids reach the renderer through its API only. ``--device`` defaults to cuda, and the CLI raises when no CUDA
 device is present: it never drops to the CPU by itself. The offline loop
 traces in chunks of at most 64 samples per pixel and writes
 ``<output stem>_<frame:06d>.png`` per animation frame (main.cpp:524-558).
@@ -24,8 +30,18 @@ import torch
 
 from .renderer import DISPATCH_SPP, Renderer
 from .scene.environment import Environment, rotation_y
+from .scene.transferfunc import TransferFunction
 from .utils.image import save_ldr
 from .voldata import Volume
+
+
+# --fau: volren_tpu.cli's built-in LUT (cli.py:267-276)
+FAU_LUT = [
+    (0, 0, 0, 0),
+    (4 / 255, 49 / 255, 106 / 255, 0.33),
+    (38 / 255, 97 / 255, 65 / 255, 0.66),
+    (151 / 255, 27 / 255, 47 / 255, 1.0),
+]
 
 
 def _parse(argv: list[str]):
@@ -63,6 +79,12 @@ def _parse(argv: list[str]):
             settings.append(("albedo", np.full(3, float(take()), np.float32)))
         elif arg == "--density":
             settings.append(("density_scale", float(take())))
+        elif arg == "--emission":
+            settings.append(("emission_scale", float(take())))
+        elif arg == "--fau":
+            settings.append(("tf", FAU_LUT))
+        elif arg in ("--tf_left", "--tf_width"):
+            settings.append((arg[2:], float(take())))
         elif arg == "--phase":
             settings.append(("phase", float(take())))
         elif arg == "--env_strength":
@@ -103,8 +125,14 @@ def run(argv: list[str]):
                            "(pass --device cpu to run the plain torch version)")
     r = Renderer(device=device)
     env_strength = env_rot = None
+    luts = [TransferFunction(p) for p in paths if p.endswith(".txt")]
+    window = {}
     for key, val in settings:
-        if key == "env_strength":
+        if key == "tf":
+            luts.append(TransferFunction(val))
+        elif key in ("tf_left", "tf_width"):
+            window["window_" + key[3:]] = val
+        elif key == "env_strength":
             env_strength = val
         elif key == "env_rot":
             env_rot = val
@@ -116,7 +144,7 @@ def run(argv: list[str]):
             r.cam.fov_degree = val
         else:
             setattr(r, key, val)
-    volumes = [p for p in paths if not p.endswith(".hdr")]
+    volumes = [p for p in paths if not p.endswith((".hdr", ".txt"))]
     envs = [p for p in paths if p.endswith(".hdr")]
     if len(volumes) != 1:
         raise ValueError(f"need exactly one volume (.brick or .dense), got {volumes}")
@@ -126,6 +154,12 @@ def run(argv: list[str]):
     if env_rot is not None:
         env.transform = rotation_y(env_rot)
     r.set_environment(env)
+    if any(p.endswith(".txt") for p in paths):
+        r.show_environment = False
+    if luts:  # the last LUT wins (LUT files before --fau), then the window
+        for key, val in window.items():
+            setattr(luts[-1], key, val)
+        r.set_transferfunc(luts[-1])
     r.init(opts["width"], opts["height"])
     print(f"load volume: {volumes[0]}")
     density = r.density_scale

@@ -1,27 +1,38 @@
 // The volume path-tracing megakernel for NVIDIA Hopper (sm_90a).
 //
-// Replaces volren_tpu/ops/pallas/kernel.py::_make_kernel (the no-TF,
-// no-emission variant, in both its VMEM-atlas and HBM-atlas modes): for
-// every pixel, `spp` full volumetric path samples, written once as the
-// per-pixel SUM over samples of (L.rgb, alpha). The plain torch version of
-// the same function is volren_tpu_torch/ops/kernels/megakernel.py::
-// render_plain; this file repeats its arithmetic operation for operation
-// (built with -fmad=false, IEEE division and square root).
+// Replaces volren_tpu/ops/pallas/kernel.py::_make_kernel in all four of
+// its scene variants (in both its VMEM-atlas and HBM-atlas modes): the
+// no-TF, no-emission kernel, the TF variant (`use_tf`, kernel.py:635) and
+// the emission variant (`has_emi`, kernel.py:636), here the template
+// parameters USE_TF and HAS_EMI. For every pixel, `spp` full volumetric
+// path samples, written once as the per-pixel SUM over samples of (L.rgb,
+// alpha). The plain torch version of the same function is
+// volren_tpu_torch/ops/kernels/megakernel.py::render_plain; this file
+// repeats its arithmetic operation for operation (built with -fmad=false,
+// IEEE division and square root).
 //
 // What bounds it on this card: dependent, latency-bound gathers (majorant
 // pyramid, brick slot/range, u8 atlas byte, environment texel, NEE pool
 // row) inside a divergent per-thread loop, not bytes or FLOPs. A DDA
 // substep is ~60 instructions around one majorant load; a collision test
-// adds a brick-meta load feeding an atlas load.
+// adds a brick-meta load feeding an atlas load. The TF variant's exact
+// trilinear density is 8 such meta -> atlas chains per collision test and
+// 8 more per NEE (the tint), then two LUT loads; the emission variant adds
+// one more chain into a second brick grid per extend-lane test.
 //
 // What the design does about it: one thread owns one pixel and runs its
 // samples back to back, so threads of a warp trace neighbouring pixels
 // (coherent first bounces, shared cache lines). Every table stays in
 // global memory and L2-resident: the 512x512x256 cloud is a 10 MB atlas
-// plus about 2 MB of meta, mips, environment and pool, against 50 MB of
-// L2, so the TPU kernel's HBM-atlas DMA machinery has no counterpart here.
-// No atomics touch the image: each thread sums its samples in sample order
-// in registers, so the image is bitwise identical from run to run.
+// plus about 2 MB of meta, mips, environment and pool, a half-resolution
+// emission grid a few MB more, a LUT a few KB, against 50 MB of L2, so the
+// TPU kernel's HBM-atlas DMA machinery and its compaction / route-back
+// serve rounds (which fed the TF trilinear and the emission fetch) have no
+// counterpart here: a thread loads what it needs. Each variant is its own
+// instantiation, so the no-TF kernel carries none of the others' code or
+// registers. No atomics touch the image: each thread sums its samples in
+// sample order in registers, so the image is bitwise identical from run to
+// run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,13 +42,17 @@ namespace {
 // slot indices of the parameter block; must match
 // volren_tpu_torch/ops/kernels/pack.py
 constexpr int PF_CAM_POS = 0, PF_CAM_XFORM = 3, PF_ZCAM = 12, PF_BB_MIN = 13,
-              PF_BB_MAX = 16, PF_ALBEDO = 21, PF_PHASE_G = 24,
-              PF_DENSITY_SCALE = 25, PF_INV_XFORM = 26, PF_ENV_INV = 42,
-              PF_ENV_STRENGTH = 51, PF_IMP_AVG = 52, PF_SHOW_ENV = 53;
+              PF_BB_MAX = 16, PF_MAJORANT = 19, PF_INV_MAJORANT = 20,
+              PF_ALBEDO = 21, PF_PHASE_G = 24, PF_DENSITY_SCALE = 25,
+              PF_INV_XFORM = 26, PF_ENV_INV = 42, PF_ENV_STRENGTH = 51,
+              PF_IMP_AVG = 52, PF_SHOW_ENV = 53, PF_TF_LEFT = 54,
+              PF_TF_WIDTH = 55, PF_EMI_SCALE = 56, PF_EMI_NORM = 57,
+              PF_EMI_X = 58;
 constexpr int PI_WIDTH = 0, PI_HEIGHT = 1, PI_SPP_BASE = 2, PI_BOUNCES = 3,
               PI_SEED = 4, PI_SPP = 5, PI_N_BRICKS = 6, PI_N_SLOTS = 9,
               PI_ENV_H = 10, PI_ENV_W = 11, PI_MIP_DIMS = 12,
-              PI_MIP_OFFSETS = 24, PI_MAX_ITERS = 28;
+              PI_MIP_OFFSETS = 24, PI_MAX_ITERS = 28, PI_TF_SIZE = 29,
+              PI_EMI_N_BRICKS = 30, PI_EMI_N_SLOTS = 33;
 constexpr int POOL_N = 16384;
 
 constexpr double PI_D = 3.14159265358979323846;
@@ -48,6 +63,8 @@ constexpr float TWO_PI = float(2.0 * PI_D);
 constexpr float SIXTH = float(1.0 / 6.0);
 constexpr float INV_255 = float(1.0 / 255.0);
 constexpr float INV_2_24 = float(1.0 / 16777216.0);
+// upper clamp of the TF window coordinate (ops/transfer.py WINDOW_MAX)
+constexpr float TF_WINDOW_MAX = float(1.0 - 1e-6);
 
 enum { MODE_INACTIVE = 0, MODE_REGEN = 1, MODE_EXTEND = 2, MODE_SHADOW = 3 };
 enum { EV_NONE = 0, EV_EXT_HIT = 1, EV_EXT_EXIT = 2, EV_SH_HIT = 3,
@@ -56,20 +73,28 @@ enum { EV_NONE = 0, EV_EXT_HIT = 1, EV_EXT_EXIT = 2, EV_SH_HIT = 3,
 struct Params {
   float cam_pos[3], cam_m[9], z_cam, bb_min[3], bb_max[3], albedo[3];
   float phase_g, density_scale, inv_x[16], env_inv[9], env_strength, imp_avg;
+  float majorant, inv_majorant, tf_left, tf_width, emi_scale, emi_norm, emi_x[16];
   int show_env, width, height, spp_base, bounces, spp;
   uint32_t seed;
-  int nbx, nby, nbz, n_slots, env_h, env_w, mip_dims[12], mip_offsets[4];
-  int max_iters;
+  int env_h, env_w, mip_dims[12], mip_offsets[4];
+  int max_iters, tf_size;
 };
 
-struct Tables {
+// one brick grid: u8 atlas (slots, 512), per-brick slot / decode range
+struct BrickGrid {
   const uint8_t* __restrict__ atlas;
   const int* __restrict__ slot;
   const float* __restrict__ lo;
   const float* __restrict__ hi;
-  const float* __restrict__ mip;
+  int nbx, nby, nbz, n_slots;
+};
+
+struct Tables {
+  BrickGrid dens, emi;                 // emi: HAS_EMI only
+  const float* __restrict__ mip;       // USE_TF: the TF-baked table
   const float* __restrict__ env;
   const float* __restrict__ pool;
+  const float* __restrict__ tf_lut;    // USE_TF only: (tf_size, 4) RGBA
 };
 
 // NaN-propagating min / max (torch.minimum / maximum / clamp semantics)
@@ -197,6 +222,7 @@ __device__ __forceinline__ void setup_ray(const Params& P, Lane& s, const float 
   for (int k = 0; k < 3; ++k) s.ri[k] = 1.0f / s.id[k];
 }
 
+template <bool USE_TF>
 __device__ __forceinline__ float majorant_at(const Params& P, const Tables& T,
                                              const float c[3], int mip_i) {
   const int ix = int(floorf(c[0])), iy = int(floorf(c[1])), iz = int(floorf(c[2]));
@@ -209,6 +235,7 @@ __device__ __forceinline__ float majorant_at(const Params& P, const Tables& T,
     const int bzm = clampi(iz >> (3 + m), 0, mz - 1);
     if (mip_i == m) idx = P.mip_offsets[m] + (bzm * my + bym) * mx + bxm;
   }
+  if (USE_TF) return T.mip[idx];  // baked: majorant * tf_alpha(...)
   return P.density_scale * T.mip[idx];
 }
 
@@ -242,19 +269,54 @@ __device__ __forceinline__ void stochastic_tricubic(const float pos[3], uint32_t
   for (int k = 0; k < 3; ++k) tap[k] = iip[k] + idxf[k] - 1.0f;
 }
 
-__device__ __forceinline__ float lookup_density(const Params& P, const Tables& T,
-                                                const float tap[3]) {
-  const int vx = clampi(int(tap[0]), 0, P.nbx * 8 - 1);
-  const int vy = clampi(int(tap[1]), 0, P.nby * 8 - 1);
-  const int vz = clampi(int(tap[2]), 0, P.nbz * 8 - 1);
-  const int bidx = (vz >> 3) * (P.nby * P.nbx) + (vy >> 3) * P.nbx + (vx >> 3);
+__device__ __forceinline__ float lookup_brick(const BrickGrid& G, const float tap[3]) {
+  const int vx = clampi(int(tap[0]), 0, G.nbx * 8 - 1);
+  const int vy = clampi(int(tap[1]), 0, G.nby * 8 - 1);
+  const int vz = clampi(int(tap[2]), 0, G.nbz * 8 - 1);
+  const int bidx = (vz >> 3) * (G.nby * G.nbx) + (vy >> 3) * G.nbx + (vx >> 3);
   const int voff = (vz & 7) * 64 + (vy & 7) * 8 + (vx & 7);
-  const int slot = clampi(T.slot[bidx], 0, P.n_slots - 1);
-  const float unorm = float(T.atlas[size_t(slot) * 512 + voff]) * INV_255;
-  const float lo = T.lo[bidx], hi = T.hi[bidx];
+  const int slot = clampi(G.slot[bidx], 0, G.n_slots - 1);
+  const float unorm = float(G.atlas[size_t(slot) * 512 + voff]) * INV_255;
+  const float lo = G.lo[bidx], hi = G.hi[bidx];
   return lo + unorm * (hi - lo);
 }
 
+// exact trilinear density (kernel.py trilinear_compact): 8 corners, dx
+// fastest, acc + w * decode, then * density_scale
+__device__ __forceinline__ float trilinear(const Params& P, const BrickGrid& G,
+                                           const float pos[3]) {
+  float base[3], frac[3];
+  for (int k = 0; k < 3; ++k) {
+    const float p = pos[k] - 0.5f;
+    base[k] = floorf(p);
+    frac[k] = p - base[k];
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int dx = i & 1, dy = (i >> 1) & 1, dz = i >> 2;
+    const float w = (dx ? frac[0] : 1.0f - frac[0]) * (dy ? frac[1] : 1.0f - frac[1]) *
+                    (dz ? frac[2] : 1.0f - frac[2]);
+    const float tap[3] = {base[0] + float(dx), base[1] + float(dy), base[2] + float(dz)};
+    acc = acc + w * lookup_brick(G, tap);
+  }
+  return P.density_scale * acc;
+}
+
+// windowed, lerped LUT fetch (ops/transfer.py, common.glsl:195-212) of
+// channels [c0, c0 + n) at normalised density d
+__device__ __forceinline__ void tf_channels(const Params& P, const float* __restrict__ lut,
+                                            float d, int c0, int n, float out[]) {
+  const float tc = vmin(vmax((d - P.tf_left) / P.tf_width, 0.0f), TF_WINDOW_MAX) *
+                   float(P.tf_size);
+  const int idx = clampi(int(floorf(tc)), 0, P.tf_size - 1);
+  const float fr = tc - float(idx);
+  const int idx1 = min(idx + 1, P.tf_size - 1);
+  for (int k = 0; k < n; ++k)
+    out[k] = lut[4 * idx + c0 + k] * (1.0f - fr) + lut[4 * idx1 + c0 + k] * fr;
+}
+
+template <bool USE_TF, bool HAS_EMI>
 __global__ void __launch_bounds__(128)
 megakernel(const Params P, const Tables T, float* __restrict__ out, int n_pix) {
   const int pix = blockIdx.x * blockDim.x + threadIdx.x;
@@ -314,7 +376,7 @@ megakernel(const Params P, const Tables T, float* __restrict__ out, int n_pix) {
       float curr[3];
       for (int k = 0; k < 3; ++k) curr[k] = s.i0[k] + s.t * s.id[k];
       const int mip_i = int(rintf(s.mip));   // round half to even
-      const float maj = majorant_at(P, T, curr, mip_i);
+      const float maj = majorant_at<USE_TF>(P, T, curr, mip_i);
       const float dim = float(8 << mip_i);
       const float inv_dim = 1.0f / dim;      // exact: a power of two
       float dts[3];
@@ -340,15 +402,40 @@ megakernel(const Params P, const Tables T, float* __restrict__ out, int n_pix) {
       }
     }
 
-    // ---- null-collision test (resolve_tests + stochastic_tricubic +
-    // lookup_density_brick)
+    // ---- null-collision test (resolve_tests: stochastic_tricubic +
+    // lookup_density_brick, or the TF trilinear; then the emission tap)
     if (s.event == EV_TEST) {
       const bool is_extend = s.mode == MODE_EXTEND;
       const float maj = s.tau;
-      float pos[3], tap[3];
+      float pos[3];
       for (int k = 0; k < 3; ++k) pos[k] = s.i0[k] + s.t * s.id[k];
-      stochastic_tricubic(pos, s.seed, tap);
-      const float d = P.density_scale * lookup_density(P, T, tap);
+      float d;
+      if (USE_TF) {
+        // the exact trilinear density through the LUT alpha; no draws
+        float a_tf;
+        tf_channels(P, T.tf_lut, trilinear(P, T.dens, pos) * P.inv_majorant, 3, 1, &a_tf);
+        d = P.majorant * a_tf;
+      } else {
+        float tap[3];
+        stochastic_tricubic(pos, s.seed, tap);
+        d = P.density_scale * lookup_brick(T.dens, tap);
+      }
+      if (HAS_EMI && is_extend) {
+        // emission (common.glsl:324-328): 9 draws after the density
+        // fetch, before u_cls, extend lanes only
+        const float* m = P.emi_x;
+        const float epos[3] = {pos[0] * m[0] + pos[1] * m[1] + pos[2] * m[2] + m[3],
+                               pos[0] * m[4] + pos[1] * m[5] + pos[2] * m[6] + m[7],
+                               pos[0] * m[8] + pos[1] * m[9] + pos[2] * m[10] + m[11]};
+        float etap[3];
+        stochastic_tricubic(epos, s.seed, etap);
+        const float t_e = lookup_brick(T.emi, etap) * P.emi_norm;
+        const float t2 = t_e * t_e;
+        const float e3[3] = {t2, t2 * t2, (t2 * t2) * (t2 * t2)};
+        const float wgt_e = d * P.inv_majorant;
+        for (int k = 0; k < 3; ++k)
+          s.L[k] = s.L[k] + s.th[k] * (1.0f - P.albedo[k]) * (P.emi_scale * e3[k]) * wgt_e;
+      }
       const float u_cls = rng(s.seed, true);
       const bool real = u_cls * vmax(maj, 0.0f) < d;
       const float u_tau = rng(s.seed, !real);
@@ -363,6 +450,14 @@ megakernel(const Params P, const Tables T, float* __restrict__ out, int n_pix) {
 
     // ---- next-event estimation from the alias pool (phase_nee)
     if (s.event == EV_EXT_HIT) {
+      float mult[3] = {P.albedo[0], P.albedo[1], P.albedo[2]};
+      if (USE_TF) {
+        // tint by the LUT colour at the collision; no draws
+        float pos[3], rgb[3];
+        for (int k = 0; k < 3; ++k) pos[k] = s.i0[k] + s.t * s.id[k];
+        tf_channels(P, T.tf_lut, trilinear(P, T.dens, pos) * P.inv_majorant, 0, 3, rgb);
+        for (int k = 0; k < 3; ++k) mult[k] = P.albedo[k] * rgb[k];
+      }
       const float u0 = rng(s.seed, true);
       rng(s.seed, true);
       const int pidx = clampi(int(u0 * float(POOL_N)), 0, POOL_N - 1);
@@ -371,7 +466,7 @@ megakernel(const Params P, const Tables T, float* __restrict__ out, int n_pix) {
       const float w_i[3] = {r0.x, r0.y, r0.z};
       const float pdf_nee = r0.w;
       const float le[3] = {r1.x, r1.y, r1.z};
-      for (int k = 0; k < 3; ++k) s.th[k] = s.th[k] * P.albedo[k];
+      for (int k = 0; k < 3; ++k) s.th[k] = s.th[k] * mult[k];
       float org[3];
       for (int k = 0; k < 3; ++k) org[k] = s.po[k] + s.t * s.pd[k];
       for (int k = 0; k < 3; ++k) s.po[k] = org[k];
@@ -466,11 +561,17 @@ megakernel(const Params P, const Tables T, float* __restrict__ out, int n_pix) {
 
 // Host entry, bound with ctypes. `pf` / `pi` are HOST arrays (the parameter
 // block of pack.build_params); every other pointer is device memory. The
-// launch goes on `stream`; returns cudaGetLastError() of the launch.
+// parameter block selects the variant: pi[PI_TF_SIZE] > 0 needs `tf_lut`
+// (and `mip` is then the TF-baked table), pi[PI_EMI_N_SLOTS] > 0 needs the
+// four emission tables; pointers of an absent variant may be null. The
+// launch goes on `stream`; returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue for a missing table.
 extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
                              const void* slot, const void* lo, const void* hi,
                              const void* mip, const void* env, const void* pool,
-                             void* out, int n_pix, void* stream) {
+                             const void* tf_lut, const void* emi_atlas,
+                             const void* emi_slot, const void* emi_lo,
+                             const void* emi_hi, void* out, int n_pix, void* stream) {
   if (n_pix <= 0) return 0;
   Params P;
   for (int k = 0; k < 3; ++k) {
@@ -483,12 +584,21 @@ extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
     P.cam_m[k] = pf[PF_CAM_XFORM + k];
     P.env_inv[k] = pf[PF_ENV_INV + k];
   }
-  for (int k = 0; k < 16; ++k) P.inv_x[k] = pf[PF_INV_XFORM + k];
+  for (int k = 0; k < 16; ++k) {
+    P.inv_x[k] = pf[PF_INV_XFORM + k];
+    P.emi_x[k] = pf[PF_EMI_X + k];
+  }
   P.z_cam = pf[PF_ZCAM];
   P.phase_g = pf[PF_PHASE_G];
   P.density_scale = pf[PF_DENSITY_SCALE];
   P.env_strength = pf[PF_ENV_STRENGTH];
   P.imp_avg = pf[PF_IMP_AVG];
+  P.majorant = pf[PF_MAJORANT];
+  P.inv_majorant = pf[PF_INV_MAJORANT];
+  P.tf_left = pf[PF_TF_LEFT];
+  P.tf_width = pf[PF_TF_WIDTH];
+  P.emi_scale = pf[PF_EMI_SCALE];
+  P.emi_norm = pf[PF_EMI_NORM];
   P.show_env = pf[PF_SHOW_ENV] > 0.0f ? 1 : 0;
   P.width = pi[PI_WIDTH];
   P.height = pi[PI_HEIGHT];
@@ -496,26 +606,34 @@ extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
   P.bounces = pi[PI_BOUNCES];
   P.seed = uint32_t(pi[PI_SEED]);
   P.spp = pi[PI_SPP];
-  P.nbx = pi[PI_N_BRICKS];
-  P.nby = pi[PI_N_BRICKS + 1];
-  P.nbz = pi[PI_N_BRICKS + 2];
-  P.n_slots = pi[PI_N_SLOTS];
   P.env_h = pi[PI_ENV_H];
   P.env_w = pi[PI_ENV_W];
   for (int k = 0; k < 12; ++k) P.mip_dims[k] = pi[PI_MIP_DIMS + k];
   for (int k = 0; k < 4; ++k) P.mip_offsets[k] = pi[PI_MIP_OFFSETS + k];
   P.max_iters = pi[PI_MAX_ITERS];
+  P.tf_size = pi[PI_TF_SIZE];
   Tables T;
-  T.atlas = static_cast<const uint8_t*>(atlas);
-  T.slot = static_cast<const int*>(slot);
-  T.lo = static_cast<const float*>(lo);
-  T.hi = static_cast<const float*>(hi);
+  T.dens = {static_cast<const uint8_t*>(atlas), static_cast<const int*>(slot),
+            static_cast<const float*>(lo), static_cast<const float*>(hi),
+            pi[PI_N_BRICKS], pi[PI_N_BRICKS + 1], pi[PI_N_BRICKS + 2], pi[PI_N_SLOTS]};
+  T.emi = {static_cast<const uint8_t*>(emi_atlas), static_cast<const int*>(emi_slot),
+           static_cast<const float*>(emi_lo), static_cast<const float*>(emi_hi),
+           pi[PI_EMI_N_BRICKS], pi[PI_EMI_N_BRICKS + 1], pi[PI_EMI_N_BRICKS + 2],
+           pi[PI_EMI_N_SLOTS]};
   T.mip = static_cast<const float*>(mip);
   T.env = static_cast<const float*>(env);
   T.pool = static_cast<const float*>(pool);
+  T.tf_lut = static_cast<const float*>(tf_lut);
+  const bool use_tf = P.tf_size > 0, has_emi = T.emi.n_slots > 0;
+  if ((use_tf && !tf_lut) ||
+      (has_emi && !(emi_atlas && emi_slot && emi_lo && emi_hi)))
+    return int(cudaErrorInvalidValue);
+  void (*kernel)(const Params, const Tables, float*, int) =
+      use_tf ? (has_emi ? megakernel<true, true> : megakernel<true, false>)
+             : (has_emi ? megakernel<false, true> : megakernel<false, false>);
   const int threads = 128;
   const int blocks = (n_pix + threads - 1) / threads;
-  megakernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       P, T, static_cast<float*>(out), n_pix);
   return int(cudaGetLastError());
 }

@@ -2,24 +2,30 @@
 
     python -m volren_tpu_torch.measure [--seed N] [--reps N]
 
-Run from the repository root on a machine with a CUDA card. The scene is
+Run from the repository root on a machine with a CUDA card. The scenes are
 the end-to-end metric's: .scene_cache/cloud512.brick at 1024x1024, 100
-bounces, under the procedural sky of ``--seed`` (chip_smoke.py's). Prints:
+bounces, under the procedural sky of ``--seed`` (chip_smoke.py's), in the
+kernel's three user paths: the plain density render, the TF render
+(cloud512 with the CLI's ``--fau`` LUT) and the emission render (cloud512
+with the half-resolution temperature grid of ``temperature_grid``).
+Prints:
 
-1. spp/s: the median of ``--reps`` x ``trace(256)`` after a warm-up,
-   timed on the host clock with a device sync at both ends;
-2. one trace(256) taken apart: the kernel time of each of its four 64-spp
-   dispatches (CUDA events), the host time of the NEE pool draw and of the
-   parameter block, and the device busy share, the kernels' sum over the
-   median trace(256);
-3. the device time torch.profiler attributes over one trace(256);
+1. spp/s of each path: the median of ``--reps`` x ``trace(256)`` after a
+   warm-up, timed on the host clock with a device sync at both ends;
+2. one trace(256) of each path taken apart: the kernel time of each of
+   its four 64-spp dispatches (CUDA events), the host time of the NEE pool
+   draw and of the parameter block, and the device busy share, the
+   kernels' sum over the median trace(256);
+3. the device time torch.profiler attributes over one plain trace(256);
 4. multiply-add contraction: the kernel built without ``-fmad=false``
    against the shipped build, alternating off/on/on/off, at 16 spp, with
    the image difference against the seed-to-seed noise;
-5. spp/s against resolution and bounce cap (trace(64), median of 3).
+5. spp/s of the plain path against resolution and bounce cap (trace(64),
+   median of 3).
 
 Every line carries the card's name and power limit as nvidia-smi gives
-them.
+them. The module also holds what chip_smoke.py shares with it: the three
+paths' renderers and the kernel's work bound (``kernel_bound``).
 """
 
 from __future__ import annotations
@@ -34,17 +40,99 @@ import time
 import numpy as np
 import torch
 
+from .cli import FAU_LUT
 from .ops.kernels import megakernel
 from .ops.kernels.pack import build_env_pool, build_params
 from .renderer import DISPATCH_SPP, Renderer
 from .scene.environment import Environment, procedural_sky
+from .scene.transferfunc import TransferFunction
 from .utils.hdr import write_hdr
-from .voldata import Volume
+from .voldata import DenseGrid, Volume
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLOUD = os.path.join(REPO, ".scene_cache", "cloud512.brick")
 OUT_DIR = os.path.join(REPO, "build", "measure")
 RES, BOUNCES, METRIC_SPP = 1024, 100, 256
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, 700 W): HBM
+# bytes/s and float32 operations/s outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+
+# float32 operations of one event, counted by hand from csrc/megakernel.cu
+# (each add, multiply, divide, compare, min/max, conversion and
+# transcendental is one): a march substep with the per-iteration
+# bookkeeping of the finish phase, a null-collision test (plain or TF:
+# 8-corner trilinear and the LUT alpha), an emission tap, an NEE (plain or
+# with the TF tint: a second trilinear and 3 LUT channels), an escape with
+# its accumulation, an HG scatter with its ray set-up, a sample start.
+OPS_PER_EVENT = {
+    "regen": 120, "march": 73, "test": 183, "test_tf": 154, "emission": 202,
+    "nee": 116, "nee_tf": 268, "escape": 74, "scatter": 157,
+}
+
+
+def kernel_bound(ks, pool: torch.Tensor, pi: np.ndarray, stats: dict):
+    """The least time the card could take for one dispatch:
+    max(bytes / peak bytes/s, float32 operations / peak float32/s).
+    Bytes: every table the kernel reads, once, and the (n_pix, 4) float32
+    output, once. Operations: the events this dispatch's data needs, from
+    ``render_plain(..., stats=stats)`` on the same inputs, times
+    OPS_PER_EVENT. Returns (ms, "bytes" | "operations", bytes, operations)."""
+    use_tf, has_emi = ks.tf is not None, ks.emi_atlas is not None
+    tables = [ks.atlas, ks.slot, ks.lo, ks.hi, ks.mip_tf if use_tf else ks.mip, ks.env, pool]
+    if use_tf:
+        tables.append(ks.tf.lut)
+    if has_emi:
+        tables += [ks.emi_atlas, ks.emi_slot, ks.emi_lo, ks.emi_hi]
+    n_pix = int(pi[0]) * int(pi[1])
+    n_bytes = sum(t.numel() * t.element_size() for t in tables) + n_pix * 4 * 4
+    weights = dict(OPS_PER_EVENT)
+    if use_tf:
+        weights["test"], weights["nee"] = weights["test_tf"], weights["nee_tf"]
+    ops = sum(weights[k] * int(stats.get(k, 0)) for k in megakernel.EVENTS)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            n_bytes, ops)
+
+
+def temperature_grid(w: int, h: int, d: int, seed: int) -> DenseGrid:
+    """A smooth hot core, clip(1 - r / (0.35 * w), 0, 1)^2 around a point
+    near the box centre (jittered by ``seed``), as a w x h x d DenseGrid
+    with transform diag(2, 2, 2, 1): it covers a 2w x 2h x 2d density
+    index box at half its resolution."""
+    c = (np.array([w, h, d]) * 0.5 * (1.0 + 0.1 * np.random.default_rng(seed).uniform(-1, 1, 3)))
+    z, y, x = np.meshgrid(np.arange(d, dtype=np.float32), np.arange(h, dtype=np.float32),
+                          np.arange(w, dtype=np.float32), indexing="ij")
+    r = np.sqrt((x + 0.5 - c[0]) ** 2 + (y + 0.5 - c[1]) ** 2 + (z + 0.5 - c[2]) ** 2)
+    hot = np.clip(1.0 - r / (0.35 * w), 0.0, 1.0) ** 2
+    return DenseGrid(w, h, d, hot.astype(np.float32), np.diag([2.0, 2.0, 2.0, 1.0]))
+
+
+def path_renderer(volume: Volume, sky: Environment, res: int, seed: int, path: str = "plain",
+                  bounces: int = BOUNCES, device="cuda") -> Renderer:
+    """A committed Renderer for one of the kernel's paths: "plain", "tf"
+    (the --fau LUT), "emission" (a temperature grid at half the density
+    grid's resolution, from ``seed``) or "tf+emission"."""
+    r = Renderer(device=device)
+    r.volume = volume
+    r.scale_and_move_to_unit_cube()
+    r.set_environment(sky)
+    r.bounces = bounces
+    r.seed = seed
+    if "tf" in path:
+        r.set_transferfunc(TransferFunction(FAU_LUT))
+    if "emission" in path:
+        w, h, d = (int(v) // 2 for v in volume.current_grid().index_extent())
+        volume.update_grid_frame(0, temperature_grid(w, h, d, seed), "temperature")
+    r.init(res, res)
+    r.commit()
+    return r
+
+
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
 
 
 def _sync():
@@ -69,6 +157,38 @@ def _event_ms(fn):
     return start.elapsed_time(end), out
 
 
+def _metric(r: Renderer, label: str, reps: int, seed: int, card: str):
+    """Sections 1-2 for one path: spp/s over ``reps`` x trace(256), then one
+    trace(256) taken apart."""
+    r.render(DISPATCH_SPP)
+    walls = []
+    for _ in range(reps):
+        r.reset()
+        walls.append(_wall(lambda: r.trace(METRIC_SPP)))
+    rates = [METRIC_SPP / w for w in walls]
+    wall = statistics.median(walls)
+    fb = r.framebuffer()
+    print(f"spp/s, {label} {RES}x{RES}, {BOUNCES} bounces, {reps} x trace({METRIC_SPP}): "
+          f"median {METRIC_SPP / wall!r}, all {rates!r}; framebuffer mean "
+          f"{fb.mean((0, 1)).tolist()!r}; engine {r.last_engine} [{card}]", flush=True)
+
+    ks, tp = r._kernel_scene(), r._trace_params()
+    kernel_ms, pool_ms, params_ms = [], [], []
+    for base in range(0, METRIC_SPP, DISPATCH_SPP):
+        t = time.perf_counter()
+        pool = build_env_pool(r._env_device, seed, base)
+        _sync()
+        pool_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        pf, pi = build_params(ks, tp, RES, RES, base, DISPATCH_SPP)
+        params_ms.append((time.perf_counter() - t) * 1e3)
+        kernel_ms.append(_event_ms(lambda: megakernel.render(ks, pool, pf, pi))[0])
+    print(f"{label} trace({METRIC_SPP}) by dispatch: kernel ms {kernel_ms!r}, pool draw ms "
+          f"{pool_ms!r}, parameter block ms {params_ms!r}; device busy share "
+          f"{sum(kernel_ms) / (wall * 1e3)!r} of the median trace [{card}]", flush=True)
+    return ks, tp
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7, help="seed of the sky and the renders")
@@ -77,8 +197,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.splitlines()[0]
+    card = _card()
     lib_path = megakernel.build()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; ptxas: "
           f"{megakernel.resource_usage(lib_path)}", flush=True)
@@ -88,46 +207,17 @@ def main(argv=None) -> int:
     write_hdr(sky_path, procedural_sky(1024, 512, args.seed))
     sky = Environment(sky_path)
 
-    def renderer(res, bounces=BOUNCES):
-        r = Renderer(device="cuda")
-        r.volume = Volume(CLOUD)
-        r.scale_and_move_to_unit_cube()
-        r.set_environment(sky)
-        r.bounces = bounces
-        r.seed = args.seed
-        r.init(res, res)
-        r.commit()
-        return r
+    def renderer(res, bounces=BOUNCES, path="plain"):
+        return path_renderer(Volume(CLOUD), sky, res, args.seed, path, bounces)
 
-    # ---- 1. the end-to-end metric
+    # ---- 1-2. the end-to-end metric of each path, and a trace taken apart
     r = renderer(RES)
-    r.render(DISPATCH_SPP)
-    walls = []
-    for _ in range(args.reps):
-        r.reset()
-        walls.append(_wall(lambda: r.trace(METRIC_SPP)))
-    rates = [METRIC_SPP / w for w in walls]
-    wall = statistics.median(walls)
-    fb = r.framebuffer()
-    print(f"spp/s, cloud512 {RES}x{RES}, {BOUNCES} bounces, {args.reps} x trace({METRIC_SPP}): "
-          f"median {METRIC_SPP / wall!r}, all {rates!r}; framebuffer mean "
-          f"{fb.mean((0, 1)).tolist()!r} [{card}]", flush=True)
-
-    # ---- 2. one trace(256) taken apart
-    ks, tp = r._kernel_scene(), r._trace_params()
-    kernel_ms, pool_ms, params_ms = [], [], []
-    for base in range(0, METRIC_SPP, DISPATCH_SPP):
-        t = time.perf_counter()
-        pool = build_env_pool(r._env_device, args.seed, base)
-        _sync()
-        pool_ms.append((time.perf_counter() - t) * 1e3)
-        t = time.perf_counter()
-        pf, pi = build_params(ks, tp, RES, RES, base, DISPATCH_SPP)
-        params_ms.append((time.perf_counter() - t) * 1e3)
-        kernel_ms.append(_event_ms(lambda: megakernel.render(ks, pool, pf, pi))[0])
-    print(f"trace({METRIC_SPP}) by dispatch: kernel ms {kernel_ms!r}, pool draw ms "
-          f"{pool_ms!r}, parameter block ms {params_ms!r}; device busy share "
-          f"{sum(kernel_ms) / (wall * 1e3)!r} of the median trace [{card}]", flush=True)
+    ks, tp = _metric(r, "cloud512", args.reps, args.seed, card)
+    for path in ("tf", "emission"):
+        rp = renderer(RES, path=path)
+        _metric(rp, f"cloud512 {path}", args.reps, args.seed, card)
+        del rp
+        torch.cuda.empty_cache()
 
     # ---- 3. what torch.profiler sees over one trace(256)
     from torch.profiler import ProfilerActivity, profile

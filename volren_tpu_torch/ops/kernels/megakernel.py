@@ -2,17 +2,29 @@
 (``volren_tpu_torch/csrc/megakernel.cu``) on CUDA tensors and runs its
 plain torch version, ``render_plain``, on CPU tensors.
 
-Both compute what volren_tpu.ops.pallas.kernel computes in its no-TF,
-no-emission variant: for every pixel, ``spp`` volumetric path samples,
-returned as the per-pixel SUM over samples of (L.rgb, alpha). A sample
-is DDA null-collision tracking over the 4-level majorant pyramid with a
-stochastic-tricubic density tap into the u8 brick atlas, NEE from the
-pre-drawn alias pool with HG/environment MIS and a shadow ray, a
-stochastic-bilinear environment tap on escape, HG scatter, Russian
-roulette and a bounce cap. Each sample's random stream is seeded from
-(pixel, sample index) with TEA, so a sample's draws do not depend on the
-schedule; both versions make the Pallas phases' draws in the Pallas
-order.
+Both compute what volren_tpu.ops.pallas.kernel computes: for every pixel,
+``spp`` volumetric path samples, returned as the per-pixel SUM over
+samples of (L.rgb, alpha). A sample is DDA null-collision tracking over
+the 4-level majorant pyramid with a stochastic-tricubic density tap into
+the u8 brick atlas, NEE from the pre-drawn alias pool with
+HG/environment MIS and a shadow ray, a stochastic-bilinear environment
+tap on escape, HG scatter, Russian roulette and a bounce cap. Each
+sample's random stream is seeded from (pixel, sample index) with TEA, so a
+sample's draws do not depend on the schedule; both versions make the
+Pallas phases' draws in the Pallas order.
+
+The scene selects one of four variants, as the Pallas kernel's
+compile-time ``use_tf`` / ``has_emi`` do (kernel.py:635-636):
+
+- TF (``ks.tf``): the null-collision test classifies the EXACT 8-corner
+  trilinear density through the LUT alpha (``d = majorant * a_tf``, no
+  tricubic draws), the NEE tints the throughput by ``albedo * tf(d).rgb``
+  at the collision, and the march reads the TF-baked majorant table
+  ``ks.mip_tf`` without a density_scale factor;
+- emission (``ks.emi_atlas``): after the density fetch and before the
+  classification draw, extend lanes take a stochastic-tricubic tap (9
+  draws) of the emission grid and add
+  ``th * (1 - albedo) * emission_scale * (t^2, t^4, t^8) * d / majorant``.
 
 The plain version is the Pallas kernel's strip mode with one march
 substep per step: every pixel is a lane, and each step runs
@@ -25,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,16 +49,23 @@ from ..geometry import (INV_4PI, M_PI, dot3, intersect_box, luma, mat3_vec,
                         norm3, sanitize, xform_point, xform_vec)
 from ..phase import hg_phase, sample_hg
 from ..rng import mul32, rng_masked, tea
+from ..transfer import tf_alpha_majorant, tf_lookup
 from .pack import (
     PF_ALBEDO, PF_BB_MAX, PF_BB_MIN, PF_CAM_POS, PF_CAM_XFORM,
-    PF_DENSITY_SCALE, PF_ENV_INV, PF_ENV_STRENGTH, PF_IMP_AVG, PF_INV_XFORM,
-    PF_PHASE_G, PF_SHOW_ENV, PF_ZCAM, PI_BOUNCES, PI_ENV_H, PI_ENV_W,
-    PI_HEIGHT, PI_MAX_ITERS, PI_MIP_DIMS, PI_MIP_OFFSETS, PI_N_BRICKS,
-    PI_N_SLOTS, PI_SEED, PI_SPP, PI_SPP_BASE, PI_WIDTH, POOL_N, PF_SIZE,
+    PF_DENSITY_SCALE, PF_EMI_NORM, PF_EMI_SCALE, PF_EMI_X, PF_ENV_INV,
+    PF_ENV_STRENGTH, PF_IMP_AVG, PF_INV_MAJORANT, PF_INV_XFORM, PF_MAJORANT,
+    PF_PHASE_G, PF_SHOW_ENV, PF_TF_LEFT, PF_TF_WIDTH, PF_ZCAM, PI_BOUNCES,
+    PI_EMI_N_BRICKS, PI_EMI_N_SLOTS, PI_ENV_H, PI_ENV_W, PI_HEIGHT,
+    PI_MAX_ITERS, PI_MIP_DIMS, PI_MIP_OFFSETS, PI_N_BRICKS, PI_N_SLOTS,
+    PI_SEED, PI_SPP, PI_SPP_BASE, PI_TF_SIZE, PI_WIDTH, POOL_N, PF_SIZE,
     PI_SIZE, KernelScene,
 )
 
 MODE_INACTIVE, MODE_REGEN, MODE_EXTEND, MODE_SHADOW = 0, 1, 2, 3
+# what render_plain(stats=...) counts: lanes that started a sample, took a
+# DDA substep, ran a null-collision test, an emission tap, an NEE, an
+# environment escape, or an HG scatter
+EVENTS = ("regen", "march", "test", "emission", "nee", "escape", "scatter")
 EV_NONE, EV_EXT_HIT, EV_EXT_EXIT, EV_SH_HIT, EV_SH_EXIT = 0, 1, 2, 3, 4
 EV_SCATTER, EV_TEST = 5, 6
 
@@ -68,10 +88,26 @@ def _w3(m, a, b):
     return tuple(torch.where(m, x, y) for x, y in zip(a, b))
 
 
+def _variant(ks: KernelScene, pi: np.ndarray):
+    """(use_tf, has_emi) of a dispatch; the tables and the parameter block
+    must agree on it."""
+    use_tf, has_emi = ks.tf is not None, ks.emi_atlas is not None
+    if use_tf != (int(pi[PI_TF_SIZE]) > 0) or has_emi != (int(pi[PI_EMI_N_SLOTS]) > 0):
+        raise ValueError("the parameter block was built for another scene variant")
+    if use_tf and ks.mip_tf is None:
+        raise ValueError("a TF scene needs its baked majorant table (pack.bake_tf_majorant)")
+    if use_tf and ks.tf.lut.shape[0] != int(pi[PI_TF_SIZE]):
+        raise ValueError("the parameter block was built for another LUT size")
+    return use_tf, has_emi
+
+
 def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
-                 pi: np.ndarray) -> torch.Tensor:
+                 pi: np.ndarray, stats: dict | None = None) -> torch.Tensor:
     """The render kernel in plain torch, vectorized over pixel lanes.
-    Returns the (H*W, 4) float32 per-pixel sums of (L.rgb, alpha)."""
+    Returns the (H*W, 4) float32 per-pixel sums of (L.rgb, alpha). With a
+    ``stats`` dict, adds the number of lanes that ran each event (keys of
+    EVENTS) to it."""
+    use_tf, has_emi = _variant(ks, pi)
     dev = ks.atlas.device
     f32, i32 = torch.float32, torch.int32
 
@@ -87,6 +123,8 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     density_scale = s(PF_DENSITY_SCALE)
     inv_x, env_inv = s3(PF_INV_XFORM, 16), s3(PF_ENV_INV, 9)
     env_strength, imp_avg = s(PF_ENV_STRENGTH), s(PF_IMP_AVG)
+    majorant, inv_majorant = s(PF_MAJORANT), s(PF_INV_MAJORANT)
+    emi_scale, emi_norm, emi_x = s(PF_EMI_SCALE), s(PF_EMI_NORM), s3(PF_EMI_X, 16)
     show_env = bool(pf[PF_SHOW_ENV] > 0.0)
     W, H = int(pi[PI_WIDTH]), int(pi[PI_HEIGHT])
     spp, spp_base, bounces = int(pi[PI_SPP]), int(pi[PI_SPP_BASE]), int(pi[PI_BOUNCES])
@@ -97,9 +135,19 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     mip_dims = np.asarray(pi[PI_MIP_DIMS:PI_MIP_DIMS + 12]).reshape(4, 3)
     mip_offsets = [int(v) for v in pi[PI_MIP_OFFSETS:PI_MIP_OFFSETS + 4]]
     max_iters = int(pi[PI_MAX_ITERS])
+    tf = ks.tf
+    if tf is not None:  # the window as the parameter block holds it
+        tf = tf._replace(window_left=s(PF_TF_LEFT), window_width=s(PF_TF_WIDTH))
+    density = (ks.atlas.reshape(-1), ks.slot, ks.lo, ks.hi, (bx, by, bz), n_slots)
+    if has_emi:
+        emission = (ks.emi_atlas.reshape(-1), ks.emi_slot, ks.emi_lo, ks.emi_hi,
+                    tuple(int(v) for v in pi[PI_EMI_N_BRICKS:PI_EMI_N_BRICKS + 3]),
+                    int(pi[PI_EMI_N_SLOTS]))
+    mip_t, env_t = (ks.mip_tf if use_tf else ks.mip), ks.env
 
-    atlas = ks.atlas.reshape(-1)
-    slot_t, lo_t, hi_t, mip_t, env_t = ks.slot, ks.lo, ks.hi, ks.mip, ks.env
+    def count(event, mask):
+        if stats is not None:
+            stats[event] = stats.get(event, 0) + int(mask.sum())
 
     n = W * H
     lane = torch.arange(n, device=dev, dtype=torch.int64)
@@ -147,6 +195,8 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
             bym = torch.clamp(iy >> (3 + m), 0, my - 1)
             bzm = torch.clamp(iz >> (3 + m), 0, mz - 1)
             idx = torch.where(mip_i == m, mip_offsets[m] + (bzm * my + bym) * mx + bxm, idx)
+        if use_tf:  # the baked table holds majorant * tf_alpha(...)
+            return mip_t[idx.long()]
         return density_scale * mip_t[idx.long()]
 
     def stochastic_tricubic(pos, seed, active):
@@ -172,16 +222,32 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
                                      zero + tap_idx, idxf[k]) for k in range(3))
         return tuple(iip[k] + idxf[k] - 1.0 for k in range(3)), seed
 
-    def lookup_density_brick(tap):
-        vx = torch.clamp(tap[0].to(i32), 0, bx * 8 - 1)
-        vy = torch.clamp(tap[1].to(i32), 0, by * 8 - 1)
-        vz = torch.clamp(tap[2].to(i32), 0, bz * 8 - 1)
-        bidx = ((vz >> 3) * (by * bx) + (vy >> 3) * bx + (vx >> 3)).long()
+    def lookup_brick(tap, grid):
+        atlas, slot_t, lo_t, hi_t, (nbx, nby, nbz), slots = grid
+        vx = torch.clamp(tap[0].to(i32), 0, nbx * 8 - 1)
+        vy = torch.clamp(tap[1].to(i32), 0, nby * 8 - 1)
+        vz = torch.clamp(tap[2].to(i32), 0, nbz * 8 - 1)
+        bidx = ((vz >> 3) * (nby * nbx) + (vy >> 3) * nbx + (vx >> 3)).long()
         voff = (vz & 7) * 64 + (vy & 7) * 8 + (vx & 7)
-        slot = torch.clamp(slot_t[bidx], 0, n_slots - 1).long()
+        slot = torch.clamp(slot_t[bidx], 0, slots - 1).long()
         unorm = atlas[slot * 512 + voff].to(f32) * (1.0 / 255.0)
         lo, hi = lo_t[bidx], hi_t[bidx]
         return lo + unorm * (hi - lo)
+
+    def trilinear(pos):
+        """Exact trilinear density (kernel.py trilinear_compact): corners
+        summed dx fastest, acc + w * decode."""
+        p = tuple(c - 0.5 for c in pos)
+        base = tuple(torch.floor(c) for c in p)
+        frac = tuple(c - b for c, b in zip(p, base))
+        acc = zero
+        for i in range(8):
+            dx, dy, dz = i & 1, (i >> 1) & 1, i >> 2
+            w = ((frac[0] if dx else 1.0 - frac[0]) * (frac[1] if dy else 1.0 - frac[1])
+                 * (frac[2] if dz else 1.0 - frac[2]))
+            tap = (base[0] + float(dx), base[1] + float(dy), base[2] + float(dz))
+            acc = acc + w * lookup_brick(tap, density)
+        return density_scale * acc
 
     def phase_regen():
         regen = st["mode"] == MODE_REGEN
@@ -191,6 +257,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         if not bool(can.any()):
             return
         sample_idx = (spp_base + st["spp_done"].long() + 1) & 0xFFFFFFFF
+        count("regen", can)
         sel = can.nonzero().squeeze(1)
         fresh = tea(mul32(lane_u[sel], seed0), sample_idx[sel])
         st["seed"] = st["seed"].index_put((sel,), fresh)
@@ -218,6 +285,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         march = (((st["mode"] == MODE_EXTEND) | (st["mode"] == MODE_SHADOW))
                  & (st["event"] == EV_NONE))
         is_extend = st["mode"] == MODE_EXTEND
+        count("march", march)
         curr = pos_at()
         mip_i = torch.round(st["mip"]).to(i32)
         maj = majorant_at(curr, mip_i)
@@ -251,10 +319,33 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         if not bool(act.any()):
             return
         is_extend = st["mode"] == MODE_EXTEND
+        count("test", act)
         maj = torch.where(act, st["tau"], zero)
-        tap, seed = stochastic_tricubic(pos_at(), st["seed"], act)
-        tap = _w3(act, tap, (zero, zero, zero))
-        d = density_scale * lookup_density_brick(tap)
+        # idle lanes' stale positions are pinned to the origin
+        pos = _w3(act, pos_at(), (zero, zero, zero))
+        if use_tf:
+            # classify the exact trilinear density through the LUT alpha;
+            # no tricubic draws (kernel.py:1214-1223)
+            seed = st["seed"]
+            d = majorant * tf_alpha_majorant(tf, trilinear(pos) * inv_majorant)
+        else:
+            tap, seed = stochastic_tricubic(pos, st["seed"], act)
+            tap = _w3(act, tap, (zero, zero, zero))
+            d = density_scale * lookup_brick(tap, density)
+        if has_emi:
+            # emission after the density fetch, before u_cls, on extend
+            # lanes only (kernel.py:1433-1449)
+            act_e = act & is_extend
+            count("emission", act_e)
+            etap, seed = stochastic_tricubic(xform_point(emi_x, pos), seed, act_e)
+            t_e = lookup_brick(etap, emission) * emi_norm
+            t2 = t_e * t_e
+            e3 = (t2, t2 * t2, (t2 * t2) * (t2 * t2))
+            wgt_e = d * inv_majorant
+            st["L"] = tuple(
+                st["L"][k] + torch.where(
+                    act_e, st["th"][k] * (1.0 - albedo[k]) * (emi_scale * e3[k]) * wgt_e, zero)
+                for k in range(3))
         seed, u_cls = rng_masked(seed, act)
         real = act & (u_cls * torch.clamp(maj, min=0.0) < d)
         redraw = act & ~real
@@ -270,6 +361,15 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         act = st["event"] == EV_EXT_HIT
         if not bool(act.any()):
             return
+        count("nee", act)
+        if use_tf:
+            # tint by the LUT colour of the trilinear density at the
+            # collision (kernel.py:1590-1601); no draws
+            rgb = tf_lookup(tf, trilinear(_w3(act, pos_at(), (zero, zero, zero)))
+                            * inv_majorant)
+            mult = tuple(albedo[k] * rgb[:, k] for k in range(3))
+        else:
+            mult = albedo
         seed, u0 = rng_masked(st["seed"], act)
         seed, _u1 = rng_masked(seed, act)
         st["seed"] = seed
@@ -279,7 +379,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         pdf_nee = row[:, 3]
         le = (row[:, 4], row[:, 5], row[:, 6])
         th = st["th"]
-        thr = _w3(act, (th[0] * albedo[0], th[1] * albedo[1], th[2] * albedo[2]), th)
+        thr = _w3(act, (th[0] * mult[0], th[1] * mult[1], th[2] * mult[2]), th)
         st["th"] = thr
         po, pd = st["po"], st["pd"]
         org = _w3(act, tuple(po[k] + st["t"] * pd[k] for k in range(3)), po)
@@ -308,6 +408,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         L = tuple(st["L"][k] + torch.where(sh_vis, st["pn"][k], zero) for k in range(3))
         thr, pd = st["th"], st["pd"]
         esc = event == EV_EXT_EXIT
+        count("escape", esc)
         if bool(esc.any()):
             idir = mat3_vec(env_inv, pd)
             uu = torch.atan2(idir[2], idir[0]) * (1.0 / (2.0 * M_PI)) + 0.5
@@ -342,6 +443,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         boost = 1.0 / torch.clamp(rr_val, min=1e-20)
         thr = _w3(rr & ~killed, tuple(c * boost for c in thr), thr)
         alive = alive & ~killed
+        count("scatter", alive)
         st["free"] = torch.where(capped | killed, 0, st["free"]).to(i32)
         seed, s0 = rng_masked(seed, alive)
         seed, s1 = rng_masked(seed, alive)
@@ -409,17 +511,27 @@ def build(flags: list[str] = NVCC_FLAGS) -> str:
 
 
 def resource_usage(lib_path: str) -> str:
-    """ptxas's register, stack and spill lines for the library at ``lib_path``."""
+    """ptxas's register, stack and spill lines for the library at
+    ``lib_path``, one entry per kernel instantiation, named by its
+    <USE_TF, HAS_EMI> template arguments."""
+    out, name = [], "?"
     with open(f"{lib_path}.log") as f:
-        return "; ".join(line.split(":", 1)[-1].strip() for line in f
-                         if "registers" in line or "stack frame" in line)
+        for line in f:
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
+                          line)
+            if m:
+                flags = re.search(r"ILb([01])ELb([01])E", m.group(1))
+                name = f"<{flags.group(1)},{flags.group(2)}>" if flags else m.group(1)
+            elif "registers" in line or "stack frame" in line:
+                out.append(f"{name} {line.split(':', 1)[-1].strip()}")
+    return "; ".join(out)
 
 
 def load(lib_path: str) -> ctypes.CDLL:
     """Load a built library and declare its C entry point."""
     lib = ctypes.CDLL(lib_path)
     p = ctypes.c_void_p
-    lib.volren_render.argtypes = [p, p, p, p, p, p, p, p, p, p, ctypes.c_int, p]
+    lib.volren_render.argtypes = [p] * 15 + [ctypes.c_int, p]
     lib.volren_render.restype = ctypes.c_int
     return lib
 
@@ -441,15 +553,28 @@ def _check(t: torch.Tensor, name: str, dtype, shape=None):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
+def _check_grid(prefix, atlas, slot, lo, hi, n_bricks, n_slots):
+    bx, by, bz = n_bricks
+    _check(atlas, f"{prefix}atlas", torch.uint8, (n_slots, 512))
+    _check(slot, f"{prefix}slot", torch.int32, (bx * by * bz,))
+    _check(lo, f"{prefix}lo", torch.float32, (bx * by * bz,))
+    _check(hi, f"{prefix}hi", torch.float32, (bx * by * bz,))
+
+
 def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
                  pi: np.ndarray, lib: ctypes.CDLL | None = None) -> torch.Tensor:
-    bx, by, bz = ks.n_bricks
-    n_bricks = bx * by * bz
-    _check(ks.atlas, "atlas", torch.uint8, (int(pi[PI_N_SLOTS]), 512))
-    for name in ("slot", "lo", "hi"):
-        t = getattr(ks, name)
-        _check(t, name, torch.int32 if name == "slot" else torch.float32, (n_bricks,))
-    _check(ks.mip, "mip", torch.float32)
+    use_tf, has_emi = _variant(ks, pi)
+    _check_grid("", ks.atlas, ks.slot, ks.lo, ks.hi, ks.n_bricks, int(pi[PI_N_SLOTS]))
+    mip = ks.mip_tf if use_tf else ks.mip
+    _check(mip, "mip_tf" if use_tf else "mip", torch.float32, tuple(ks.mip.shape))
+    ptrs = [0] * 5   # tf_lut, emi_atlas, emi_slot, emi_lo, emi_hi
+    if use_tf:
+        _check(ks.tf.lut, "tf.lut", torch.float32, (int(pi[PI_TF_SIZE]), 4))
+        ptrs[0] = ks.tf.lut.data_ptr()
+    if has_emi:
+        _check_grid("emi_", ks.emi_atlas, ks.emi_slot, ks.emi_lo, ks.emi_hi, ks.emi_n_bricks,
+                    int(pi[PI_EMI_N_SLOTS]))
+        ptrs[1:] = [t.data_ptr() for t in (ks.emi_atlas, ks.emi_slot, ks.emi_lo, ks.emi_hi)]
     _check(ks.env, "env", torch.float32, (int(pi[PI_ENV_H]) * int(pi[PI_ENV_W]), 3))
     _check(pool, "pool", torch.float32, (POOL_N, 8))
     n_pix = int(pi[PI_WIDTH]) * int(pi[PI_HEIGHT])
@@ -461,8 +586,8 @@ def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     stream = torch.cuda.current_stream(ks.atlas.device).cuda_stream
     err = (lib or _lib()).volren_render(
         pf.ctypes.data, pi.ctypes.data, ks.atlas.data_ptr(), ks.slot.data_ptr(),
-        ks.lo.data_ptr(), ks.hi.data_ptr(), ks.mip.data_ptr(), ks.env.data_ptr(),
-        pool.data_ptr(), out.data_ptr(), n_pix, stream)
+        ks.lo.data_ptr(), ks.hi.data_ptr(), mip.data_ptr(), ks.env.data_ptr(),
+        pool.data_ptr(), *ptrs, out.data_ptr(), n_pix, stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     return out
@@ -471,11 +596,14 @@ def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
 def render(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
            pi: np.ndarray) -> torch.Tensor:
     """Render one dispatch; returns the (H*W, 4) per-pixel sums. CUDA
-    tensors launch the CUDA kernel (and add one to ``render.launches``);
-    CPU tensors run ``render_plain``."""
+    tensors launch the CUDA kernel's variant for the scene (and add one to
+    ``render.launches`` and to ``render.launches_by_variant[(use_tf,
+    has_emi)]``); CPU tensors run ``render_plain``."""
     if ks.atlas.is_cuda:
         out = _launch_cuda(ks, pool, pf, pi)
         render.launches += 1
+        variant = (ks.tf is not None, ks.emi_atlas is not None)
+        render.launches_by_variant[variant] = render.launches_by_variant.get(variant, 0) + 1
         return out
     if ks.atlas.device.type != "cpu":
         raise ValueError(f"unsupported device {ks.atlas.device}")
@@ -483,3 +611,4 @@ def render(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
 
 
 render.launches = 0
+render.launches_by_variant = {}

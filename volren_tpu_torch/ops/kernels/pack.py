@@ -1,5 +1,6 @@
 """The render kernel's inputs: one flat set of device tensors per scene,
-the NEE sample pool, and the per-dispatch parameter block.
+the NEE sample pool, the per-dispatch parameter block, and the TF-baked
+majorant table.
 
 The counterpart of volren_tpu.ops.pallas.pack, without its TPU layout:
 no (rows, 128) padding, no Morton slot order, no RGBE or u8 packing, no
@@ -11,6 +12,13 @@ VMEM gate. Every table stays in device memory as it is:
   mip    (M,) float32         4-level majorant pyramid, flat
   env    (H*W, 3) float32     equirect radiance, rows in v-order
   pool   (POOL_N, 8) float32  NEE samples [wx, wy, wz, pdf, ler, leg, leb, 0]
+
+and, for the kernel's two variants,
+
+  tf.lut   (S, 4) float32     transfer-function LUT (TF scenes)
+  mip_tf   (M,) float32       the majorant pyramid through the TF alpha,
+                              baked per trace (bake_tf_majorant)
+  emi_*    atlas/slot/lo/hi   the emission brick grid (emission scenes)
 
 The parameter block is two host arrays: ``pf`` (PF_SIZE,) float32 and
 ``pi`` (PI_SIZE,) int32, indexed by the PF_* / PI_* constants below.
@@ -24,7 +32,8 @@ import numpy as np
 import torch
 
 from ..envmap import sample_environment_alias
-from ..scene import EnvTables, GridTables, TraceParams
+from ..scene import EnvTables, GridTables, TFTables, TraceParams
+from ..transfer import tf_alpha_majorant
 
 # NEE environment sample pool size (volren_tpu.ops.pallas.pack.POOL_N)
 POOL_N = 16384
@@ -45,7 +54,12 @@ PF_ENV_INV = 42         # 9 row-major (3, 3)
 PF_ENV_STRENGTH = 51
 PF_IMP_AVG = 52
 PF_SHOW_ENV = 53        # 0.0 / 1.0
-PF_SIZE = 64
+PF_TF_LEFT = 54         # TF density window (transferfunc.cpp:79-93)
+PF_TF_WIDTH = 55
+PF_EMI_SCALE = 56       # emission_scale (common.glsl:324-328)
+PF_EMI_NORM = 57        # 1 / emission majorant
+PF_EMI_X = 58           # 16 row-major (4, 4): density index -> emission index
+PF_SIZE = 80
 
 # pi (PI_SIZE,) int32 slots
 PI_WIDTH = 0
@@ -61,7 +75,10 @@ PI_ENV_W = 11
 PI_MIP_DIMS = 12        # 12: (z, y, x) per level 0..3
 PI_MIP_OFFSETS = 24     # 4
 PI_MAX_ITERS = 28       # per-pixel step cap
-PI_SIZE = 32
+PI_TF_SIZE = 29         # LUT bins; 0 = no TF
+PI_EMI_N_BRICKS = 30    # 3: emission grid bx, by, bz
+PI_EMI_N_SLOTS = 33     # emission atlas slots; 0 = no emission
+PI_SIZE = 40
 
 
 class KernelScene(NamedTuple):
@@ -82,10 +99,39 @@ class KernelScene(NamedTuple):
     env_inv: np.ndarray          # (3, 3)
     env_strength: float
     imp_avg: float
+    # the TF variant: the LUT and window, and the majorant pyramid baked
+    # through the TF alpha (per trace, bake_tf_majorant)
+    tf: TFTables | None = None
+    mip_tf: torch.Tensor | None = None
+    # the emission variant: the emission brick grid's tables, its brick
+    # counts, and density index -> emission index, (4, 4) float32
+    emi_atlas: torch.Tensor | None = None
+    emi_slot: torch.Tensor | None = None
+    emi_lo: torch.Tensor | None = None
+    emi_hi: torch.Tensor | None = None
+    emi_n_bricks: tuple = (0, 0, 0)
+    emi_x: np.ndarray | None = None
 
 
-def pack_scene(grid: GridTables, env: EnvTables) -> KernelScene:
+def pack_scene(grid: GridTables, env: EnvTables, tf: TFTables | None = None,
+               emission: GridTables | None = None) -> KernelScene:
+    """The kernel's tables for one frame. ``tf`` selects the TF variant
+    (its majorant table is baked per trace: bake_tf_majorant); an
+    ``emission`` grid selects the emission variant."""
     eh, ew = (int(v) for v in env.envmap.shape[:2])
+    emi = {}
+    if emission is not None:
+        emi = dict(
+            emi_atlas=emission.atlas.contiguous(),
+            emi_slot=emission.slot.contiguous(),
+            emi_lo=emission.lo.contiguous(),
+            emi_hi=emission.hi.contiguous(),
+            emi_n_bricks=emission.n_bricks,
+            # one (4, 4): density index -> world -> emission index
+            # (volren_tpu.ops.pallas.pack.build_params_rows)
+            emi_x=(np.asarray(emission.inv_transform, np.float32)
+                   @ np.asarray(grid.transform, np.float32)),
+        )
     return KernelScene(
         atlas=grid.atlas.contiguous(),
         slot=grid.slot.contiguous(),
@@ -101,7 +147,25 @@ def pack_scene(grid: GridTables, env: EnvTables) -> KernelScene:
         env_inv=env.inv_transform,
         env_strength=env.strength,
         imp_avg=env.imp_avg,
+        tf=tf,
+        **emi,
     )
+
+
+def bake_tf_majorant(ks: KernelScene, params: TraceParams) -> KernelScene:
+    """``ks`` with ``mip_tf``: the raw majorant pyramid through the TF
+    alpha, ``majorant * tf_alpha(density_scale * raw * inv_majorant)``, in
+    the operation order of volren_tpu.renderer._render_pallas. It depends
+    on the trace's parameters, so it is baked once per trace; the kernel
+    then reads it without a density_scale factor."""
+    f32 = torch.float32
+    dev = ks.mip.device
+
+    def s(v):
+        return torch.tensor(float(v), dtype=f32, device=dev)
+
+    d_norm = s(params.density_scale) * ks.mip * s(params.inv_majorant)
+    return ks._replace(mip_tf=(s(params.majorant) * tf_alpha_majorant(ks.tf, d_norm)).contiguous())
 
 
 def decode_dense(ks: KernelScene) -> torch.Tensor:
@@ -149,6 +213,13 @@ def build_params(ks: KernelScene, params: TraceParams, width: int, height: int,
     pf[PF_ENV_STRENGTH] = ks.env_strength
     pf[PF_IMP_AVG] = ks.imp_avg
     pf[PF_SHOW_ENV] = 1.0 if params.show_environment else 0.0
+    if ks.tf is not None:
+        pf[PF_TF_LEFT] = ks.tf.window_left
+        pf[PF_TF_WIDTH] = ks.tf.window_width
+    if ks.emi_atlas is not None:
+        pf[PF_EMI_SCALE] = params.emission_scale
+        pf[PF_EMI_NORM] = params.emission_norm
+        pf[PF_EMI_X:PF_EMI_X + 16] = np.asarray(ks.emi_x, f32).reshape(-1)
 
     pi = np.zeros(PI_SIZE, np.int32)
     pi[PI_WIDTH] = width
@@ -164,4 +235,9 @@ def build_params(ks: KernelScene, params: TraceParams, width: int, height: int,
     pi[PI_MIP_OFFSETS:PI_MIP_OFFSETS + 4] = ks.mip_offsets
     # the Pallas kernel's iteration cap (kernel._render_strips_jit), per pixel
     pi[PI_MAX_ITERS] = (2048 + 512 * spp) * 8
+    if ks.tf is not None:
+        pi[PI_TF_SIZE] = ks.tf.lut.shape[0]
+    if ks.emi_atlas is not None:
+        pi[PI_EMI_N_BRICKS:PI_EMI_N_BRICKS + 3] = ks.emi_n_bricks
+        pi[PI_EMI_N_SLOTS] = ks.emi_atlas.shape[0]
     return pf, pi

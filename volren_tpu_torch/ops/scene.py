@@ -3,9 +3,10 @@
 The counterpart of volren_tpu.ops.scene. A brick grid becomes flat
 per-brick tables (atlas slot, range min, range max) beside the u8 atlas and
 the flat majorant pyramid; an environment becomes its RGB texture and the
-alias table that samples its importance map. The TPU-only tables of the
-JAX package (one-hot majorants, pre-decoded dense grids, quad rows) have
-no counterpart here.
+alias table that samples its importance map; a transfer function becomes
+its (S, 4) LUT and density window. The TPU-only tables of the JAX package
+(one-hot majorants and the bf16 alpha pair table, pre-decoded dense grids,
+quad rows) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -42,6 +43,14 @@ class EnvTables(NamedTuple):
     strength: float
 
 
+class TFTables(NamedTuple):
+    """A transfer function on the device."""
+
+    lut: torch.Tensor            # (S, 4) float32 RGBA, alpha CDF-rewritten if needed
+    window_left: float           # float32 values
+    window_width: float
+
+
 class TraceParams(NamedTuple):
     """Per-dispatch scalars (uniforms of reference src/renderer.cpp:90-138),
     as numpy values; the field names follow volren_tpu.ops.scene.TraceParams."""
@@ -59,6 +68,8 @@ class TraceParams(NamedTuple):
     bounces: int
     show_environment: int
     seed: int                    # uint32
+    emission_scale: float = 0.0  # emission grid scale (common.glsl:324-328)
+    emission_norm: float = 1.0   # 1 / emission majorant
 
 
 def mip_layout(n_bricks):
@@ -158,28 +169,38 @@ def upload_environment(env, device) -> EnvTables:
     )
 
 
-def from_reference(*, atlas, brick_meta, mip_maj, transform, inv_transform,
-                   envmap, alias_packed, imp_avg, env_transform,
-                   env_inv_transform, env_strength, pool=None, params=None,
-                   device="cpu"):
-    """The JAX package's scene, NEE pool and trace parameters, as numpy
-    arrays, -> the port's (GridTables, EnvTables, pool, TraceParams).
+def upload_transferfunc(tf, device) -> TFTables:
+    """TransferFunction (host) -> TFTables on ``device``: the LUT as the
+    kernel reads it (``device_lut``, alpha CDF-rewritten iff not monotone)
+    and the density window."""
+    return TFTables(
+        lut=torch.as_tensor(np.ascontiguousarray(tf.device_lut(), np.float32), device=device),
+        window_left=float(np.float32(tf.window_left)),
+        window_width=float(np.float32(tf.window_width)),
+    )
 
-    ``atlas`` (S, 512) u8, ``brick_meta`` (bz, by, bx, 3) [slot, min, max],
-    ``mip_maj`` flat and the (4, 4) transforms come from
-    ``volren_tpu.ops.scene.GridDevice``; ``envmap`` (H, W, 3|4),
-    ``alias_packed``, ``imp_avg`` and the (3, 3) transforms from its
-    ``EnvDevice``; ``pool`` is the dict of ``pack.build_env_pool``;
-    ``params`` maps the ``TraceParams`` field names to arrays. Tests feed
-    both packages the same tables through this."""
+
+class Reference(NamedTuple):
+    """The JAX package's inputs in the port's form (``from_reference``)."""
+
+    grid: GridTables
+    env: EnvTables
+    pool: torch.Tensor | None
+    params: TraceParams | None
+    tf: TFTables | None
+    emission: GridTables | None
+    mip_tf: torch.Tensor | None
+
+
+def _grid_from_reference(atlas, brick_meta, mip_maj, transform, inv_transform, device):
     meta = np.asarray(brick_meta, np.float32)
     bz, by, bx = meta.shape[:3]
     dims, offs = mip_layout((bx, by, bz))
-    grid = GridTables(
+    return GridTables(
         atlas=torch.as_tensor(np.array(atlas, np.uint8).reshape(-1, 512), device=device),
         slot=torch.as_tensor(meta[..., 0].reshape(-1).astype(np.int32), device=device),
-        lo=torch.as_tensor(np.ascontiguousarray(meta[..., 1].reshape(-1)), device=device),
-        hi=torch.as_tensor(np.ascontiguousarray(meta[..., 2].reshape(-1)), device=device),
+        lo=torch.as_tensor(np.array(meta[..., 1].reshape(-1)), device=device),
+        hi=torch.as_tensor(np.array(meta[..., 2].reshape(-1)), device=device),
         mip_maj=torch.as_tensor(np.array(mip_maj, np.float32).reshape(-1), device=device),
         transform=np.asarray(transform, np.float32),
         inv_transform=np.asarray(inv_transform, np.float32),
@@ -187,6 +208,30 @@ def from_reference(*, atlas, brick_meta, mip_maj, transform, inv_transform,
         mip_dims=dims,
         mip_offsets=offs,
     )
+
+
+def from_reference(*, atlas, brick_meta, mip_maj, transform, inv_transform,
+                   envmap, alias_packed, imp_avg, env_transform,
+                   env_inv_transform, env_strength, pool=None, params=None,
+                   tf_lut=None, tf_window=(0.0, 1.0), emission=None,
+                   mip_tf=None, device="cpu") -> Reference:
+    """The JAX package's scene, NEE pool and trace parameters, as numpy
+    arrays, -> the port's ``Reference`` tables.
+
+    ``atlas`` (S, 512) u8, ``brick_meta`` (bz, by, bx, 3) [slot, min, max],
+    ``mip_maj`` flat and the (4, 4) transforms come from
+    ``volren_tpu.ops.scene.GridDevice``; ``envmap`` (H, W, 3|4),
+    ``alias_packed``, ``imp_avg`` and the (3, 3) transforms from its
+    ``EnvDevice``; ``pool`` is the dict of ``pack.build_env_pool``;
+    ``params`` maps the ``TraceParams`` field names (the emission ones
+    included) to arrays. ``tf_lut`` (S, 4) and ``tf_window`` (left,
+    width) come from its ``TFDevice``; ``emission`` is a dict with the
+    emission ``GridDevice``'s ``atlas``, ``brick_meta``, ``mip_maj``,
+    ``transform`` and ``inv_transform``; ``mip_tf`` is a pre-baked TF
+    majorant table (``renderer._render_pallas``'s ``mip_override``),
+    flat, cut to the pyramid's length. Tests feed both packages the same
+    tables through this."""
+    grid = _grid_from_reference(atlas, brick_meta, mip_maj, transform, inv_transform, device)
     env = EnvTables(
         envmap=torch.as_tensor(np.array(np.asarray(envmap)[..., :3], np.float32), device=device),
         alias_packed=torch.as_tensor(np.array(alias_packed, np.float32), device=device),
@@ -219,5 +264,19 @@ def from_reference(*, atlas, brick_meta, mip_maj, transform, inv_transform,
             bounces=int(np.asarray(params["bounces"])),
             show_environment=int(np.asarray(params["show_environment"])),
             seed=int(np.asarray(params["seed"]).astype(np.uint32)),
+            emission_scale=f("emission_scale") if "emission_scale" in params else 0.0,
+            emission_norm=f("emission_norm") if "emission_norm" in params else 1.0,
         )
-    return grid, env, pool_t, tp
+    tf = None
+    if tf_lut is not None:
+        tf = TFTables(lut=torch.as_tensor(np.array(tf_lut, np.float32), device=device),
+                      window_left=float(np.asarray(tf_window[0], np.float32)),
+                      window_width=float(np.asarray(tf_window[1], np.float32)))
+    egrid = None
+    if emission is not None:
+        egrid = _grid_from_reference(device=device, **emission)
+    mip = None
+    if mip_tf is not None:
+        n = grid.mip_maj.shape[0]
+        mip = torch.as_tensor(np.array(mip_tf, np.float32).reshape(-1)[:n], device=device)
+    return Reference(grid, env, pool_t, tp, tf, egrid, mip)

@@ -1,1 +1,1 @@
-"""Scene description on the host: camera and environment map."""
+"""Scene description on the host: camera, environment map, transfer function."""
