@@ -9,7 +9,8 @@ of which raises on failure (exit code non-zero, no result line):
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
 2. build: the CUDA megakernel, its four <USE_TF, HAS_EMI> instantiations,
-   compiled with nvcc for sm_90a from volren_tpu_torch/csrc into build/,
+   and the probe kernels, compiled with nvcc for sm_90a from
+   volren_tpu_torch/csrc into build/ (one nvcc per source, in parallel),
    with ptxas's registers and stack of each;
 3. kernel vs plain: the CUDA kernel against its plain torch version on the
    same CUDA tensors, on a random 16^3 grid and on a 64^3 crop of
@@ -29,10 +30,19 @@ of which raises on failure (exit code non-zero, no result line):
    made from --seed;
 6. the TF path: the same through the CLI with --fau;
 7. the emission path: the same scene with the temperature grid, through
-   Renderer.trace(256).
-In phases 5-7 the framebuffer must be finite with a positive mean, the run
-must have used the CUDA kernel, and the launch count of the path's
-variant, set to 0 just before the run, must have risen during it.
+   Renderer.trace(256);
+8. the probe kernels (volren_tpu_torch/csrc/probes.cu, built in phase 2
+   beside the megakernel, ptxas's lines printed): for each of the 28 Pallas
+   call sites they replace (volren_tpu_torch.probes.sites), one call at the
+   probe's shapes held against its plain version on the same CUDA tensors
+   (bitwise; row_scan allclose at rtol 1e-5), timed beside its bound, its
+   plain version and the one PyTorch call that computes the same, if any;
+   then the entry point python -m volren_tpu_torch.probes, run in-process
+   one site's stages at a time, every stage ok and the site's kernel
+   launched.
+In phases 5-8 the launch count of the path's kernel, set to 0 just before
+the run, must have risen during it; in phases 5-7 the framebuffer must be
+finite with a positive mean and the run must have used the CUDA kernel.
 
 The last three lines are the card line from nvidia-smi, a JSON object
 describing each kernel, and the device record
@@ -48,6 +58,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CLOUD = os.path.join(REPO, ".scene_cache", "cloud512.brick")
@@ -80,8 +91,12 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, REPO)
     from volren_tpu_torch import cli
+    from volren_tpu_torch import probes as probe_entry
     from volren_tpu_torch.measure import kernel_bound, path_renderer
     from volren_tpu_torch.ops.kernels import megakernel
+    from volren_tpu_torch.ops.kernels import probes as probe_kernels
+    from volren_tpu_torch.probes._common import Context
+    from volren_tpu_torch.probes.sites import SITES
     from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params
     from volren_tpu_torch.scene.environment import Environment, procedural_sky
     from volren_tpu_torch.utils.hdr import write_hdr
@@ -102,9 +117,14 @@ def main(argv=None) -> int:
 
     # ---- 2. build
     t0 = time.time()
-    lib = megakernel.build()
-    print(f"build: {os.path.relpath(lib, REPO)} in {time.time() - t0:.2f} s; ptxas "
-          f"<USE_TF,HAS_EMI>: {megakernel.resource_usage(lib)}", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        builds = pool.submit(megakernel.build), pool.submit(probe_kernels.build)
+        lib, probe_lib = (b.result() for b in builds)
+    print(f"build: {os.path.relpath(lib, REPO)} and {os.path.relpath(probe_lib, REPO)} in "
+          f"{time.time() - t0:.2f} s; ptxas <USE_TF,HAS_EMI>: {megakernel.resource_usage(lib)}",
+          flush=True)
+    for line in probe_kernels.resource_usage(probe_lib):
+        print(f"    ptxas probes.cu {line}", flush=True)
 
     os.makedirs(OUT_DIR, exist_ok=True)
     sky_path = os.path.join(OUT_DIR, "sky.hdr")
@@ -255,14 +275,78 @@ def main(argv=None) -> int:
     check_path("megakernel_tf", "tf", run_cli("--fau"))
     check_path("megakernel_emission", "emission", run_emission)
 
+    # ---- 8. the probe kernels: kernel vs plain at each call site's shapes
+    ctx = Context(dev)
+
+    def reps_for(fn, launches_per_call=1):
+        # enough calls for ~50 ms, and few enough launches for the launch
+        # queue to hold them all behind time_ms's spin (else the window
+        # waits for the host again)
+        ms, _ = host_ms(fn)
+        return max(3, min(100, int(50.0 / max(ms, 1e-3)), 512 // launches_per_call))
+
+    def probe_launches():
+        return sum(w.launches for w in probe_kernels.WRAPPERS.values())
+
+    def compare_probe(name, got, want, exact):
+        got, want = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+        err = 0.0
+        for a, b in zip(got, want):
+            err = max(err, float((a.double() - b.double()).abs().max()))
+            if a.is_floating_point() and not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"{name}: non-finite kernel output")
+            same = torch.equal(a, b) if exact else torch.allclose(a, b, rtol=1e-5, atol=0.0)
+            if not same:
+                raise AssertionError(f"{name}: the kernel disagrees with its plain version "
+                                     f"(max abs {err!r}, {'bitwise' if exact else 'rtol 1e-5'})")
+        return err
+
+    for site in SITES:
+        case = site.make(ctx)
+        before = probe_launches()
+        got = case.kernel()
+        per_call = probe_launches() - before
+        err = compare_probe(site.name, got, case.plain(), case.exact)
+        ms = ctx.time_ms(case.kernel, reps_for(case.kernel, per_call))
+        plain_ms, _ = host_ms(case.plain)
+        library_ms = ctx.time_ms(case.library, reps_for(case.library)) if case.library else None
+        bound_ms, bound_by = case.bound()
+        print(f"{site.name} ({site.family}, {site.replaces}): kernel vs plain max abs {err!r} "
+              f"({'bitwise' if case.exact else 'rtol 1e-5'}); kernel {ms!r} ms, plain "
+              f"{plain_ms!r} ms, library {library_ms!r} ms, bound {bound_ms!r} ms by {bound_by} "
+              f"({case.n_bytes} bytes, {case.n_ops} operations) on {gpu_line}", flush=True)
+        record[site.name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        del case
+    torch.cuda.empty_cache()
+
+    # ---- 8. the probes' entry point, one site's stages at a time
+    covered = []
+    for site in SITES:
+        for wrapper in probe_kernels.WRAPPERS.values():
+            wrapper.launches = 0
+        if probe_entry.main(["--only", site.stages]) != 0:
+            raise AssertionError(f"probe stages of {site.name} failed: {site.stages}")
+        launches = probe_kernels.WRAPPERS[site.family].launches
+        if launches <= 0:
+            raise AssertionError(f"the stages of {site.name} did not launch {site.family}")
+        record[site.name]["launches"] = launches
+        covered += [name for _m, name, _fn in probe_entry.select(site.stages)]
+    every = [name for _m, name, _fn in probe_entry.select(None)]
+    if sorted(covered) != sorted(every):
+        raise AssertionError("the sites' stages are not every probe stage exactly once")
+    print(f"probes: {len(every)} stages of python -m volren_tpu_torch.probes ok, in "
+          f"{len(SITES)} call sites, on {gpu_line}", flush=True)
+
+    kernels = [dict(name=kname, route="cuda", source="volren_tpu_torch/csrc/megakernel.cu",
+                    replaces=replaces, library_ms=None, **record[kname])
+               for kname, _path, replaces in KERNELS]
+    kernels += [dict(name=site.name, route="cuda", source="volren_tpu_torch/csrc/probes.cu",
+                     replaces=site.replaces, **record[site.name]) for site in SITES]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(gpu_line)
-    print(json.dumps({"kernels": [dict(
-        name=kname, route="cuda", source="volren_tpu_torch/csrc/megakernel.cu",
-        replaces=replaces, launches=record[kname]["launches"],
-        max_abs_err=record[kname]["max_abs_err"], ms=record[kname]["ms"],
-        plain_ms=record[kname]["plain_ms"], bound_ms=record[kname]["bound_ms"],
-        bound_by=record[kname]["bound_by"], library_ms=None)
-        for kname, _path, replaces in KERNELS]}))
+    print(json.dumps({"kernels": [{k: entry[k] for k in keys} for entry in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

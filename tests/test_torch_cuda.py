@@ -135,3 +135,98 @@ def test_kernel_wrapper_rejects_bad_tables():
         megakernel.render(ks._replace(emi_lo=ks.emi_lo[:-1].contiguous()), pool, pf, pi)
     with pytest.raises(ValueError):
         megakernel.render(ks._replace(tf=ks.tf._replace(lut=ks.tf.lut.double())), pool, pf, pi)
+
+
+# ---- the probe kernels (volren_tpu_torch/csrc/probes.cu) against their
+# plain versions on the same CUDA tensors: bitwise, except row_scan (a
+# parallel scan adds in another order: rtol 1e-5)
+
+def _probe_cases(dev):
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    rng = np.random.default_rng(11)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    tab_f = t(rng.random((3584, 128)).astype(np.float32))
+    tab_i = t(rng.integers(0, 2 ** 20, (3584, 128)).astype(np.int32))
+    x = t(rng.random((256, 512)).astype(np.float32))
+    r = t(rng.integers(0, 3584, (8, 128)).astype(np.int32))
+    c = t(rng.integers(0, 128, (8, 128)).astype(np.int32))
+    u = t(rng.integers(0, 2 ** 32, (8, 128), dtype=np.uint32).astype(np.int64))
+    v = t(rng.integers(0, 2 ** 32, (8, 128), dtype=np.uint32).astype(np.int64))
+    big = t(rng.integers(0, 2 ** 31 - 1, (65536, 128)).astype(np.int32))
+    base = t(rng.integers(0, 65536, (128,)).astype(np.int32))
+    n_dev = t(np.array([37], np.int32))
+    flat = t(np.arange(16384, dtype=np.float32) * 0.5)
+    pos = t(rng.random((8, 128)).astype(np.float32))
+    return {
+        "affine_loop": (lambda f: f(x, 100, 1.0000001, 1e-6), K.affine_loop, K.affine_loop_plain),
+        "affine_loop_dev": (lambda f: f(x, 0, 1.0000001, 1e-6, n_dev), K.affine_loop,
+                            K.affine_loop_plain),
+        "gather_rc_f32": (lambda f: f(tab_f, r, c), K.gather, K.gather_plain),
+        "gather_rc_i32": (lambda f: f(tab_i, r, c), K.gather, K.gather_plain),
+        "gather_1d_mod": (lambda f: f(flat, r, None, 2048), K.gather, K.gather_plain),
+        "gather_rows": (lambda f: f(tab_f, r[:, :1].contiguous()), K.gather, K.gather_plain),
+        "gather_cols": (lambda f: f(tab_f, None, c), K.gather, K.gather_plain),
+        "lcg_row": (lambda f: f(tab_f, "row", (3584, 128), 5, 42, 7919), K.lcg_gather_sum,
+                    K.lcg_gather_sum_plain),
+        "lcg_rc_i32": (lambda f: f(tab_i, "rc", (8, 128), 9, 42, 7919), K.lcg_gather_sum,
+                       K.lcg_gather_sum_plain),
+        "lcg_flat": (lambda f: f(tab_f[:74].contiguous(), "flat", (8, 128), 9, 42, 7919),
+                     K.lcg_gather_sum, K.lcg_gather_sum_plain),
+        "carry30": (lambda f: f(tab_f[:74].contiguous(), 1, 40, (8, 128)), K.carry30,
+                    K.carry30_plain),
+        "march": (lambda f: f(tab_f, pos, u, 64), K.march, K.march_plain),
+        "rounds_staged": (lambda f: f(base, big, "staged", 300, 128, False), K.row_gather_rounds,
+                          K.row_gather_rounds_plain),
+        "rounds_staged_n8": (lambda f: f(base, big, "staged", 300, 8, True), K.row_gather_rounds,
+                             K.row_gather_rounds_plain),
+        "rounds_direct": (lambda f: f(base, big, "direct", 300, 128, True), K.row_gather_rounds,
+                          K.row_gather_rounds_plain),
+        "rounds_stage": (lambda f: f(base, big, "stage", 300, 128, True), K.row_gather_rounds,
+                         K.row_gather_rounds_plain),
+        "rounds_ids": (lambda f: f(base, big, "ids", 300, 128, True), K.row_gather_rounds,
+                       K.row_gather_rounds_plain),
+        "rounds_stale": (lambda f: f(base, big, "stale", 300, 128, True), K.row_gather_rounds,
+                         K.row_gather_rounds_plain),
+        "transpose": (lambda f: f(x, "transpose"), K.index_copy, K.index_copy_plain),
+        "tile_rows": (lambda f: f(x, "tile_rows", 4), K.index_copy, K.index_copy_plain),
+        "roll_cols": (lambda f: f(x, "roll_cols", 3), K.index_copy, K.index_copy_plain),
+        "broadcast_row0": (lambda f: f(x, "broadcast_row0", 3584), K.index_copy,
+                           K.index_copy_plain),
+        "iota_plus": (lambda f: f(x, "iota_plus", 3584), K.index_copy, K.index_copy_plain),
+        "tea8": (lambda f: f(u, v), K.tea8, K.tea8_plain),
+    }
+
+
+PROBE_CASES = ("affine_loop", "affine_loop_dev", "gather_rc_f32", "gather_rc_i32",
+               "gather_1d_mod", "gather_rows", "gather_cols", "lcg_row", "lcg_rc_i32",
+               "lcg_flat", "carry30", "march", "rounds_staged", "rounds_staged_n8",
+               "rounds_direct", "rounds_stage", "rounds_ids", "rounds_stale", "transpose",
+               "tile_rows", "roll_cols", "broadcast_row0", "iota_plus", "tea8")
+
+
+@pytest.mark.parametrize("case", PROBE_CASES)
+def test_probe_kernel_matches_plain_version(case):
+    dev = _cuda()
+    call, wrapper, plain = _probe_cases(dev)[case]
+    before = wrapper.launches
+    got = call(wrapper)
+    assert wrapper.launches == before + 1
+    want = call(plain)
+    if isinstance(got, tuple):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        assert got.is_cuda and torch.equal(got, want), float((got.double() - want.double()).abs().max())
+
+
+def test_probe_row_scan_matches_cumsum():
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    x = torch.from_numpy(np.random.default_rng(0).random((8, 128), np.float32)).to(_cuda())
+    before = K.row_scan.launches
+    got = K.row_scan(x)
+    assert K.row_scan.launches == before + 1
+    torch.testing.assert_close(got, K.row_scan_plain(x), rtol=1e-5, atol=0)

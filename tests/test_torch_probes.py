@@ -1,0 +1,624 @@
+"""The probe kernels' plain versions (volren_tpu_torch.ops.kernels.probes)
+against the Pallas probes they replace (probes/probe_*.py and the
+_scan_gather harness), on the CPU: the same numpy inputs go through the
+Pallas kernel under TPU interpret mode and through the port.
+
+Where the function that builds a probe.s kernel is reachable (_loop_fn, _axis0_gather_fn,
+mask_reduce_gather, VARIANTS, make_fn, _scan_gather) the test calls it;
+where the kernel is built inside a guarded stage, the test runs the stage
+in interpret mode with its output file under tmp_path and its timing
+helpers cut to the correctness call, requires ``ok``, records what the
+stage pulls to the host, and holds the port against that and against the
+stage's numpy oracle. Round and iteration counts are patched down
+(module attributes or arguments), never the probes' source.
+
+Bars: bitwise for gathers, integer and u32 results, per-lane accumulators,
+affine_loop and carry_loop (the JAX reference on this CPU fuses x * a + b
+into one fma, and the port computes the same fma); relative 1e-6 on float
+totals (another summation order); rtol 1e-5 for row_scan.
+"""
+
+import importlib
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax import lax
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from volren_tpu_torch import probes as port_probes
+from volren_tpu_torch.ops.kernels import probes as K
+from volren_tpu_torch.probes import probe_dmagather as port_dmagather
+from volren_tpu_torch.probes.sites import SITES
+
+TOTAL_BAR = 1e-6
+
+
+@pytest.fixture(autouse=True)
+def _keep_jax_cache_env(monkeypatch):
+    """Importing a probe sets JAX_COMPILATION_CACHE_DIR (its
+    setup_compilation_cache); each test's teardown restores the variable."""
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+
+
+@pytest.fixture
+def probe(monkeypatch, tmp_path):
+    """Import probes/<name>.py with its output file under tmp_path and a
+    recorder on its host pull; returns (module, pulled arrays)."""
+    def load(name):
+        mod = importlib.import_module(f"probes.{name}")
+        monkeypatch.setattr(mod, "OUT", str(tmp_path / f"{name}.jsonl"))
+        pulled = []
+        if hasattr(mod, "pull"):
+            def pull(x):
+                a = np.asarray(x)
+                pulled.append(a)
+                return a
+            monkeypatch.setattr(mod, "pull", pull)
+        return mod, pulled
+    return load
+
+
+def _interpret():
+    return pltpu.force_tpu_interpret_mode()
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _no_timing(monkeypatch, mod, returns):
+    """Cut the stage's timing helper to nothing (its correctness call
+    stays)."""
+    for name in ("time_calls", "_marginal"):
+        if hasattr(mod, name):
+            monkeypatch.setattr(mod, name, lambda *a, **k: returns)
+
+
+def _relerr(got, want):
+    return abs(got - want) / max(abs(want), 1.0)
+
+
+def _port_total(acc):
+    return float(acc.sum(dtype=torch.float64))
+
+
+# ---------------------------------------------------------------- affine_loop
+
+def test_p0_launch_floor_matches_pallas(probe, monkeypatch):
+    mod, pulled = probe("probe_pallas")
+    _no_timing(monkeypatch, mod, (0.0, [0.0]))
+    with _interpret():
+        assert mod.p0()["ok"]
+    x = np.ones((8, 128), np.float32)
+    assert np.array_equal(K.affine_loop(_t(x), 1, 2.0, 0.0).numpy(), pulled[0])
+
+
+def test_p1_inkernel_loop_matches_pallas_bitwise():
+    mod = importlib.import_module("probes.probe_pallas")
+    x = np.random.default_rng(0).random((256, 512)).astype(np.float32)
+    with _interpret():
+        want = np.asarray(mod._loop_fn(256, (256, 512))(jnp.asarray(x)))
+    got = K.affine_loop(_t(x), 256, 1.0000001, 0.000001)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_p2_device_trip_count_matches_pallas(probe, monkeypatch):
+    mod, pulled = probe("probe_pallas")
+    _no_timing(monkeypatch, mod, (0.0, [0.0]))
+    with _interpret():
+        assert mod.p2()["ok"]
+    x = _t(np.ones((256, 512), np.float32))
+    got = K.affine_loop(x, a=1.0000001, b=0.000001, iters_dev=_t(np.array([64], np.int32)))
+    assert np.array_equal(got.numpy(), pulled[0])
+
+
+def test_p4_launch_loop_matches_pallas(probe, monkeypatch):
+    mod, pulled = probe("probe_pallas")
+    _no_timing(monkeypatch, mod, (0.0, [0.0]))
+    with _interpret():
+        assert mod.p4()["ok"]
+    y = _t(np.ones((256, 512), np.float32))
+    for _ in range(2):        # the stage's warm call: n = 2 outer iterations
+        y = K.affine_loop(y, 64, 1.0000001, 0.000001)
+    assert np.array_equal(y.numpy(), pulled[0])
+
+
+def test_fma32_is_one_rounding():
+    """A product whose float64 sum lands on a float32 tie: the plain
+    version's fma rounds once, as the kernels' __fmaf_rn does."""
+    x = torch.tensor([1 + 2 ** -12, 1 + 2 ** -12], dtype=torch.float32)
+    z = torch.tensor([2 ** -80, -2 ** -80], dtype=torch.float32)
+    got = K.fma32(x, torch.tensor(1 + 2 ** -12), z).double().tolist()
+    assert got == [1 + 2 ** -11 + 2 ** -23, 1 + 2 ** -11]
+
+
+# ---------------------------------------------------------------- gather
+
+@pytest.mark.parametrize("stage,row_mod", [("p3a", 0), ("p3b", 2048)])
+def test_p3_table_gather_matches_pallas(probe, monkeypatch, stage, row_mod):
+    mod, pulled = probe("probe_pallas")
+    orig = mod.time_calls
+    monkeypatch.setattr(mod, "time_calls", lambda fn, mk, n=8: orig(fn, mk, n=1))
+    with _interpret():
+        assert getattr(mod, stage)()["ok"]
+    table = _t(np.asarray(mod._table()))
+    got = K.gather(table, _t(mod._mk_idx(0)), row_mod=row_mod).numpy()
+    assert np.array_equal(got, pulled[0])
+
+
+def test_p3c_scalar_loop_gather_matches_oracle(probe, monkeypatch):
+    mod, _ = probe("probe_pallas")
+    _no_timing(monkeypatch, mod, (0.0, [0.0]))
+    with _interpret():
+        assert mod.p3c()["ok"]          # the Pallas kernel met the stage's _check
+    idx = mod._mk_idx(0)
+    got = K.gather(_t(np.asarray(mod._table())), _t(idx)).numpy()
+    assert np.array_equal(got, (idx.astype(np.int64) * 0.5).astype(np.float32))
+
+
+def test_p3d_row_fetch_matches_pallas(probe, monkeypatch):
+    mod, pulled = probe("probe_pallas")
+    orig = mod.time_calls
+    monkeypatch.setattr(mod, "time_calls", lambda fn, mk, n=8: orig(fn, mk, n=1))
+    with _interpret():
+        assert mod.p3d()["ok"]
+    t2 = np.asarray(mod._table()).reshape(128, 128)
+    rows = np.random.default_rng(70).integers(0, 128, (8, 1), dtype=np.int32)
+    assert np.array_equal(K.gather(_t(t2), _t(rows)).numpy(), pulled[0])
+
+
+@pytest.mark.parametrize("n,dtype", [(1024, np.float32), (16384, np.float32), (4096, np.int32)])
+def test_q1_axis0_gather_matches_pallas(n, dtype):
+    mod = importlib.import_module("probes.probe_pallas2")
+    flat = (np.arange(n, dtype=np.float32) * 0.25 if dtype == np.float32
+            else np.arange(n, dtype=np.int32) * 3)
+    t = np.tile(flat[:, None], (1, 128))
+    idx = np.random.default_rng(100 if dtype == np.float32 else 5).integers(
+        0, n, (n, 128), dtype=np.int32)
+    with _interpret():
+        want = np.asarray(mod._axis0_gather_fn(n, jnp.dtype(dtype))(t, idx))
+    assert np.array_equal(K.gather(_t(t), _t(idx)).numpy(), want)
+
+
+def test_q2_inrow_shuffle_matches_pallas(probe, monkeypatch):
+    mod, pulled = probe("probe_pallas2")
+    _no_timing(monkeypatch, mod, 0.0)
+    with _interpret():
+        assert mod.q2()["ok"]
+    for r, want in zip((8, 3584), pulled):
+        t = np.random.default_rng(1).random((r, 128)).astype(np.float32)
+        idx = np.random.default_rng(300).integers(0, 128, (r, 128), dtype=np.int32)
+        assert np.array_equal(K.gather(_t(t), cols=_t(idx)).numpy(), want)
+
+
+def test_q4_general_gather_matches_pallas(probe, monkeypatch):
+    mod, pulled = probe("probe_pallas2")
+    _no_timing(monkeypatch, mod, 0.0)
+    with _interpret():
+        assert mod.q4()["ok"]
+    t = np.random.default_rng(2).random((3584, 128)).astype(np.float32)
+    rng = np.random.default_rng(400)
+    r = rng.integers(0, 3584, (8, 128), dtype=np.int32)
+    c = rng.integers(0, 128, (8, 128), dtype=np.int32)
+    assert np.array_equal(K.gather(_t(t), _t(r), _t(c)).numpy(), pulled[0])
+
+
+def test_w3_axis0_small_matches_pallas(probe):
+    mod, pulled = probe("probe_pallas3")
+    with _interpret():
+        rec = mod.w3()
+    assert rec["ok"] and rec["R8"] == "ok" and rec["R32"] == "ok"
+    for r, want in zip((8, 32), pulled):
+        t = (np.arange(r * 128) % 977).astype(np.float32).reshape(r, 128)
+        idx = np.random.default_rng(3).integers(0, r, (r, 128), dtype=np.int32)
+        assert np.array_equal(K.gather(_t(t), _t(idx)).numpy(), want)
+
+
+def test_scan_gather_harness_matches_pallas():
+    """The harness of tests/test_pallas.py:55 around kernel.py's
+    _scan_gather, on its shapes and seed."""
+    from volren_tpu.ops.pallas.kernel import _scan_gather
+    from volren_tpu_torch.probes.scan_gather import ROWS, harness_inputs
+
+    tf32, ti32, r, c = harness_inputs()
+
+    def kernel(t1, t2, rr, cc, o1, o2):
+        a, b = _scan_gather([t1[:], t2[:]], rr[:], cc[:], ROWS)
+        o1[:] = a
+        o2[:] = b
+
+    out = pl.pallas_call(
+        kernel,
+        out_shape=(jax.ShapeDtypeStruct((8, 128), jnp.float32),
+                   jax.ShapeDtypeStruct((8, 128), jnp.int32)),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 4,
+        out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM), pl.BlockSpec(memory_space=pltpu.VMEM)),
+        interpret=True,
+    )(tf32, ti32, r, c)
+    assert np.array_equal(K.gather(_t(tf32), _t(r), _t(c)).numpy(), np.asarray(out[0]))
+    assert np.array_equal(K.gather(_t(ti32), _t(r), _t(c)).numpy(), np.asarray(out[1]))
+
+
+# ---------------------------------------------------------------- index_copy
+
+def test_q3_shape_ops_match_pallas(probe):
+    mod, pulled = probe("probe_pallas2")
+    with _interpret():
+        rec = mod.q3()
+    assert rec["ok"] and all(v == "ok" for k, v in rec.items()
+                             if k not in ("ok", "stage", "wall_s"))
+    x = _t(np.arange(8 * 128, dtype=np.float32).reshape(8, 128))
+    big = _t(np.arange(256 * 128, dtype=np.float32).reshape(256, 128))
+    port = [K.index_copy(x, "transpose"), K.index_copy(x, "tile_rows", 4),
+            x.reshape(1, 1024), x.reshape(1024, 1), big.reshape(128, 256),
+            K.index_copy(x, "roll_cols", 3), K.index_copy(x, "broadcast_row0", 3584),
+            K.index_copy(x, "iota_plus", 3584)]
+    assert len(pulled) == len(port)
+    for got, want in zip(port, pulled):
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_w4_transpose_matches_pallas(probe):
+    mod, pulled = probe("probe_pallas3")
+    with _interpret():
+        rec = mod.w4()
+    assert rec["ok"] and all(rec[f"{a}x{b}"] == "ok" for a, b in ((128, 1024), (1024, 128),
+                                                                    (8, 1024)))
+    for (a, b), want in zip(((128, 1024), (1024, 128), (8, 1024)), pulled):
+        t = np.arange(a * b, dtype=np.float32).reshape(a, b)
+        assert np.array_equal(K.index_copy(_t(t), "transpose").numpy(), want)
+
+
+# ---------------------------------------------------------------- tea8, row_scan
+
+def _tea8_np(v0, v1):   # the oracle of probes/probe_pallas2.py::q5
+    s = np.uint32(0)
+    with np.errstate(over="ignore"):
+        for _ in range(8):
+            s = np.uint32(s + np.uint32(0x9E3779B9))
+            v0 = v0 + ((((v1 << np.uint32(4)) + np.uint32(0xA341316C)) ^ (v1 + s)
+                        ^ ((v1 >> np.uint32(5)) + np.uint32(0xC8013EA4))))
+            v1 = v1 + ((((v0 << np.uint32(4)) + np.uint32(0xAD90777D)) ^ (v0 + s)
+                        ^ ((v0 >> np.uint32(5)) + np.uint32(0x7E95761E))))
+    return v0, v1
+
+
+def test_q5_tea8_matches_pallas_oracle(probe):
+    mod, _ = probe("probe_pallas2")
+    with _interpret():
+        rec = mod.q5()
+    assert rec["ok"] and rec["tea_bitexact"]     # Pallas == the stage's tea8_np
+    rng = np.random.default_rng(9)
+    a = rng.integers(0, 2 ** 32, (8, 128), dtype=np.uint32)
+    b = rng.integers(0, 2 ** 32, (8, 128), dtype=np.uint32)
+    w0, w1 = _tea8_np(a.copy(), b.copy())
+    g0, g1 = K.tea8(_t(a.astype(np.int64)), _t(b.astype(np.int64)))
+    assert np.array_equal(g0.numpy(), w0) and np.array_equal(g1.numpy(), w1)
+    b0, b1 = K.tea8(K.u32_bits(_t(a.astype(np.int64))), K.u32_bits(_t(b.astype(np.int64))))
+    assert np.array_equal(b0.numpy().view(np.uint32), w0)
+    assert np.array_equal(b1.numpy().view(np.uint32), w1)
+
+
+def test_cumsum_row_scan_matches_pallas(probe, monkeypatch):
+    mod, _ = probe("probe_pallas5")
+    records = []
+    monkeypatch.setattr(mod, "emit", records.append)
+    with _interpret():
+        mod.bench_cumsum()
+    assert records[0]["ok"]           # Pallas cumsum within rtol 1e-5 of np.cumsum
+    x = np.random.default_rng(0).random((8, 128), np.float32)
+    got = K.row_scan(_t(x)).numpy()
+    np.testing.assert_allclose(got, np.cumsum(x, axis=1), rtol=1e-5)
+
+
+# ---------------------------------------------------------------- lcg_gather_sum
+
+def _np_lane_acc(table, mode, lanes, iters, seed):
+    """Per-lane float32 accumulators by the probes' numpy LCG (lcg_np)."""
+    from volren_tpu_torch.probes._common import lcg_np, seeds_np
+
+    r_n, c_n = table.shape
+    sd = seeds_np(seed, lanes, 7919)
+    acc = np.zeros(lanes, np.float32)
+    i = np.arange(lanes[0])[:, None]
+    for _ in range(iters):
+        sd = lcg_np(sd)
+        if mode == "row":
+            idx = i * c_n + (sd >> np.uint32(8)).astype(np.int64) % c_n
+        elif mode == "rc":
+            r = (sd >> np.uint32(8)).astype(np.int64) % r_n
+            sd = lcg_np(sd)
+            idx = r * c_n + (sd >> np.uint32(8)).astype(np.int64) % c_n
+        else:
+            idx = ((sd >> np.uint32(8)) & np.uint32(0x7FFFFF)).astype(np.int64) % table.size
+        acc = acc + table.reshape(-1)[idx].astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("name,r,dtype", [("W1_axis1_3584_f32", 3584, np.float32),
+                                          ("W6_axis1_3584_i32", 3584, np.int32)])
+def test_w1_w6_row_gather_sum_matches_pallas(probe, monkeypatch, name, r, dtype):
+    mod, pulled = probe("probe_pallas3")
+    _no_timing(monkeypatch, mod, (0.0, 0.0, 0.0))
+    with _interpret():
+        rec = mod._axis1_loop_probe(r, jnp.dtype(dtype), name)()
+    assert rec["ok"] and rec["relerr"] <= TOTAL_BAR
+    tn = (np.arange(r * 128) % 977).reshape(r, 128).astype(dtype)
+    acc = K.lcg_gather_sum(_t(tn), "row", (r, 128), 3, 42)
+    assert np.array_equal(acc.numpy(), _np_lane_acc(tn, "row", (r, 128), 3, 42))
+    assert _relerr(_port_total(acc), float(pulled[0][0, 0])) <= TOTAL_BAR
+
+
+def test_w2_wide_row_gather_sum_matches_pallas(probe, monkeypatch):
+    mod, pulled = probe("probe_pallas3")
+    _no_timing(monkeypatch, mod, (0.0, 0.0, 0.0))
+    with _interpret():
+        rec = mod.w2()
+    assert rec["ok"] and rec["relerr"] <= TOTAL_BAR
+    tn = (np.arange(8 * 16384) % 977).astype(np.float32).reshape(8, 16384)
+    acc = K.lcg_gather_sum(_t(tn), "row", (8, 16384), 3, 42)
+    assert np.array_equal(acc.numpy(), _np_lane_acc(tn, "row", (8, 16384), 3, 42))
+    assert _relerr(_port_total(acc), float(pulled[0][0, 0])) <= TOTAL_BAR
+
+
+def test_w7_general_gather_sum_matches_pallas(probe, monkeypatch):
+    mod, pulled = probe("probe_pallas3")
+    _no_timing(monkeypatch, mod, (0.0, 0.0, 0.0))
+    with _interpret():
+        rec = mod.w7()
+    assert rec["ok"] and rec["relerr"] <= TOTAL_BAR
+    tn = np.random.default_rng(2).random((3584, 128)).astype(np.float32)
+    acc = K.lcg_gather_sum(_t(tn), "rc", (1, 1024), 3, 42)
+    assert np.array_equal(acc.numpy(), _np_lane_acc(tn, "rc", (1, 1024), 3, 42))
+    assert _relerr(_port_total(acc), float(pulled[0][0, 0])) <= TOTAL_BAR
+
+
+@pytest.mark.parametrize("name,r,dtype", [("X1_maskreduce_3584_i32", 3584, np.int32),
+                                          ("X2_maskreduce_74_f32", 74, np.float32)])
+def test_x1_x2_maskreduce_gather_sum_matches_pallas(probe, monkeypatch, name, r, dtype):
+    mod, pulled = probe("probe_pallas4")
+    _no_timing(monkeypatch, mod, (0.0, 0.0, 0.0))
+    with _interpret():
+        rec = mod._mask_reduce_probe(name, r, dtype)()
+    assert rec["ok"] and rec["relerr"] <= TOTAL_BAR
+    rng = np.random.default_rng(5)
+    tn = (rng.integers(0, 2 ** 20, (r, 128)).astype(np.int32) if dtype == np.int32
+          else rng.random((r, 128)).astype(np.float32))
+    acc = K.lcg_gather_sum(_t(tn), "rc", (8, 128), 3, 42)
+    assert np.array_equal(acc.numpy(), _np_lane_acc(tn, "rc", (8, 128), 3, 42))
+    assert _relerr(_port_total(acc), float(pulled[0][0, 0])) <= TOTAL_BAR
+
+
+@pytest.mark.parametrize("variant,r", [("v1_maskreduce", 74), ("v2_mxu", 74),
+                                       ("v3_shuffle", 1), ("v4_group_fori", 74),
+                                       ("v5_group_static", 8), ("v8_group_ilp", 896)])
+def test_v_gather_formulations_match_pallas(probe, monkeypatch, variant, r):
+    """Every TPU formulation computes one function; the port's "flat" gather
+    is held to each one's Pallas run through the stage's relerr and to the
+    numpy oracle per lane. (v8 asserts R % 4 == 0, so it runs at 896; v5
+    unrolls one select per row, so it runs at 8 rows to keep the trace short.)"""
+    mod, _ = probe("probe_pallas5")
+    records = []
+    monkeypatch.setattr(mod, "emit", records.append)
+    fn = mod.VARIANTS.get(variant) or getattr(mod, variant)
+    with _interpret():
+        mod.bench_variant(variant, fn, r, n_iters=(1, 2), n_med=1)
+    assert records[0]["ok"] and records[0]["relerr"] <= TOTAL_BAR, records[0]
+    tn = ((np.arange(r * 128) * 13) % 997).astype(np.float32).reshape(r, 128)
+    acc = K.lcg_gather_sum(_t(tn), "flat", (8, 128), 3, 42)
+    assert np.array_equal(acc.numpy(), _np_lane_acc(tn, "flat", (8, 128), 3, 42))
+
+
+# ---------------------------------------------------------------- carry_loop
+
+def test_x3_carry30_matches_pallas(probe, monkeypatch):
+    """The stage's kernel total (seed 1, 64 steps) against the port's at
+    1e-6, and the per-lane values bitwise against the kernel body run by
+    XLA on this CPU (the same ops, outside Pallas)."""
+    mod, pulled = probe("probe_pallas4")
+    _no_timing(monkeypatch, mod, (0.0, 0.0, 0.0))
+    with _interpret():
+        assert mod.x3()["ok"]
+    tn = np.random.default_rng(6).random((74, 128)).astype(np.float32)
+    acc = K.carry30(_t(tn), 1, 64)
+    assert _relerr(_port_total(acc), float(pulled[0][0, 0])) <= TOTAL_BAR
+
+    @jax.jit
+    def body_lanes(t):
+        def body(carry):
+            it, sd, *arrs = carry
+            sd = mod.lcg(sd)
+            r = (sd >> jnp.uint32(8)).astype(jnp.int32) % 74
+            sd = mod.lcg(sd)
+            cc = (sd >> jnp.uint32(8)).astype(jnp.int32) % 128
+            prev = mod.mask_reduce_gather(t, r, cc, 74)
+            new = []
+            for a in arrs:
+                a = a * 0.9999 + prev * 1e-4
+                prev = a
+                new.append(a)
+            return (it + 1, sd, *new)
+
+        sd0 = jnp.uint32(1) + lax.broadcasted_iota(jnp.uint32, (8, 128), 1)
+        arrs0 = [jnp.full((8, 128), 0.01 * k, jnp.float32) for k in range(30)]
+        out = lax.while_loop(lambda c: c[0] < 64, body, (jnp.int32(0), sd0, *arrs0))
+        total = out[2]
+        for a in out[3:]:
+            total = total + a
+        return total
+
+    assert np.array_equal(acc.numpy(), np.asarray(body_lanes(jnp.asarray(tn))))
+
+
+def test_q6_march_matches_the_kernel_body():
+    """The Q6 stage never ran its kernel on any backend: its body deletes
+    `iota_n`, which makes the name local and unbound (see the stage's own
+    line in probes/results/pallas2.jsonl). The port is held bitwise to the
+    kernel body as written, minus that line, run by XLA on this CPU."""
+    R = 4096
+    t = np.random.default_rng(3).random((R, 128), np.float32)
+    x = np.random.default_rng(4).random((8, 128)).astype(np.float32)
+    s = np.random.default_rng(5).integers(0, 2 ** 32, (8, 128), dtype=np.uint32)
+
+    @jax.jit
+    def q6_body(tt, pos0, r0):
+        def body(k, carry):
+            pos, vel, rstate = carry
+            rstate = rstate * jnp.uint32(1664525) + jnp.uint32(1013904223)
+            jitter = (rstate >> jnp.uint32(9)).astype(jnp.float32) * (1.0 / 8388608.0)
+            cell = jnp.clip((pos * 16.0).astype(jnp.int32), 0, R - 1)
+            idx = jnp.broadcast_to(cell[0:1, :], (R, 128))
+            maj = jnp.take_along_axis(tt, idx, axis=0)[0:8, :]
+            step = jnp.where(maj > 0.5, 0.01, 0.05) * (0.5 + jitter[:8])
+            pos = pos + vel * step
+            vel = vel * 0.999
+            return pos, vel, rstate
+
+        vel0 = jnp.full((8, 128), 0.01, jnp.float32)
+        pos, vel, _ = lax.fori_loop(0, 64, body, (pos0, vel0, r0))
+        return pos + vel
+
+    want = np.asarray(q6_body(jnp.asarray(t), jnp.asarray(x), jnp.asarray(s)))
+    got = K.march(_t(t), _t(x), _t(s.astype(np.int64)), 64).numpy()
+    assert np.array_equal(got, want)
+
+
+def test_q6_stage_fails_as_recorded_on_the_tpu(probe):
+    mod, _ = probe("probe_pallas2")
+    with _interpret():
+        rec = mod.q6()
+    assert not rec["ok"] and "UnboundLocalError" in rec["error"] and "iota_n" in rec["error"]
+
+
+# ---------------------------------------------------------------- row_gather_rounds
+
+@pytest.fixture(scope="module")
+def dma_table():
+    rng = np.random.default_rng(7)
+    tab = rng.integers(0, 2 ** 31 - 1, (65536, 128), dtype=np.int32)
+    idx = rng.integers(0, 65536, (1, 128), dtype=np.int32)
+    return tab, idx
+
+
+def _port_rounds(dma_table, mode, rounds, n=128, use_mask=False):
+    tab, idx = dma_table
+    return K.row_gather_rounds(_t(idx), _t(tab), mode, rounds, n, use_mask).numpy()
+
+
+@pytest.mark.parametrize("scalarize,n_dma", [("smem", 128), ("reduce", 32)])
+def test_dmagather_rounds_match_pallas(dma_table, scalarize, n_dma):
+    mod = importlib.import_module("probes.probe_dmagather")
+    tab, idx = dma_table
+    with _interpret():
+        want = np.asarray(mod.make_fn(n_dma, scalarize, 3)(idx, tab))[0]
+    assert np.array_equal(_port_rounds(dma_table, "staged", 3, n_dma), want)
+
+
+@pytest.mark.parametrize("variant,mode,n,use_mask", [("full", "staged", 128, False),
+                                                     ("nomod", "staged", 128, True),
+                                                     ("dma8", "staged", 8, False)])
+def test_dmagather2_rounds_match_pallas(dma_table, monkeypatch, variant, mode, n, use_mask):
+    mod = importlib.import_module("probes.probe_dmagather2")
+    monkeypatch.setattr(mod, "ROUNDS", 3)
+    tab, idx = dma_table
+    with _interpret():
+        want = np.asarray(mod.make_fn(variant)(idx, tab))[0]
+    got = _port_rounds(dma_table, mode, 3, n, use_mask)
+    # dma8 lanes 8.. pick from rows nothing wrote: only lanes < 8 are defined
+    assert np.array_equal(got[:n], want[:n])
+
+
+@pytest.mark.parametrize("variant,mode", [("loop", "ids"), ("word4", "direct")])
+def test_dmagather3_rounds_match_pallas(dma_table, monkeypatch, variant, mode):
+    mod = importlib.import_module("probes.probe_dmagather3")
+    monkeypatch.setattr(mod, "ROUNDS", 3)
+    tab, idx = dma_table
+    with _interpret():
+        want = np.asarray(mod.make_fn(variant)(idx, tab))[0]
+    assert np.array_equal(_port_rounds(dma_table, mode, 3, use_mask=True), want)
+
+
+@pytest.mark.parametrize("variant,mode", [("loop", "ids"), ("dma128", "stage"),
+                                          ("full", "staged")])
+def test_dmagather4_rounds_match_pallas(dma_table, variant, mode):
+    mod = importlib.import_module("probes.probe_dmagather4")
+    tab, idx = dma_table
+    with _interpret():
+        want = np.asarray(mod.make_fn(variant, 2)(idx, tab))[0]
+    assert np.array_equal(_port_rounds(dma_table, mode, 2, use_mask=True), want)
+
+
+def test_stale_rounds_pick_the_zero_filled_buffer(dma_table):
+    """diagonly / stageonly / load / gather / reduce / hoist / diag read a
+    landing buffer that nothing wrote (undefined in Pallas); the port's is
+    zero-filled, and its oracle is zeros."""
+    tab, idx = dma_table
+    assert not _port_rounds(dma_table, "stale", 5, use_mask=True).any()
+    want = port_dmagather.ref_checksum(idx, tab, 128, 5, True, "stale")
+    assert not want.any()
+
+
+# ---------------------------------------------------------------- wrappers, entry point
+
+def test_wrappers_run_the_plain_version_on_cpu_and_raise_elsewhere():
+    x = torch.ones(8, 128)
+    before = {name: w.launches for name, w in K.WRAPPERS.items()}
+    K.affine_loop(x, 2, 1.0, 1.0)
+    K.gather(x, cols=torch.zeros(8, 128, dtype=torch.int32))
+    K.row_scan(x)
+    assert {name: w.launches for name, w in K.WRAPPERS.items()} == before
+    meta = torch.empty(8, 128, device="meta")
+    with pytest.raises(ValueError):
+        K.affine_loop(meta, 2)
+    with pytest.raises(ValueError):
+        K.gather(meta, cols=torch.zeros(8, 128, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        K.index_copy(meta, "transpose")
+    with pytest.raises(ValueError):
+        K.row_scan(meta)
+    with pytest.raises(ValueError):
+        K.lcg_gather_sum(meta, "rc", (8, 128), 1, 0)
+    with pytest.raises(ValueError):
+        K.row_gather_rounds(torch.zeros(128, dtype=torch.int32), meta.to(torch.int32), "ids", 1)
+    with pytest.raises(ValueError):
+        K.lcg_gather_sum(x, "bogus", (8, 128), 1, 0)
+
+
+def test_entry_point_runs_on_cpu_and_fails_loudly(monkeypatch, tmp_path, capsys):
+    out = tmp_path / "probes.jsonl"
+    only = "P0_trivial,Q4_general_gather,dmagather3:word4,harness_exact"
+    assert port_probes.main(["--device", "cpu", "--only", only, "--out", str(out)]) == 0
+    lines = [json.loads(line) for line in out.read_text().splitlines()]
+    stages = [r.get("stage") or r.get("tag") for r in lines if "mode" not in r]
+    assert stages == ["P0_trivial", "Q4_general_gather", "word4", "harness_exact"]
+    assert all(r["ok"] and r["device"] == "cpu" for r in lines if "mode" not in r)
+
+    def broken(ctx):
+        raise AssertionError("wrong answer")
+    monkeypatch.setattr(port_probes.probe_pallas, "STAGES", (("P0_trivial", broken),))
+    assert port_probes.main(["--device", "cpu", "--only", "P0_trivial"]) == 1
+    assert '"ok": false' in capsys.readouterr().out
+    with pytest.raises(ValueError):
+        port_probes.select("no_such_stage")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            port_probes.main(["--only", "P0_trivial"])
+
+
+def test_sites_cover_every_pallas_call_site_and_stage():
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert len(SITES) == 28 and len({s.name for s in SITES}) == 28
+    for site in SITES:
+        path, line = site.replaces.rsplit(":", 1)
+        with open(os.path.join(repo, path)) as f:
+            assert "pl.pallas_call(" in f.readlines()[int(line) - 1], site.replaces
+        assert site.family in K.WRAPPERS
+    covered = sorted(n for s in SITES for _m, n, _f in port_probes.select(s.stages))
+    assert covered == sorted(n for _m, n, _f in port_probes.select(None))

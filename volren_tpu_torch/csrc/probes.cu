@@ -1,0 +1,434 @@
+// Microbenchmark kernels for NVIDIA Hopper (sm_90a): the H100 counterparts
+// of the Pallas probes (probes/probe_pallas{,2,3,4,5}.py,
+// probes/probe_dmagather{,2,3,4}.py) and of the `_scan_gather` test
+// harness (tests/test_pallas.py:55, volren_tpu/ops/pallas/kernel.py:396).
+//
+// Each probe asked the TPU one question about the render megakernel's
+// building blocks: the cost of an in-kernel loop step, of a gather against
+// the table's size, of a row gather staged in fast memory against a direct
+// word load, of 30 values carried through a loop. Here each is asked of the
+// card. The TPU mechanisms (one-hot MXU products, mask-reduce passes, SMEM
+// scalarisation, DMA semaphores) are not carried over: on this card a gather
+// is a load. Eight families cover the 28 Pallas call sites:
+//
+//   affine_loop        P0, P1, P2 (trip count read on the device), P4
+//   gather             P3a-d, Q1, Q2, Q4, W3, the _scan_gather harness
+//   lcg_gather_sum     W1, W2, W5/W7, W6, X1, X2, V1-V5/V8
+//   carry_loop         X3 (30 carried values), Q6 (the march-like body)
+//   row_gather_rounds  dmagather 1-4 (staged rows vs direct words)
+//   index_copy         Q3, W4 (transpose tiled through shared memory)
+//   tea8               Q5
+//   row_scan           probe_pallas5's cumsum
+//
+// Every family's plain torch version is in
+// volren_tpu_torch/ops/kernels/probes.py. The file is built with
+// -fmad=false, so float arithmetic rounds as the plain version's separate
+// operations do; where the JAX reference computes a fused multiply-add
+// (XLA fuses x*a + b, and a*c1 + p*c2 on its first product), the kernel
+// asks for one with __fmaf_rn and the plain version emulates it exactly.
+// A gather moves 32-bit words, so one kernel serves f32 and i32 tables.
+//
+// What bounds them: every family but the large gathers and the transpose is
+// latency-bound by construction (a dependent chain per thread: a loop step,
+// an LCG step feeding a load, a round of row copies). Their bound by bytes
+// or operations is far below their time; the time itself is the answer.
+// Each C entry point launches on the given stream and returns
+// cudaGetLastError().
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ uint32_t lcg(uint32_t s) { return s * 1664525u + 1013904223u; }
+
+// Python's a % m for m > 0 (non-negative result)
+__device__ __forceinline__ int pymod(int a, int m) {
+  int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+int blocks(long long n) { return int((n + THREADS - 1) / THREADS); }
+
+// ---- affine_loop: out = x after `iters` steps of v = fma(v, a, b)
+__global__ void affine_loop_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
+                                   int iters, const int* __restrict__ iters_dev, float a,
+                                   float b) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int m = iters_dev ? *iters_dev : iters;
+  float v = x[i];
+  for (int k = 0; k < m; ++k) v = __fmaf_rn(v, a, b);
+  out[i] = v;
+}
+
+// ---- gather: out[i, j] = T[r, c] over an (H, W) output; r is i
+// (r_mode 0), r_idx[i, j] (1) or r_idx[i] (2), taken modulo r_mod when
+// r_mod > 0; c is 0 (c_mode 0), j (1) or c_idx[i, j] (2)
+__global__ void gather_kernel(const uint32_t* __restrict__ T, int C,
+                              const int* __restrict__ r_idx, int r_mode, int r_mod,
+                              const int* __restrict__ c_idx, int c_mode,
+                              uint32_t* __restrict__ out, int H, int W) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= H * W) return;
+  int i = k / W, j = k % W;
+  int r = r_mode == 0 ? i : (r_mode == 1 ? r_idx[k] : r_idx[i]);
+  if (r_mod > 0) r = pymod(r, r_mod);
+  int c = c_mode == 0 ? 0 : (c_mode == 1 ? j : c_idx[k]);
+  out[k] = T[(long long)r * C + c];
+}
+
+// ---- lcg_gather_sum: per lane (i, j) of an (H, W) block, seed
+// s = seed + i * row_mul + j; `iters` times: advance the LCG and add one
+// table word (as f32) to the lane's accumulator. mode 0 ("row"): T[i, (s >>
+// 8) % C]; mode 1 ("rc"): r = (s >> 8) % R, advance, c = (s >> 8) % C,
+// T[r, c]; mode 2 ("flat"): T.flat[((s >> 8) & 0x7FFFFF) % (R * C)]
+template <bool IS_INT>
+__global__ void lcg_gather_sum_kernel(const uint32_t* __restrict__ T, int R, int C, int mode,
+                                      uint32_t seed, uint32_t row_mul, int H, int W, int iters,
+                                      float* __restrict__ acc_out) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= H * W) return;
+  int i = k / W, j = k % W;
+  uint32_t s = seed + uint32_t(i) * row_mul + uint32_t(j);
+  float acc = 0.0f;
+  for (int it = 0; it < iters; ++it) {
+    s = lcg(s);
+    int idx;
+    if (mode == 0) {
+      idx = i * C + int(s >> 8) % C;
+    } else if (mode == 1) {
+      int r = int(s >> 8) % R;
+      s = lcg(s);
+      idx = r * C + int(s >> 8) % C;
+    } else {
+      idx = int((s >> 8) & 0x7FFFFFu) % (R * C);
+    }
+    uint32_t w = T[idx];
+    float v = IS_INT ? __int2float_rn(int(w)) : __uint_as_float(w);
+    acc = __fadd_rn(acc, v);
+  }
+  acc_out[k] = acc;
+}
+
+// ---- carry_loop, X3: 30 values carried per lane through `iters` steps;
+// each step gathers one word of T (R, C) at an LCG (r, c) and chains it
+// through the 30: a = fma(a, c_keep, prev * c_mix); prev = a. Writes the
+// lane's sum of the 30, added in order.
+constexpr int N_CARRY = 30;
+
+__global__ void carry30_kernel(const float* __restrict__ T, int R, int C, uint32_t seed,
+                               int iters, int n_lanes, int W, float c_keep, float c_mix,
+                               float* __restrict__ out) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n_lanes) return;
+  uint32_t s = seed + uint32_t(k % W);
+  float a[N_CARRY];
+#pragma unroll
+  for (int m = 0; m < N_CARRY; ++m) a[m] = float(0.01 * m);
+  for (int it = 0; it < iters; ++it) {
+    s = lcg(s);
+    int r = int(s >> 8) % R;
+    s = lcg(s);
+    int c = int(s >> 8) % C;
+    float prev = T[r * C + c];
+#pragma unroll
+    for (int m = 0; m < N_CARRY; ++m) {
+      a[m] = __fmaf_rn(a[m], c_keep, __fmul_rn(prev, c_mix));
+      prev = a[m];
+    }
+  }
+  float acc = a[0];
+#pragma unroll
+  for (int m = 1; m < N_CARRY; ++m) acc = __fadd_rn(acc, a[m]);
+  out[k] = acc;
+}
+
+// ---- carry_loop, Q6: the march-like body on an (8, W) lane block, one
+// thread per column. Per step: LCG jitter per lane; the majorant
+// maj = T[cell, j] with the cell of row 0 (clip(int(pos[0] * 16), 0, R-1))
+// for all 8 rows; step = (maj > 0.5 ? s_near : s_far) * (0.5 + jitter);
+// pos = fma(vel, step, pos); vel *= decay. Writes pos + vel.
+constexpr int Q6_ROWS = 8;
+
+__global__ void march_kernel(const float* __restrict__ T, int R, int W,
+                             const float* __restrict__ x, const uint32_t* __restrict__ s0,
+                             int iters, float vel0, float s_near, float s_far, float decay,
+                             float* __restrict__ out) {
+  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= W) return;
+  float pos[Q6_ROWS], vel[Q6_ROWS];
+  uint32_t rs[Q6_ROWS];
+#pragma unroll
+  for (int i = 0; i < Q6_ROWS; ++i) {
+    pos[i] = x[i * W + j];
+    vel[i] = vel0;
+    rs[i] = s0[i * W + j];
+  }
+  for (int it = 0; it < iters; ++it) {
+    int cell = __float2int_rz(__fmul_rn(pos[0], 16.0f));
+    cell = min(max(cell, 0), R - 1);
+    float maj = T[cell * W + j];
+    float base = maj > 0.5f ? s_near : s_far;
+#pragma unroll
+    for (int i = 0; i < Q6_ROWS; ++i) {
+      rs[i] = lcg(rs[i]);
+      float jitter = __fmul_rn(__uint2float_rn(rs[i] >> 9), 1.0f / 8388608.0f);
+      float step = __fmul_rn(base, __fadd_rn(0.5f, jitter));
+      pos[i] = __fmaf_rn(vel[i], step, pos[i]);
+      vel[i] = __fmul_rn(vel[i], decay);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < Q6_ROWS; ++i) out[i * W + j] = __fadd_rn(pos[i], vel[i]);
+}
+
+// ---- row_gather_rounds: one block of 128 lanes; per round k, lane j's
+// row is ids = (base[j] + 7919 k) % rows (or & 0xFFFF); lanes j < n add
+// tab[ids, ids & 127] to a wrapping u32 checksum. MODE_IDS adds ids (no
+// load); MODE_DIRECT loads the word; MODE_STAGE copies the n demanded
+// 512-byte rows into shared memory with cp.async and adds ids; MODE_STAGED
+// copies them and picks each lane's word from shared memory; MODE_STALE
+// picks from the zero-filled landing buffer without copying.
+constexpr int LANES = 128;
+constexpr int MODE_IDS = 0, MODE_DIRECT = 1, MODE_STAGE = 2, MODE_STAGED = 3, MODE_STALE = 4;
+constexpr int LAND_BYTES = LANES * LANES * 4;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  unsigned dst = unsigned(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(LANES)
+    row_gather_rounds_kernel(const int* __restrict__ base, const uint32_t* __restrict__ tab,
+                             int rows, int use_mask, int n, int rounds,
+                             uint32_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t land[];
+  __shared__ int ids_s[LANES];
+  const int j = threadIdx.x;
+  constexpr bool USES_LAND = MODE == MODE_STAGE || MODE == MODE_STAGED || MODE == MODE_STALE;
+  if (USES_LAND) {
+    for (int q = j; q < LANES * LANES; q += LANES) land[q] = 0u;
+    __syncthreads();
+  }
+  const int b = base[j];
+  uint32_t acc = 0u;
+  for (int k = 0; k < rounds; ++k) {
+    int v = b + 7919 * k;  // the wrapper keeps it below 2^31, as the probes' int32 did
+    int ids = use_mask ? (v & 0xFFFF) : v % rows;
+    if (MODE == MODE_IDS) {
+      acc += uint32_t(ids);
+    } else if (MODE == MODE_DIRECT) {
+      if (j < n) acc += tab[(long long)ids * LANES + (ids & 127)];
+    } else if (MODE == MODE_STALE) {
+      acc += land[j * LANES + (ids & 127)];
+    } else {
+      ids_s[j] = ids;
+      __syncthreads();
+      // 32 chunks of 16 bytes per row: a warp copies one whole row
+      for (int q = j; q < n * 32; q += LANES) {
+        int row = q >> 5, part = (q & 31) * 4;
+        cp_async16(&land[row * LANES + part], tab + (long long)ids_s[row] * LANES + part);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_all;\n" ::);
+      __syncthreads();
+      if (MODE == MODE_STAGE) {
+        acc += uint32_t(ids);
+      } else if (j < n) {
+        acc += land[j * LANES + (ids & 127)];
+      }
+      __syncthreads();  // the next round overwrites ids_s and land
+    }
+  }
+  out[j] = acc;
+}
+
+template <int MODE>
+cudaError_t launch_rounds(const int* base, const uint32_t* tab, int rows, int use_mask, int n,
+                          int rounds, uint32_t* out, cudaStream_t stream) {
+  constexpr bool USES_LAND = MODE == MODE_STAGE || MODE == MODE_STAGED || MODE == MODE_STALE;
+  int smem = USES_LAND ? LAND_BYTES : 0;
+  if (USES_LAND) {
+    cudaError_t err = cudaFuncSetAttribute(row_gather_rounds_kernel<MODE>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  row_gather_rounds_kernel<MODE><<<1, LANES, smem, stream>>>(base, tab, rows, use_mask, n,
+                                                              rounds, out);
+  return cudaGetLastError();
+}
+
+// ---- index_copy: out (OH, OW) from x (H, W). TILE_ROWS: x[i % H, j];
+// ROLL_COLS: x[i, (j - param) mod W]; BROADCAST_ROW: x[param, j];
+// IOTA_PLUS: float(i) + x[0, 0] (f32). TRANSPOSE has its own tiled kernel.
+constexpr int IC_TRANSPOSE = 0, IC_TILE_ROWS = 1, IC_ROLL_COLS = 2, IC_BROADCAST_ROW = 3,
+              IC_IOTA_PLUS = 4;
+constexpr int TILE = 32;
+
+__global__ void index_copy_kernel(const uint32_t* __restrict__ x, int H, int W, int mode,
+                                  int param, uint32_t* __restrict__ out, int OH, int OW) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= OH * OW) return;
+  int i = k / OW, j = k % OW;
+  uint32_t v;
+  if (mode == IC_TILE_ROWS) {
+    v = x[(i % H) * W + j];
+  } else if (mode == IC_ROLL_COLS) {
+    v = x[i * W + pymod(j - param, W)];
+  } else if (mode == IC_BROADCAST_ROW) {
+    v = x[param * W + j];
+  } else {
+    v = __float_as_uint(__fadd_rn(__int2float_rn(i), __uint_as_float(x[0])));
+  }
+  out[k] = v;
+}
+
+// out (W, H) = x (H, W) transposed through a 32 x 33 shared tile (the
+// pad column keeps the tile's column reads off one bank)
+__global__ void transpose_kernel(const uint32_t* __restrict__ x, int H, int W,
+                                 uint32_t* __restrict__ out) {
+  __shared__ uint32_t tile[TILE][TILE + 1];
+  int c0 = blockIdx.x * TILE, r0 = blockIdx.y * TILE;
+  for (int dy = threadIdx.y; dy < TILE; dy += blockDim.y) {
+    int r = r0 + dy, c = c0 + threadIdx.x;
+    if (r < H && c < W) tile[dy][threadIdx.x] = x[(long long)r * W + c];
+  }
+  __syncthreads();
+  for (int dy = threadIdx.y; dy < TILE; dy += blockDim.y) {
+    int r = c0 + dy, c = r0 + threadIdx.x;  // out row r = x column
+    if (r < W && c < H) out[(long long)r * H + c] = tile[threadIdx.x][dy];
+  }
+}
+
+// ---- tea8: 8 TEA rounds of (v0, v1) (volren_tpu/ops/rng.py's constants)
+__global__ void tea8_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
+                            uint32_t* __restrict__ o0, uint32_t* __restrict__ o1, int n) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n) return;
+  uint32_t v0 = a[k], v1 = b[k], s = 0u;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    s += 0x9E3779B9u;
+    v0 += ((v1 << 4) + 0xA341316Cu) ^ (v1 + s) ^ ((v1 >> 5) + 0xC8013EA4u);
+    v1 += ((v0 << 4) + 0xAD90777Du) ^ (v0 + s) ^ ((v0 >> 5) + 0x7E95761Eu);
+  }
+  o0[k] = v0;
+  o1[k] = v1;
+}
+
+// ---- row_scan: inclusive prefix sum of each row of an (H, W) f32 array,
+// W <= 1024: one block per row, a shuffle scan inside each warp, then the
+// warps' totals scanned by warp 0 and added back. It adds in another order
+// than a sequential cumsum, so it agrees with one to rounding.
+__global__ void row_scan_kernel(const float* __restrict__ x, float* __restrict__ out, int W) {
+  __shared__ float warp_sum[32];
+  int row = blockIdx.x, j = threadIdx.x, lane = j & 31, warp = j >> 5;
+  float v = j < W ? x[(long long)row * W + j] : 0.0f;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    float u = __shfl_up_sync(0xFFFFFFFFu, v, d);
+    if (lane >= d) v = __fadd_rn(v, u);
+  }
+  if (lane == 31) warp_sum[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    int n_warps = (blockDim.x + 31) >> 5;
+    float w = lane < n_warps ? warp_sum[lane] : 0.0f;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      float u = __shfl_up_sync(0xFFFFFFFFu, w, d);
+      if (lane >= d) w = __fadd_rn(w, u);
+    }
+    warp_sum[lane] = w;
+  }
+  __syncthreads();
+  if (warp > 0) v = __fadd_rn(v, warp_sum[warp - 1]);
+  if (j < W) out[(long long)row * W + j] = v;
+}
+
+}  // namespace
+
+extern "C" {
+
+int probe_affine_loop(const float* x, float* out, int n, int iters, const int* iters_dev,
+                      float a, float b, cudaStream_t stream) {
+  affine_loop_kernel<<<blocks(n), THREADS, 0, stream>>>(x, out, n, iters, iters_dev, a, b);
+  return cudaGetLastError();
+}
+
+int probe_gather(const uint32_t* T, int C, const int* r_idx, int r_mode, int r_mod,
+                 const int* c_idx, int c_mode, uint32_t* out, int H, int W,
+                 cudaStream_t stream) {
+  gather_kernel<<<blocks((long long)H * W), THREADS, 0, stream>>>(T, C, r_idx, r_mode, r_mod,
+                                                                  c_idx, c_mode, out, H, W);
+  return cudaGetLastError();
+}
+
+int probe_lcg_gather_sum(const uint32_t* T, int is_int, int R, int C, int mode, unsigned seed,
+                         unsigned row_mul, int H, int W, int iters, float* acc,
+                         cudaStream_t stream) {
+  if (is_int)
+    lcg_gather_sum_kernel<true><<<blocks(H * W), THREADS, 0, stream>>>(T, R, C, mode, seed,
+                                                                       row_mul, H, W, iters, acc);
+  else
+    lcg_gather_sum_kernel<false><<<blocks(H * W), THREADS, 0, stream>>>(T, R, C, mode, seed,
+                                                                        row_mul, H, W, iters, acc);
+  return cudaGetLastError();
+}
+
+int probe_carry30(const float* T, int R, int C, unsigned seed, int iters, int n_lanes, int W,
+                  float c_keep, float c_mix, float* out, cudaStream_t stream) {
+  carry30_kernel<<<blocks(n_lanes), THREADS, 0, stream>>>(T, R, C, seed, iters, n_lanes, W, c_keep,
+                                                      c_mix, out);
+  return cudaGetLastError();
+}
+
+int probe_march(const float* T, int R, int W, const float* x, const uint32_t* s0, int iters,
+                float vel0, float s_near, float s_far, float decay, float* out,
+                cudaStream_t stream) {
+  march_kernel<<<(W + 127) / 128, 128, 0, stream>>>(T, R, W, x, s0, iters, vel0, s_near, s_far,
+                                                     decay, out);
+  return cudaGetLastError();
+}
+
+int probe_row_gather_rounds(int mode, const int* base, const uint32_t* tab, int rows,
+                            int use_mask, int n, int rounds, uint32_t* out,
+                            cudaStream_t stream) {
+  switch (mode) {
+    case MODE_IDS: return launch_rounds<MODE_IDS>(base, tab, rows, use_mask, n, rounds, out, stream);
+    case MODE_DIRECT: return launch_rounds<MODE_DIRECT>(base, tab, rows, use_mask, n, rounds, out, stream);
+    case MODE_STAGE: return launch_rounds<MODE_STAGE>(base, tab, rows, use_mask, n, rounds, out, stream);
+    case MODE_STAGED: return launch_rounds<MODE_STAGED>(base, tab, rows, use_mask, n, rounds, out, stream);
+    case MODE_STALE: return launch_rounds<MODE_STALE>(base, tab, rows, use_mask, n, rounds, out, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+int probe_index_copy(const uint32_t* x, int H, int W, int mode, int param, uint32_t* out,
+                     int OH, int OW, cudaStream_t stream) {
+  if (mode == IC_TRANSPOSE) {
+    dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE);
+    transpose_kernel<<<grid, dim3(TILE, 8), 0, stream>>>(x, H, W, out);
+  } else {
+    index_copy_kernel<<<blocks((long long)OH * OW), THREADS, 0, stream>>>(x, H, W, mode, param,
+                                                                           out, OH, OW);
+  }
+  return cudaGetLastError();
+}
+
+int probe_tea8(const uint32_t* a, const uint32_t* b, uint32_t* o0, uint32_t* o1, int n,
+               cudaStream_t stream) {
+  tea8_kernel<<<blocks(n), THREADS, 0, stream>>>(a, b, o0, o1, n);
+  return cudaGetLastError();
+}
+
+int probe_row_scan(const float* x, float* out, int H, int W, cudaStream_t stream) {
+  row_scan_kernel<<<H, ((W + 31) / 32) * 32, 0, stream>>>(x, out, W);
+  return cudaGetLastError();
+}
+
+}  // extern "C"

@@ -35,16 +35,14 @@ CUDA kernel runs the same state machine in one thread per pixel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import re
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
 
+from . import build as _build
 from ..geometry import (INV_4PI, M_PI, dot3, intersect_box, luma, mat3_vec,
                         norm3, sanitize, xform_point, xform_vec)
 from ..phase import hg_phase, sample_hg
@@ -69,15 +67,8 @@ EVENTS = ("regen", "march", "test", "emission", "nee", "escape", "scatter")
 EV_NONE, EV_EXT_HIT, EV_EXT_EXIT, EV_SH_HIT, EV_SH_EXIT = 0, 1, 2, 3, 4
 EV_SCATTER, EV_TEST = 5, 6
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))))
-SOURCE = os.path.join(_REPO_ROOT, "volren_tpu_torch", "csrc", "megakernel.cu")
-BUILD_DIR = os.path.join(_REPO_ROOT, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC",
-              # no multiply-add contraction: the kernel rounds every
-              # operation as the plain torch version's separate ops do
-              "-fmad=false"]
+SOURCE = os.path.join(_build.CSRC, "megakernel.cu")
+NVCC_FLAGS = _build.NVCC_FLAGS
 
 
 # ---------------------------------------------------------------------------
@@ -488,52 +479,28 @@ _LIB_LOCK = threading.Lock()
 
 
 def build(flags: list[str] = NVCC_FLAGS) -> str:
-    """Compile csrc/megakernel.cu with nvcc for sm_90a into a shared library
-    under build/ and return its path. The library's name carries a
-    hash of the source and the flags, so an edit always rebuilds. nvcc's
-    output (with ptxas's resource usage) is kept beside it as ``.log``."""
-    with open(SOURCE, "rb") as f:
-        key = hashlib.sha1(f.read() + " ".join(flags).encode()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"libvolren_megakernel_{key}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    with open(f"{out}.log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    """Compile csrc/megakernel.cu with nvcc for sm_90a into
+    ``build/libvolren_megakernel_<hash>.so`` (``kernels.build.build``) and
+    return its path."""
+    return _build.build(SOURCE, "volren_megakernel", flags)
+
+
+def _variant_name(kernel: str) -> str:
+    flags = re.search(r"ILb([01])ELb([01])E", kernel)
+    return f"<{flags.group(1)},{flags.group(2)}>" if flags else kernel
 
 
 def resource_usage(lib_path: str) -> str:
     """ptxas's register, stack and spill lines for the library at
     ``lib_path``, one entry per kernel instantiation, named by its
     <USE_TF, HAS_EMI> template arguments."""
-    out, name = [], "?"
-    with open(f"{lib_path}.log") as f:
-        for line in f:
-            m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?: |$)",
-                          line)
-            if m:
-                flags = re.search(r"ILb([01])ELb([01])E", m.group(1))
-                name = f"<{flags.group(1)},{flags.group(2)}>" if flags else m.group(1)
-            elif "registers" in line or "stack frame" in line:
-                out.append(f"{name} {line.split(':', 1)[-1].strip()}")
-    return "; ".join(out)
+    return "; ".join(_build.resource_usage(lib_path, _variant_name))
 
 
 def load(lib_path: str) -> ctypes.CDLL:
     """Load a built library and declare its C entry point."""
-    lib = ctypes.CDLL(lib_path)
     p = ctypes.c_void_p
-    lib.volren_render.argtypes = [p] * 15 + [ctypes.c_int, p]
-    lib.volren_render.restype = ctypes.c_int
-    return lib
+    return _build.load(lib_path, {"volren_render": [p] * 15 + [ctypes.c_int, p]})
 
 
 def _lib():
