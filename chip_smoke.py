@@ -8,23 +8,26 @@ of which raises on failure (exit code non-zero, no result line):
 
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
-2. build: the CUDA megakernel, its four <USE_TF, HAS_EMI> instantiations,
-   and the probe kernels, compiled with nvcc for sm_90a from
-   volren_tpu_torch/csrc into build/ (one nvcc per source, in parallel),
-   with ptxas's registers and stack of each;
+2. build: the CUDA megakernel, its four <USE_TF, HAS_EMI> instantiations
+   (and their STATS twins), and the probe kernels, compiled with nvcc for
+   sm_90a from volren_tpu_torch/csrc into build/ (one nvcc per source, in
+   parallel), with ptxas's registers, stack and spill of each;
 3. kernel vs plain: the CUDA kernel against its plain torch version on the
    same CUDA tensors, on a random 16^3 grid and on a 64^3 crop of
-   .scene_cache/cloud512.brick, at 64x64 and 16 spp, in all four variants
-   (plain, TF with the CLI's --fau LUT, emission from a temperature grid
-   at half resolution, TF + emission). The kernel is built to round as the
-   plain version does, so the bar is bitwise equality, and two runs must be
-   bitwise identical; for the plain variant, besides, its RMSE must stay
-   below 1.5x the kernel's own seed-to-seed noise with the mean within 5%;
+   .scene_cache/cloud512.brick, at 64x64, at 4 spp (8 pixels to a warp)
+   and at 64 spp (the main path's dispatch: one pixel to a warp), in all
+   four variants (plain, TF with the CLI's --fau LUT, emission from a
+   temperature grid at half resolution, TF + emission). The kernel is
+   built to round as the plain version does, so the bar is bitwise
+   equality, and two runs must be bitwise identical; for the plain variant
+   at 4 spp, besides, its RMSE must stay below 1.5x the kernel's own
+   seed-to-seed noise with the mean within 5%;
 4. kernel vs plain at the paths' shapes: one 4-spp dispatch of the whole
    cloud512 at 1024x1024 through both, for the plain path, the TF path and
    the emission path (a 256x256x128 temperature grid made from --seed),
    timed (CUDA events for the kernel), bitwise equal; the plain run also
-   counts the dispatch's events for the kernel's work bound;
+   counts the dispatch's events for the kernel's work bound; then a 4-spp
+   and a 64-spp dispatch of each path at 256x256, bitwise equal;
 5. the main path: volren_tpu_torch.cli renders cloud512 at 1024x1024,
    256 spp (four 64-spp dispatches), 100 bounces, under a procedural sky
    made from --seed;
@@ -43,6 +46,10 @@ of which raises on failure (exit code non-zero, no result line):
 In phases 5-8 the launch count of the path's kernel, set to 0 just before
 the run, must have risen during it; in phases 5-7 the framebuffer must be
 finite with a positive mean and the run must have used the CUDA kernel.
+Every dispatch of phases 3-7 is also run through the kernel's STATS
+instantiation (megakernel.render_stats), which must render the same image
+(phases 3-4), count 0 capped samples, and in phase 4 count the events the
+plain version counts.
 
 The last three lines are the card line from nvidia-smi, a JSON object
 describing each kernel, and the device record
@@ -65,7 +72,8 @@ CLOUD = os.path.join(REPO, ".scene_cache", "cloud512.brick")
 OUT_DIR = os.path.join(REPO, "build", "chip_smoke")
 RES, SPP, BOUNCES = 1024, 256, 100         # the paths' shapes
 MAIN_CMP_SPP = 4                           # kernel vs plain at those shapes
-CMP_RES, CMP_SPP = 64, 16                  # kernel vs plain version
+SMALL_RES, SMALL_CMP_SPP = 256, (4, 64)    # and at 256x256
+CMP_RES, CMP_SPP = 64, (4, 64)             # kernel vs plain version
 # the kernels line: name, the scene path that runs it, the TPU kernel it replaces
 KERNELS = (("megakernel", "plain", "volren_tpu/ops/pallas/kernel.py:602"),
            ("megakernel_tf", "tf", "volren_tpu/ops/pallas/kernel.py:635"),
@@ -97,6 +105,7 @@ def main(argv=None) -> int:
     from volren_tpu_torch.ops.kernels import probes as probe_kernels
     from volren_tpu_torch.probes._common import Context
     from volren_tpu_torch.probes.sites import SITES
+    from volren_tpu_torch.renderer import DISPATCH_SPP
     from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params
     from volren_tpu_torch.scene.environment import Environment, procedural_sky
     from volren_tpu_torch.utils.hdr import write_hdr
@@ -157,6 +166,16 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return (time.perf_counter() - t) * 1e3, out
 
+    def uncapped(name, inputs, image=None):
+        """The dispatch through the STATS instantiation: 0 capped samples
+        (and, given the kernel's image, the same image)."""
+        got, st = megakernel.render_stats(*inputs)
+        if st["capped"] != 0:
+            raise AssertionError(f"{name}: {st['capped']} capped samples")
+        if image is not None and not torch.equal(got, image):
+            raise AssertionError(f"{name}: the STATS instantiation's image differs")
+        return st
+
     def compare(name, kernel, plain):
         """Bitwise equality of kernel and plain output; returns max abs error."""
         err = float((kernel - plain).abs().max())
@@ -180,24 +199,30 @@ def main(argv=None) -> int:
     for name, dense in (("random16", g16), ("cloud512_crop64", crop)):
         d, h, w = dense.shape
         for path in VARIANT:
-            before = dict(megakernel.render.launches_by_variant)
-            inputs = scene(Volume(DenseGrid(w, h, d, dense)), CMP_RES, args.seed, CMP_SPP, path)
-            a = megakernel.render(*inputs)
-            b = megakernel.render(*inputs)
-            if megakernel.render.launches_by_variant.get(VARIANT[path], 0) != \
-                    before.get(VARIANT[path], 0) + 2:
-                raise AssertionError(f"{name} {path}: the variant's launch count did not rise")
-            if not torch.equal(a, b):
-                raise AssertionError(f"{name} {path}: the kernel is not bitwise deterministic")
-            k_ms = cuda_ms(lambda: megakernel.render(*inputs), 3)
-            p_ms, plain = host_ms(lambda: megakernel.render_plain(*inputs))
-            compare(f"{name} {path}, {CMP_RES}x{CMP_RES}, {CMP_SPP} spp", a, plain)
-            print(f"    kernel {k_ms!r} ms, plain {p_ms!r} ms", flush=True)
+            for spp in CMP_SPP:
+                label = f"{name} {path}, {CMP_RES}x{CMP_RES}, {spp} spp"
+                before = dict(megakernel.render.launches_by_variant)
+                inputs = scene(Volume(DenseGrid(w, h, d, dense)), CMP_RES, args.seed, spp, path)
+                a = megakernel.render(*inputs)
+                b = megakernel.render(*inputs)
+                if megakernel.render.launches_by_variant.get(VARIANT[path], 0) != \
+                        before.get(VARIANT[path], 0) + 2:
+                    raise AssertionError(f"{label}: the variant's launch count did not rise")
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{label}: the kernel is not bitwise deterministic")
+                uncapped(label, inputs, a)
+                k_ms = cuda_ms(lambda: megakernel.render(*inputs), 3)
+                p_ms, plain = host_ms(lambda: megakernel.render_plain(*inputs))
+                compare(label, a, plain)
+                print(f"    kernel {k_ms!r} ms, plain {p_ms!r} ms on {gpu_line}", flush=True)
+                if path == "plain" and spp == CMP_SPP[0]:
+                    first = a, plain
             if path != "plain":
                 continue
+            spp = CMP_SPP[0]
             other = megakernel.render(*scene(Volume(DenseGrid(w, h, d, dense)), CMP_RES,
-                                             args.seed + 1, CMP_SPP))
-            a, plain, other = (x.cpu().numpy() / CMP_SPP for x in (a, plain, other))
+                                             args.seed + 1, spp))
+            a, plain, other = (x.cpu().numpy() / spp for x in (*first, other))
             noise = float(np.sqrt(((other - a) ** 2).mean()))
             rmse = float(np.sqrt(((a - plain) ** 2).mean()))
             mean_rel = float(abs(a[:, :3].mean() - plain[:, :3].mean()) / plain[:, :3].mean())
@@ -216,6 +241,10 @@ def main(argv=None) -> int:
         plain_ms, plain_out = host_ms(lambda: megakernel.render_plain(*inputs, stats=stats))
         label = f"cloud512 {path} {RES}x{RES}, {MAIN_CMP_SPP} spp, {BOUNCES} bounces"
         max_abs_err = compare(label, kernel_out, plain_out)
+        counted = uncapped(label, inputs, kernel_out)
+        if {k: counted[k] for k in stats} != stats:
+            raise AssertionError(f"{label}: the STATS instantiation counts other events than "
+                                 f"the plain version: {counted} against {stats}")
         bound_ms, bound_by, n_bytes, n_ops = kernel_bound(inputs[0], inputs[1], inputs[3], stats)
         print(f"{label}: kernel {ms!r} ms, plain {plain_ms!r} ms per dispatch; bound "
               f"{bound_ms!r} ms by {bound_by} ({n_bytes} bytes, {n_ops} f32 operations from "
@@ -224,6 +253,21 @@ def main(argv=None) -> int:
                          "bound_ms": bound_ms, "bound_by": bound_by}
         del inputs, kernel_out, plain_out
         torch.cuda.empty_cache()
+    # the old one-thread-per-pixel schedule's worst shape: few pixels, many
+    # samples each (64: the main path's dispatch)
+    for _kname, path, _ in KERNELS:
+        for spp in SMALL_CMP_SPP:
+            inputs = scene(Volume(CLOUD), SMALL_RES, args.seed, spp, path)
+            kernel_out = megakernel.render(*inputs)
+            ms = cuda_ms(lambda: megakernel.render(*inputs), 3)
+            plain_ms, plain_out = host_ms(lambda: megakernel.render_plain(*inputs))
+            label = f"cloud512 {path} {SMALL_RES}x{SMALL_RES}, {spp} spp, {BOUNCES} bounces"
+            compare(label, kernel_out, plain_out)
+            st = uncapped(label, inputs, kernel_out)
+            print(f"{label}: kernel {ms!r} ms, plain {plain_ms!r} ms; SIMT efficiency "
+                  f"{st['simt_march']!r}, tail {st['tail_ms']!r} ms on {gpu_line}", flush=True)
+            del inputs, kernel_out, plain_out
+            torch.cuda.empty_cache()
 
     # ---- 5-7. the three paths through the entry points a user calls
     def check_path(kname, path, run):
@@ -237,6 +281,11 @@ def main(argv=None) -> int:
                                  f"variant: {megakernel.render.launches_by_variant}")
         if r.last_engine != "cuda_kernel":
             raise AssertionError(f"the {path} path ran {r.last_engine}")
+        ks, tp = r._kernel_scene(), r._trace_params()
+        for base in range(0, SPP, DISPATCH_SPP):
+            pool = build_env_pool(r._env_device, int(r.seed), base)
+            pf, pi = build_params(ks, tp, RES, RES, base, DISPATCH_SPP)
+            uncapped(f"the {path} path's dispatch at sample {base}", (ks, pool, pf, pi))
         fb = r.framebuffer()
         if tuple(fb.shape) != (RES, RES, 4) or not bool(torch.isfinite(fb).all()):
             raise AssertionError(f"the {path} path's framebuffer is not a finite (H, W, 4) image")

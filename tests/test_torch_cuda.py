@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from volren_tpu_torch.ops.kernels import megakernel
-from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params
+from volren_tpu_torch.ops.kernels.pack import PI_MAX_ITERS, build_env_pool, build_params
 from volren_tpu_torch.renderer import Renderer
 from volren_tpu_torch.scene.environment import Environment, procedural_sky
 from volren_tpu_torch.scene.transferfunc import TransferFunction
@@ -33,7 +33,7 @@ def _grid16():
     return dense
 
 
-def _renderer(device, seed=123, tf=False, emission=False):
+def _renderer(device, seed=123, tf=False, emission=False, width=RES, height=RES):
     """The 16^3 test scene; ``tf`` adds a non-monotone LUT with a moved
     window, ``emission`` a radial temperature grid at half resolution."""
     r = Renderer(device=device)
@@ -52,7 +52,7 @@ def _renderer(device, seed=123, tf=False, emission=False):
         r.volume.update_grid_frame(0, DenseGrid(8, 8, 8, hot ** 2, np.diag([2, 2, 2, 1])),
                                    "temperature")
         r.emission_scale = 30.0
-    r.init(RES, RES)
+    r.init(width, height)
     r.commit()
     return r
 
@@ -60,7 +60,7 @@ def _renderer(device, seed=123, tf=False, emission=False):
 def _inputs(r, spp=SPP):
     ks = r._kernel_scene()
     pool = build_env_pool(r._env_device, r.seed, 0)
-    pf, pi = build_params(ks, r._trace_params(), RES, RES, 0, spp)
+    pf, pi = build_params(ks, r._trace_params(), r._width, r._height, 0, spp)
     return ks, pool, pf, pi
 
 
@@ -97,6 +97,66 @@ def test_kernel_variant_matches_plain_version(tf, emission):
     assert torch.equal(a, b) and bool(torch.isfinite(a).all())
     plain = megakernel.render_plain(*inputs)
     assert torch.equal(a, plain), float((a - plain).abs().max())
+
+
+VARIANTS = [(False, False), (True, False), (False, True), (True, True)]
+VARIANT_IDS = ["plain", "tf", "emission", "tf+emission"]
+
+
+@pytest.mark.parametrize("tf,emission", VARIANTS, ids=VARIANT_IDS)
+def test_kernel_matches_plain_version_with_the_cap_binding(tf, emission):
+    """A budget of 40 march substeps a sample caps many samples of the 16^3
+    scene: the kernel still equals the plain version bitwise (a capped
+    sample adds nothing in both), and its STATS instantiation counts the
+    capped samples the plain version counts."""
+    ks, pool, pf, pi = _inputs(_renderer(_cuda(), tf=tf, emission=emission))
+    pi = pi.copy()
+    pi[PI_MAX_ITERS] = 40
+    got = megakernel.render(ks, pool, pf, pi)
+    stats = {}
+    plain = megakernel.render_plain(ks, pool, pf, pi, stats=stats)
+    assert stats["capped"] > 0
+    assert torch.equal(got, plain), float((got - plain).abs().max())
+    again, counters = megakernel.render_stats(ks, pool, pf, pi)
+    assert torch.equal(again, got)
+    assert {k: counters[k] for k in stats} == stats
+    assert counters["regen"] == RES * RES * SPP
+
+
+@pytest.mark.parametrize("tf,emission", VARIANTS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("spp", [1, 3, 4, 16, 33, 64, 130])
+def test_kernel_matches_plain_version_at_ragged_shapes(spp, tf, emission):
+    """37 x 23 pixels cut every group tile at the image's edge; 1, 3, 4
+    and 16 spp spread several pixels over a warp (16: a 2 x 1 tile), 33 and
+    64 one pixel, 64 (the main path's dispatch) fills the warp's result
+    slots in one round and 130 takes three rounds. Every variant, bitwise
+    equal to the plain version and bitwise identical run to run."""
+    r = _renderer(_cuda(), tf=tf, emission=emission, width=37, height=23)
+    inputs = _inputs(r, spp=spp)
+    a = megakernel.render(*inputs)
+    b = megakernel.render(*inputs)
+    assert a.shape == (37 * 23, 4) and torch.equal(a, b)
+    plain = megakernel.render_plain(*inputs)
+    assert torch.equal(a, plain), float((a - plain).abs().max())
+
+
+def test_stats_instantiation_counts_the_dispatch():
+    """The STATS instantiation renders the same image as the kernel and
+    counts the events render_plain counts; render does not launch it."""
+    inputs = _inputs(_renderer(_cuda(), emission=True))
+    before = megakernel.render_stats.launches
+    a = megakernel.render(*inputs)
+    assert megakernel.render_stats.launches == before
+    b, st = megakernel.render_stats(*inputs)
+    assert megakernel.render_stats.launches == before + 1
+    assert torch.equal(a, b)
+    stats = {}
+    megakernel.render_plain(*inputs, stats=stats)
+    assert {k: st[k] for k in stats} == stats
+    assert st["regen"] == RES * RES * SPP and st["capped"] == 0
+    assert 0.0 < st["simt_march"] <= 1.0 and 0.0 < st["simt_loop"] <= 1.0
+    assert st["march"] >= st["regen"] and st["max_steps"] > 0
+    assert 0.0 <= st["tail_ms"] <= st["span_ms"] and st["blocks"] > 0
 
 
 @pytest.mark.parametrize("tf,emission", [(True, False), (False, True)], ids=["tf", "emission"])

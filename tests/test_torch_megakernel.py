@@ -13,9 +13,11 @@ tests/test_torch_cuda.py.
 
 import numpy as np
 import pytest
+import torch
 from torch_reference import SPP, jax_renderer, mean_rel, reference_case, rmse
 
 from volren_tpu_torch.ops.kernels import megakernel
+from volren_tpu_torch.ops.kernels.pack import PI_SPP, PI_SPP_BASE
 
 
 @pytest.fixture(scope="module")
@@ -54,6 +56,25 @@ def test_plain_is_deterministic_and_counts_no_launch(case):
     again = megakernel.render(*case["inputs"]).numpy() / SPP
     assert np.array_equal(again, case["plain"])
     assert megakernel.render.launches == before
+
+
+def test_dispatch_is_the_in_order_sum_of_one_spp_dispatches(case):
+    """A sample's draws depend only on (pixel, spp_base + sample), and a
+    pixel's sum adds its samples in sample order from 0.0: a 4-spp
+    dispatch is bitwise the float32 sum, in order, of 4 1-spp dispatches
+    with spp_base 0..3 on the same pool. The CUDA kernel's schedule, which
+    traces a pixel's samples on different lanes, rests on this."""
+    ks, pool, pf, pi = case["inputs"]
+    spp = 4
+    four = pi.copy()
+    four[PI_SPP] = spp
+    full = megakernel.render_plain(ks, pool, pf, four)
+    acc = torch.zeros_like(full)
+    for k in range(spp):
+        one = pi.copy()
+        one[PI_SPP], one[PI_SPP_BASE] = 1, k
+        acc = acc + megakernel.render_plain(ks, pool, pf, one)
+    assert torch.equal(full, acc)
 
 
 def test_render_rejects_other_devices(case):

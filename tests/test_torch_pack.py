@@ -104,7 +104,7 @@ def test_params_block_layout(grids, envs):
     assert np.asarray(pi[tpack.PI_SEED]).view(np.uint32) == 0xDEADBEEF
     assert pf[tpack.PF_ZCAM] == pytest.approx(-0.5 / np.tan(np.radians(35.0)), rel=1e-6)
     assert tuple(pi[tpack.PI_N_BRICKS:tpack.PI_N_BRICKS + 3]) == ks.n_bricks
-    assert pi[tpack.PI_MAX_ITERS] == (2048 + 512 * 3) * 8
+    assert pi[tpack.PI_MAX_ITERS] == tpack.STEP_BUDGET == (2048 + 512) * 8
     assert torch.equal(ks.env, envs[0].envmap.reshape(-1, 3))
 
 

@@ -21,7 +21,15 @@ Prints:
    against the shipped build, alternating off/on/on/off, at 16 spp, with
    the image difference against the seed-to-seed noise;
 5. spp/s of the plain path against resolution and bounce cap (trace(64),
-   median of 3).
+   median of 3);
+6. the kernel's schedule, from its STATS instantiation
+   (``megakernel.render_stats``) on one 64-spp dispatch of each path (and
+   of TF + emission) at 1024x1024 and of the plain path at 512x512 and
+   256x256: SIMT efficiency of the loop and of a march substep, the
+   blocks' durations and the tail, capped samples, march substeps per
+   sample and the dispatch's events, beside the render kernel's
+   CUDA-event ms on the same dispatch and its work bound from those
+   events.
 
 Every line carries the card's name and power limit as nvidia-smi gives
 them. The module also holds what chip_smoke.py shares with it: the three
@@ -269,7 +277,39 @@ def main(argv=None) -> int:
         print(f"{res}x{res}, {bounces} bounces: spp/s median {statistics.median(rates)!r}, "
               f"all {rates!r}; alpha mean {float(rr.framebuffer()[..., 3].mean())!r} [{card}]",
               flush=True)
+        del rr
+
+    # ---- 6. the schedule's counters
+    del r
+    torch.cuda.empty_cache()
+    for path, res in (("plain", RES), ("tf", RES), ("emission", RES), ("tf+emission", RES),
+                      ("plain", 512), ("plain", 256)):
+        schedule_stats(renderer(res, path=path), f"{path} {res}x{res}", args.seed, card)
+        torch.cuda.empty_cache()
     return 0
+
+
+def schedule_stats(r: Renderer, label: str, seed: int, card: str) -> dict:
+    """Section 6 for one committed renderer: its first 64-spp dispatch
+    through the render kernel (CUDA events, 3 runs) and once through the
+    STATS instantiation; returns the counters."""
+    ks, tp = r._kernel_scene(), r._trace_params()
+    pool = build_env_pool(r._env_device, seed, 0)
+    pf, pi = build_params(ks, tp, r._width, r._height, 0, DISPATCH_SPP)
+    out = megakernel.render(ks, pool, pf, pi)
+    ms = [_event_ms(lambda: megakernel.render(ks, pool, pf, pi))[0] for _ in range(3)]
+    got, st = megakernel.render_stats(ks, pool, pf, pi)
+    if not torch.equal(got, out):
+        raise AssertionError(f"{label}: the STATS instantiation's image differs from render's")
+    bound_ms, bound_by, _, _ = kernel_bound(ks, pool, pi, st)
+    print(f"schedule, {label}, one {DISPATCH_SPP}-spp dispatch: kernel ms {ms!r}, bound "
+          f"{bound_ms!r} ms by {bound_by}; SIMT efficiency loop {st['simt_loop']!r}, march "
+          f"substep {st['simt_march']!r} ({st['loop']} loop and {st['march_issues']} substep "
+          f"issues); {st['blocks']} blocks, block ms min/median/max {st['block_ms']!r}, span "
+          f"{st['span_ms']!r} ms, tail {st['tail_ms']!r} ms; samples {st['regen']}, capped "
+          f"{st['capped']}, march substeps {st['march']} (max of a sample {st['max_steps']}); "
+          f"events {dict((k, st[k]) for k in megakernel.EVENTS)} [{card}]", flush=True)
+    return st
 
 
 if __name__ == "__main__":

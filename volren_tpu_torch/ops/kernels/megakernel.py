@@ -26,10 +26,16 @@ compile-time ``use_tf`` / ``has_emi`` do (kernel.py:635-636):
   draws) of the emission grid and add
   ``th * (1 - albedo) * emission_scale * (t^2, t^4, t^8) * d / majorant``.
 
-The plain version is the Pallas kernel's strip mode with one march
-substep per step: every pixel is a lane, and each step runs
-regen -> march -> resolve -> NEE -> finish on all lanes under masks. The
-CUDA kernel runs the same state machine in one thread per pixel.
+The plain version is the Pallas kernel's state machine with one march
+substep per step: every (pixel, sample) is a lane, and after the regen
+each step runs march -> resolve -> NEE -> finish on all lanes under masks;
+then each pixel adds its samples in sample order. A sample that takes
+``pi[PI_MAX_ITERS]`` (``pack.STEP_BUDGET``) substeps is capped: it ends
+and adds nothing. The CUDA kernel runs the same state machine for one
+sample per thread: a warp spreads a group of pixels' samples over its
+lanes and adds each pixel's samples in sample order, so its image is
+bitwise the plain version's (the schedule is described in
+csrc/megakernel.cu). ``render_stats`` runs its counting twin.
 """
 
 from __future__ import annotations
@@ -67,6 +73,9 @@ EVENTS = ("regen", "march", "test", "emission", "nee", "escape", "scatter")
 EV_NONE, EV_EXT_HIT, EV_EXT_EXIT, EV_SH_HIT, EV_SH_EXIT = 0, 1, 2, 3, 4
 EV_SCATTER, EV_TEST = 5, 6
 
+# the most lanes, (pixel, sample) pairs, that render_plain traces at once
+PLAIN_LANES = 1 << 22
+
 SOURCE = os.path.join(_build.CSRC, "megakernel.cu")
 NVCC_FLAGS = _build.NVCC_FLAGS
 
@@ -94,10 +103,13 @@ def _variant(ks: KernelScene, pi: np.ndarray):
 
 def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
                  pi: np.ndarray, stats: dict | None = None) -> torch.Tensor:
-    """The render kernel in plain torch, vectorized over pixel lanes.
-    Returns the (H*W, 4) float32 per-pixel sums of (L.rgb, alpha). With a
-    ``stats`` dict, adds the number of lanes that ran each event (keys of
-    EVENTS) to it."""
+    """The render kernel in plain torch, vectorized over (pixel, sample)
+    lanes, at most PLAIN_LANES at a time. Returns the (H*W, 4) float32
+    per-pixel sums of (L.rgb, alpha). A sample that takes
+    ``pi[PI_MAX_ITERS]`` march substeps without ending is capped: it ends
+    and adds nothing. With a ``stats`` dict, adds the number of
+    lanes that ran each event (keys of EVENTS) and the capped samples
+    (``"capped"``) to it."""
     use_tf, has_emi = _variant(ks, pi)
     dev = ks.atlas.device
     f32, i32 = torch.float32, torch.int32
@@ -125,7 +137,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     EH, EW = int(pi[PI_ENV_H]), int(pi[PI_ENV_W])
     mip_dims = np.asarray(pi[PI_MIP_DIMS:PI_MIP_DIMS + 12]).reshape(4, 3)
     mip_offsets = [int(v) for v in pi[PI_MIP_OFFSETS:PI_MIP_OFFSETS + 4]]
-    max_iters = int(pi[PI_MAX_ITERS])
+    budget = int(pi[PI_MAX_ITERS])
     tf = ks.tf
     if tf is not None:  # the window as the parameter block holds it
         tf = tf._replace(window_left=s(PF_TF_LEFT), window_width=s(PF_TF_WIDTH))
@@ -140,26 +152,12 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         if stats is not None:
             stats[event] = stats.get(event, 0) + int(mask.sum())
 
-    n = W * H
-    lane = torch.arange(n, device=dev, dtype=torch.int64)
-    px, py = lane % W, lane // W
-    lane_u = (mul32(py, W) + px) & 0xFFFFFFFF       # uint32 py * W + px
+    n_pix = W * H
+    s_h = torch.tensor(float(H), dtype=f32, device=dev)
     dim_tab = torch.tensor([8.0, 16.0, 32.0, 64.0], dtype=f32, device=dev)
     inv_dim_tab = 1.0 / dim_tab
-    zero = torch.zeros(n, dtype=f32, device=dev)
-    zi = torch.zeros(n, dtype=i32, device=dev)
-    st = {
-        "mode": torch.full((n,), MODE_REGEN, dtype=i32, device=dev),
-        "event": zi.clone(), "seed": torch.zeros(n, dtype=torch.int64, device=dev),
-        "po": (zero, zero, zero), "pd": (zero, zero, zero + 1.0),
-        "th": (zero, zero, zero), "L": (zero, zero, zero),
-        "pn": (zero, zero, zero),
-        "n_paths": zi.clone(), "last_f_p": zero, "free": zi.clone(),
-        "t": zero, "far": zero, "tau": zero, "mip": zero,
-        "i0": (zero, zero, zero), "id": (zero, zero, zero + 1.0),
-        "ri": (zero, zero, zero + 1.0), "spp_done": zi.clone(),
-    }
-    acc = torch.zeros(n, 4, dtype=f32, device=dev)
+    # the phases below read n, px, py, lane_seed, zero and st, which the
+    # loop over chunks of samples at the end sets
 
     def setup_ray(org, direction, mask):
         hit_box, near, far_new = intersect_box(org, direction, bb_min, bb_max)
@@ -241,22 +239,17 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         return density_scale * acc
 
     def phase_regen():
-        regen = st["mode"] == MODE_REGEN
-        can = regen & (st["spp_done"] < spp)
-        st["mode"] = torch.where(regen & ~can, MODE_INACTIVE,
-                                 torch.where(can, MODE_EXTEND, st["mode"])).to(i32)
-        if not bool(can.any()):
-            return
-        sample_idx = (spp_base + st["spp_done"].long() + 1) & 0xFFFFFFFF
+        can = st["mode"] == MODE_REGEN
+        st["mode"] = torch.where(can, MODE_EXTEND, st["mode"]).to(i32)
         count("regen", can)
-        sel = can.nonzero().squeeze(1)
-        fresh = tea(mul32(lane_u[sel], seed0), sample_idx[sel])
-        st["seed"] = st["seed"].index_put((sel,), fresh)
+        st["seed"] = torch.where(can, lane_seed, st["seed"])
         st["seed"], u1 = rng_masked(st["seed"], can)
         st["seed"], u2 = rng_masked(st["seed"], can)
         wf, hf = float(W), float(H)
-        pix_x = (px.to(f32) + u1 - wf * 0.5) / hf
-        pix_y = (py.to(f32) + u2 - hf * 0.5) / hf
+        # over a 0-d tensor: torch multiplies a CUDA tensor by the
+        # reciprocal of a Python float, where the kernel divides
+        pix_x = (px.to(f32) + u1 - wf * 0.5) / s_h
+        pix_y = (py.to(f32) + u2 - hf * 0.5) / s_h
         cam_local = (pix_x, pix_y, zero + 1.0 * z_cam)
         nd = norm3(mat3_vec(cam_m, norm3(cam_local)))
         org = _w3(can, tuple(zero + c for c in cam_pos), st["po"])
@@ -270,6 +263,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         st["last_f_p"] = torch.where(can, zero, st["last_f_p"])
         st["free"] = torch.where(can, 1, st["free"]).to(i32)
         st["event"] = torch.where(can, EV_NONE, st["event"]).to(i32)
+        st["steps"] = torch.where(can, 0, st["steps"]).to(i32)
         setup_ray(org, st["pd"], can)
 
     def phase_march():
@@ -277,6 +271,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
                  & (st["event"] == EV_NONE))
         is_extend = st["mode"] == MODE_EXTEND
         count("march", march)
+        st["steps"] = st["steps"] + march.to(i32)
         curr = pos_at()
         mip_i = torch.round(st["mip"]).to(i32)
         maj = majorant_at(curr, mip_i)
@@ -391,7 +386,6 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         setup_ray(org, _w3(has_nee, w_i, pd), has_nee)
 
     def phase_finish():
-        nonlocal acc
         event = st["event"]
         sh_hit = event == EV_SH_HIT
         seed, _u_rr_sh = rng_masked(st["seed"], sh_hit)
@@ -447,26 +441,65 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         alpha = torch.clamp(st["n_paths"].to(f32), 0.0, 1.0)
         sample = torch.stack([sanitize(L[0]), sanitize(L[1]), sanitize(L[2]),
                               sanitize(alpha)], dim=1)
-        acc = torch.where(end[:, None], acc + sample, acc)
-        st["spp_done"] = st["spp_done"] + end.to(i32)
+        st["res"] = torch.where(end[:, None], sample, st["res"])
         st["L"] = _w3(end, (zero, zero, zero), L)
-        st["mode"] = torch.where(end, MODE_REGEN,
+        st["mode"] = torch.where(end, MODE_INACTIVE,
                                  torch.where(alive, MODE_EXTEND, st["mode"])).to(i32)
         st["event"] = torch.where(scatter | esc, EV_NONE, st["event"]).to(i32)
         st["seed"] = seed
         st["th"] = thr
         setup_ray(st["po"], pd, alive)
 
-    it = 0
-    while it < max_iters:
+    def phase_cap():
+        # a sample still on its way after its budget of substeps ends and
+        # adds nothing
+        over = (((st["mode"] == MODE_EXTEND) | (st["mode"] == MODE_SHADOW))
+                & (st["steps"] >= budget))
+        count("capped", over)
+        st["capped"] = st["capped"] | over
+        st["mode"] = torch.where(over, MODE_INACTIVE, st["mode"]).to(i32)
+
+    acc = torch.zeros(n_pix, 4, dtype=f32, device=dev)
+    per_chunk = max(1, PLAIN_LANES // n_pix)
+    for k0 in range(0, spp, per_chunk):
+        n_spp = min(per_chunk, spp - k0)
+        # lane j * n_pix + p traces sample k0 + j of pixel p
+        n = n_spp * n_pix
+        pix = torch.arange(n, device=dev, dtype=torch.int64) % n_pix
+        px, py = pix % W, pix // W
+        lane_u = (mul32(py, W) + px) & 0xFFFFFFFF       # uint32 py * W + px
+        sample = spp_base + k0 + torch.arange(n, device=dev, dtype=torch.int64) // n_pix
+        lane_seed = tea(mul32(lane_u, seed0), (sample + 1) & 0xFFFFFFFF)
+        zero = torch.zeros(n, dtype=f32, device=dev)
+        zi = torch.zeros(n, dtype=i32, device=dev)
+        st = {
+            "mode": torch.full((n,), MODE_REGEN, dtype=i32, device=dev),
+            "event": zi.clone(), "seed": torch.zeros(n, dtype=torch.int64, device=dev),
+            "po": (zero, zero, zero), "pd": (zero, zero, zero + 1.0),
+            "th": (zero, zero, zero), "L": (zero, zero, zero),
+            "pn": (zero, zero, zero),
+            "n_paths": zi.clone(), "last_f_p": zero, "free": zi.clone(),
+            "t": zero, "far": zero, "tau": zero, "mip": zero,
+            "i0": (zero, zero, zero), "id": (zero, zero, zero + 1.0),
+            "ri": (zero, zero, zero + 1.0), "steps": zi.clone(),
+            "res": torch.zeros(n, 4, dtype=f32, device=dev),
+            "capped": torch.zeros(n, dtype=torch.bool, device=dev),
+        }
         phase_regen()
-        if not bool((st["mode"] != MODE_INACTIVE).any()):
-            break
-        phase_march()
-        resolve_tests()
-        phase_nee()
-        phase_finish()
-        it += 1
+        # every step of a live lane marches once, so every sample ends
+        # within budget steps
+        for _ in range(budget):
+            phase_march()
+            resolve_tests()
+            phase_nee()
+            phase_finish()
+            phase_cap()
+            if not bool((st["mode"] != MODE_INACTIVE).any()):
+                break
+        # a pixel's sum adds its samples in sample order
+        for j in range(n_spp):
+            seg = slice(j * n_pix, (j + 1) * n_pix)
+            acc = torch.where(st["capped"][seg, None], acc, acc + st["res"][seg])
     return acc
 
 
@@ -486,21 +519,24 @@ def build(flags: list[str] = NVCC_FLAGS) -> str:
 
 
 def _variant_name(kernel: str) -> str:
-    flags = re.search(r"ILb([01])ELb([01])E", kernel)
-    return f"<{flags.group(1)},{flags.group(2)}>" if flags else kernel
+    flags = re.search(r"ILb([01])ELb([01])ELb([01])E", kernel)
+    if not flags:
+        return kernel
+    return f"<{flags.group(1)},{flags.group(2)}>" + (" stats" if flags.group(3) == "1" else "")
 
 
 def resource_usage(lib_path: str) -> str:
     """ptxas's register, stack and spill lines for the library at
     ``lib_path``, one entry per kernel instantiation, named by its
-    <USE_TF, HAS_EMI> template arguments."""
+    <USE_TF, HAS_EMI> template arguments ("stats" for the STATS ones)."""
     return "; ".join(_build.resource_usage(lib_path, _variant_name))
 
 
 def load(lib_path: str) -> ctypes.CDLL:
     """Load a built library and declare its C entry point."""
-    p = ctypes.c_void_p
-    return _build.load(lib_path, {"volren_render": [p] * 15 + [ctypes.c_int, p]})
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.load(lib_path, {"volren_render": [p] * 17 + [i, p],
+                                  "volren_launch_blocks": [i] * 6})
 
 
 def _lib():
@@ -529,7 +565,9 @@ def _check_grid(prefix, atlas, slot, lo, hi, n_bricks, n_slots):
 
 
 def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
-                 pi: np.ndarray, lib: ctypes.CDLL | None = None) -> torch.Tensor:
+                 pi: np.ndarray, lib: ctypes.CDLL | None = None,
+                 stats: torch.Tensor | None = None,
+                 btimes: torch.Tensor | None = None) -> torch.Tensor:
     use_tf, has_emi = _variant(ks, pi)
     _check_grid("", ks.atlas, ks.slot, ks.lo, ks.hi, ks.n_bricks, int(pi[PI_N_SLOTS]))
     mip = ks.mip_tf if use_tf else ks.mip
@@ -554,7 +592,8 @@ def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     err = (lib or _lib()).volren_render(
         pf.ctypes.data, pi.ctypes.data, ks.atlas.data_ptr(), ks.slot.data_ptr(),
         ks.lo.data_ptr(), ks.hi.data_ptr(), mip.data_ptr(), ks.env.data_ptr(),
-        pool.data_ptr(), *ptrs, out.data_ptr(), n_pix, stream)
+        pool.data_ptr(), *ptrs, out.data_ptr(), 0 if stats is None else stats.data_ptr(),
+        0 if btimes is None else btimes.data_ptr(), n_pix, stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     return out
@@ -579,3 +618,51 @@ def render(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
 
 render.launches = 0
 render.launches_by_variant = {}
+
+
+# the STATS instantiation's counters, in csrc/megakernel.cu's order: the
+# warp-level issues of the loop and of a march substep with their active
+# lanes, the lanes that ran each of EVENTS, the capped samples, and the
+# most march substeps of a sample
+STATS = ("loop", "loop_lanes", "march_issues", "march_lanes") + EVENTS + ("capped", "max_steps")
+
+
+def render_stats(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
+                 pi: np.ndarray) -> tuple[torch.Tensor, dict]:
+    """One dispatch through the kernel's STATS instantiation (the same image
+    as ``render``; never launched by a render path). Returns the per-pixel
+    sums and the dispatch's counters: the keys of STATS (those of EVENTS
+    and ``"capped"`` count what ``render_plain(stats=)`` counts);
+    ``simt_loop`` and ``simt_march``, the active lanes over 32 x the
+    warp-level issues of the loop and of a march substep; and from each
+    block's (start, end) on the card's %globaltimer: ``blocks``,
+    ``block_ms`` (min, median, max duration), ``span_ms`` (first start to
+    last end) and ``tail_ms`` (from the moment a block's place on an SM
+    goes idle for good -- the last block's start, or the first block's end
+    if that is later -- to the last end). Adds one to
+    ``render_stats.launches``."""
+    if not ks.atlas.is_cuda:
+        raise ValueError("render_stats runs the CUDA kernel: the tables must be CUDA tensors")
+    lib = _lib()
+    dev = ks.atlas.device
+    use_tf, has_emi = _variant(ks, pi)
+    n_blocks = lib.volren_launch_blocks(int(pi[PI_WIDTH]), int(pi[PI_HEIGHT]), int(pi[PI_SPP]),
+                                        int(use_tf), int(has_emi), 1)
+    counters = torch.zeros(len(STATS), dtype=torch.int64, device=dev)
+    btimes = torch.zeros(n_blocks, 2, dtype=torch.int64, device=dev)
+    out = _launch_cuda(ks, pool, pf, pi, lib=lib, stats=counters, btimes=btimes)
+    render_stats.launches += 1
+    st = dict(zip(STATS, counters.tolist()))
+    st["simt_loop"] = st["loop_lanes"] / max(32 * st["loop"], 1)
+    st["simt_march"] = st["march_lanes"] / max(32 * st["march_issues"], 1)
+    bt = btimes.cpu().numpy()
+    bt = bt[bt[:, 1] > 0]            # blocks with a live warp
+    dur = (bt[:, 1] - bt[:, 0]) / 1e6
+    st["blocks"] = int(len(bt))
+    st["block_ms"] = (float(dur.min()), float(np.median(dur)), float(dur.max()))
+    st["span_ms"] = float(bt[:, 1].max() - bt[:, 0].min()) / 1e6
+    st["tail_ms"] = float(bt[:, 1].max() - max(bt[:, 0].max(), bt[:, 1].min())) / 1e6
+    return out, st
+
+
+render_stats.launches = 0

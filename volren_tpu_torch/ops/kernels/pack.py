@@ -37,6 +37,10 @@ from ..transfer import tf_alpha_majorant
 
 # NEE environment sample pool size (volren_tpu.ops.pallas.pack.POOL_N)
 POOL_N = 16384
+# march substeps a sample may take before it ends with nothing added to its
+# pixel: the iteration cap of a 1-spp dispatch of the Pallas kernel
+# (kernel.py:2106, (2048 + 512 * spp) * 8 per strip), here per sample
+STEP_BUDGET = (2048 + 512) * 8
 
 # pf (PF_SIZE,) float32 slots
 PF_CAM_POS = 0          # 3
@@ -74,7 +78,7 @@ PI_ENV_H = 10
 PI_ENV_W = 11
 PI_MIP_DIMS = 12        # 12: (z, y, x) per level 0..3
 PI_MIP_OFFSETS = 24     # 4
-PI_MAX_ITERS = 28       # per-pixel step cap
+PI_MAX_ITERS = 28       # per-sample march-substep budget (STEP_BUDGET)
 PI_TF_SIZE = 29         # LUT bins; 0 = no TF
 PI_EMI_N_BRICKS = 30    # 3: emission grid bx, by, bz
 PI_EMI_N_SLOTS = 33     # emission atlas slots; 0 = no emission
@@ -233,8 +237,7 @@ def build_params(ks: KernelScene, params: TraceParams, width: int, height: int,
     pi[PI_ENV_H], pi[PI_ENV_W] = ks.env_hw
     pi[PI_MIP_DIMS:PI_MIP_DIMS + 12] = np.asarray(ks.mip_dims).reshape(-1)
     pi[PI_MIP_OFFSETS:PI_MIP_OFFSETS + 4] = ks.mip_offsets
-    # the Pallas kernel's iteration cap (kernel._render_strips_jit), per pixel
-    pi[PI_MAX_ITERS] = (2048 + 512 * spp) * 8
+    pi[PI_MAX_ITERS] = STEP_BUDGET
     if ks.tf is not None:
         pi[PI_TF_SIZE] = ks.tf.lut.shape[0]
     if ks.emi_atlas is not None:
