@@ -23,8 +23,9 @@ of which raises on failure (exit code non-zero, no result line):
    at 4 spp, besides, its RMSE must stay below 1.5x the kernel's own
    seed-to-seed noise with the mean within 5%;
 4. kernel vs plain at the paths' shapes: one 4-spp dispatch of the whole
-   cloud512 at 1024x1024 through both, for the plain path, the TF path and
-   the emission path (a 256x256x128 temperature grid made from --seed),
+   cloud512 at 1024x1024 through both, for the plain path, the TF path,
+   the emission path (a 256x256x128 temperature grid made from --seed) and
+   TF + emission (phase 9's --turbo path),
    timed (CUDA events for the kernel), bitwise equal; the plain run also
    counts the dispatch's events for the kernel's work bound; then a 4-spp
    and a 64-spp dispatch of each path at 256x256, bitwise equal;
@@ -43,9 +44,30 @@ of which raises on failure (exit code non-zero, no result line):
    then the entry point python -m volren_tpu_torch.probes, run in-process
    one site's stages at a time, every stage ok and the site's kernel
    launched.
-In phases 5-8 the launch count of the path's kernel, set to 0 just before
-the run, must have risen during it; in phases 5-7 the framebuffer must be
-finite with a positive mean and the run must have used the CUDA kernel.
+9. the front ends, at full width, everything written under
+   build/chip_smoke/frontends: (1) an animated folder of FRAMES .vdb files
+   (volren_tpu_torch.voldata.vdb.write_vdb_grids), each the whole cloud512
+   density (512x512x256, rolled 8 voxels along x per frame) with a
+   256x256x128 temperature grid from --seed + k, timed to write and to
+   load; (2) the CLI renders the folder offline at 1024x1024, 256 spp, 100
+   bounces, --emission 100 --vol_rot_y 30 --vol_crop_max 1 0.8 1: one PNG
+   and a finite, positive framebuffer per frame, through the emission
+   kernel <0,1>, at least four launches per frame; (3) one frame with
+   --turbo: the TF + emission kernel <1,1> on a user path; (4) a volpy
+   script in the reference's style (import volpy) through the CLI; (5)
+   the interactive loop with --serve 0 as a subprocess: /state.json until
+   64 samples, /frame.png (a 256x256 PNG), a /set and a /nav that each
+   reset the accumulation, a full-resolution /snapshot, then SIGINT and
+   exit code 0; (6) a checkpoint after 128 spp loaded into a new Renderer
+   and traced 128 more equals a straight trace(256) bitwise; (7) a touched
+   (os.utime) megakernel.cu is rebuilt and swapped in by
+   utils.hotreload.KernelWatcher, and the next dispatch equals the one
+   before bitwise; (8) Renderer.profile writes a torch.profiler trace that
+   names the megakernel. Each of (2)-(8) must launch the megakernel.
+In phases 5-9 the launch count of the path's kernel, set to 0 just before
+the run, must have risen during it; in phases 5-7 and 9 the framebuffer
+must be finite with a positive mean and the run must have used the CUDA
+kernel.
 Every dispatch of phases 3-7 is also run through the kernel's STATS
 instantiation (megakernel.render_stats), which must render the same image
 (phases 3-4), count 0 capped samples, and in phase 4 count the events the
@@ -77,13 +99,313 @@ CMP_RES, CMP_SPP = 64, (4, 64)             # kernel vs plain version
 # the kernels line: name, the scene path that runs it, the TPU kernel it replaces
 KERNELS = (("megakernel", "plain", "volren_tpu/ops/pallas/kernel.py:602"),
            ("megakernel_tf", "tf", "volren_tpu/ops/pallas/kernel.py:635"),
-           ("megakernel_emission", "emission", "volren_tpu/ops/pallas/kernel.py:636"))
+           ("megakernel_emission", "emission", "volren_tpu/ops/pallas/kernel.py:636"),
+           ("megakernel_tf_emission", "tf+emission", "volren_tpu/ops/pallas/kernel.py:635"))
+FRAMES = 3                                 # phase 9's animated folder
 VARIANT = {"plain": (False, False), "tf": (True, False), "emission": (False, True),
            "tf+emission": (True, True)}
 
 
 def _run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+class _Lines:
+    """Collects a subprocess's output lines (split at \r and \n) on a
+    thread, so that the smoke can wait for one while the process runs."""
+
+    def __init__(self, stream):
+        import threading
+
+        self.lines, self._cond = [], threading.Condition()
+        self._thread = threading.Thread(target=self._read, args=(stream,), daemon=True)
+        self._thread.start()
+
+    def _read(self, stream):
+        buf = ""
+        for chunk in iter(lambda: stream.read(1), ""):
+            if chunk in "\r\n":
+                if buf:
+                    with self._cond:
+                        self.lines.append(buf)
+                        self._cond.notify_all()
+                buf = ""
+            else:
+                buf += chunk
+
+    def wait_for(self, pattern: str, timeout: float):
+        import re
+
+        deadline = time.time() + timeout
+        with self._cond:
+            while True:
+                for line in self.lines:
+                    m = re.search(pattern, line)
+                    if m:
+                        return m
+                left = deadline - time.time()
+                if left <= 0:
+                    raise AssertionError(f"no line matching {pattern!r} within {timeout} s; "
+                                         f"last lines: {self.lines[-5:]}")
+                self._cond.wait(left)
+
+
+def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
+    """Phase 9 (see the module's docstring). Returns the launches of the
+    TF + emission kernel <1,1> on the --turbo user path."""
+    import signal
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from volren_tpu_torch import cli
+    from volren_tpu_torch.measure import path_renderer, temperature_grid
+    from volren_tpu_torch.ops import scene as dscene
+    from volren_tpu_torch.ops.kernels import megakernel
+    from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params, decode_dense, \
+        pack_scene
+    from volren_tpu_torch.renderer import DISPATCH_SPP
+    from volren_tpu_torch.utils.hotreload import KernelWatcher
+    from volren_tpu_torch.voldata import Volume, read_brick
+    from volren_tpu_torch.voldata.vdb import read_vdb, write_vdb_grids
+
+    dev = torch.device("cuda")
+    out = os.path.join(OUT_DIR, "frontends")
+    folder = os.path.join(out, "anim")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(folder)
+
+    def launched(label, before, variant=None):
+        """The megakernel (or its ``variant``) launched since ``before``."""
+        now = (megakernel.render.launches if variant is None
+               else megakernel.render.launches_by_variant.get(variant, 0))
+        if now <= before:
+            raise AssertionError(f"{label}: the megakernel did not launch")
+        return now - before
+
+    def check_fb(label, fb, res):
+        if tuple(fb.shape) != (res[1], res[0], 4) or not bool(torch.isfinite(fb).all()):
+            raise AssertionError(f"{label}: the framebuffer is not a finite (H, W, 4) image")
+        mean = fb.mean(dim=(0, 1)).tolist()
+        if not mean[0] > 0.0:
+            raise AssertionError(f"{label}: the framebuffer is black: mean {mean}")
+        return mean
+
+    # ---- 9.1 an animated folder of cloud512-sized VDB frames
+    cloud = read_brick(CLOUD)
+    ks = pack_scene(dscene.upload_grid(cloud, np.eye(4, dtype=np.float32), dev),
+                    dscene.upload_environment(sky, dev))
+    ex, ey, ez = (int(v) for v in cloud.voxel_extent)
+    dense = decode_dense(ks).reshape(ez, ey, ex).cpu().numpy()
+    del ks
+    frames = []
+    for k in range(FRAMES):
+        path = os.path.join(folder, f"cloud_{k}.vdb")
+        temp = temperature_grid(ex // 2, ey // 2, ez // 2, seed + k)
+        t0 = time.perf_counter()
+        write_vdb_grids(path, [("density", np.roll(dense, 8 * k, axis=2), None),
+                               ("temperature", temp.data, temp.transform)])
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = read_vdb(path, "density"), read_vdb(path, "temperature")
+        t_load = time.perf_counter() - t0
+        if got[0].data.shape != dense.shape or got[1].data.shape != temp.data.shape:
+            raise AssertionError(f"{path}: the grids read back have other shapes")
+        print(f"frame {k}: {path} ({os.path.getsize(path)} bytes, density {ex}x{ey}x{ez} + "
+              f"temperature {ex // 2}x{ey // 2}x{ez // 2}) written in {t_write!r} s, loaded "
+              f"in {t_load!r} s on the card's host ({gpu_line})", flush=True)
+        frames.append(path)
+    del dense, got
+
+    # ---- 9.2 the folder through the CLI, offline
+    base = ["--render", "-w", str(RES), "-h", str(RES), "--spp", str(SPP), "--bounces",
+            str(BOUNCES), "--emission", "100", "--device", "cuda"]
+    megakernel.render.launches = 0
+    megakernel.render.launches_by_variant.clear()
+    t0 = time.perf_counter()
+    r, stats = cli.run([folder, sky_path, *base, "--vol_rot_y", "30", "--vol_crop_max", "1",
+                        "0.8", "1", "--output", os.path.join(out, "anim.png")])
+    wall = time.perf_counter() - t0
+    emission = launched("the animated folder", 0, (False, True))
+    if emission != megakernel.render.launches or emission < FRAMES * SPP // DISPATCH_SPP:
+        raise AssertionError(f"the animated folder ran {megakernel.render.launches_by_variant}, "
+                             f"not {FRAMES * SPP // DISPATCH_SPP}+ launches of <0,1>")
+    if len(stats["outputs"]) != FRAMES or r.last_engine != "cuda_kernel":
+        raise AssertionError(f"the animated folder wrote {stats['outputs']} with {r.last_engine}")
+    for k, (png, frame) in enumerate(zip(stats["outputs"], stats["frames"])):
+        if not os.path.getsize(png) or not frame["finite"] or not frame["mean"][0] > 0.0:
+            raise AssertionError(f"frame {k} of the animated folder: {png}, {frame}")
+        print(f"animated folder frame {k}: {SPP / frame['seconds']!r} spp/s "
+              f"({frame['seconds']!r} s, framebuffer mean "
+              f"{[round(m, 4) for m in frame['mean']]}) on {gpu_line}", flush=True)
+    print(f"animated folder: {FRAMES} frames of {RES}x{RES}, {SPP} spp in {wall!r} s of wall "
+          f"time ({stats['seconds']!r} s tracing), {emission} launches of <0,1>", flush=True)
+    del r
+    torch.cuda.empty_cache()
+
+    # ---- 9.3 one frame with --turbo: the TF + emission kernel on a user path
+    megakernel.render.launches = 0
+    megakernel.render.launches_by_variant.clear()
+    r, stats = cli.run([frames[0], sky_path, *base, "--turbo", "--output",
+                        os.path.join(out, "turbo.png")])
+    tf_emission = launched("--turbo", 0, (True, True))
+    if tf_emission != megakernel.render.launches or r.last_engine != "cuda_kernel":
+        raise AssertionError(f"--turbo ran {megakernel.render.launches_by_variant} with "
+                             f"{r.last_engine}")
+    mean = check_fb("--turbo", r.framebuffer(), r.resolution)
+    ks, tp = r._kernel_scene(), r._trace_params()
+    inputs = (ks, build_env_pool(r._env_device, int(r.seed), 0),
+              *build_params(ks, tp, RES, RES, 0, DISPATCH_SPP))
+    ms = cuda_ms(lambda: megakernel.render(*inputs), 3)
+    print(f"--turbo frame: {SPP / stats['seconds']!r} spp/s, {tf_emission} launches of <1,1>, "
+          f"{ms!r} ms per 64-spp dispatch (CUDA events), framebuffer mean "
+          f"{[round(m, 4) for m in mean]} on {gpu_line}", flush=True)
+    del r, ks, inputs
+    torch.cuda.empty_cache()
+
+    # ---- 9.4 a volpy script in the reference's style, through the CLI
+    script = os.path.join(out, "script.py")
+    script_png = os.path.join(out, "script.png")
+    with open(script, "w") as f:
+        f.write("import volpy\n\n"
+                "renderer = volpy.Renderer()\n"
+                f"renderer.volume = volpy.Volume({frames[0]!r})\n"
+                "renderer.scale_and_move_to_unit_cube()\n"
+                "renderer.commit()\n"
+                "renderer.bounces = 100\n"
+                "renderer.render(64)\n"
+                f"renderer.save({script_png!r})\n")
+    before = megakernel.render.launches
+    r, _ = cli.run([script, "--render", "-w", "512", "-h", "512", "--spp", "4", "--device",
+                    "cuda", "--output", os.path.join(out, "after_script.png")])
+    launched("the volpy script", before)
+    if not os.path.getsize(script_png) or r.last_engine != "cuda_kernel":
+        raise AssertionError(f"the volpy script wrote no {script_png} or ran {r.last_engine}")
+    check_fb("the volpy script", r.framebuffer(), r.resolution)
+    print(f"volpy script: {script_png} written through the CLI ({r.last_engine})", flush=True)
+    del r
+
+    # ---- 9.5 the interactive loop and its viewer, in a process of its own
+    serve_png = os.path.join(out, "serve.png")
+    proc = subprocess.Popen([sys.executable, "-u", "-m", "volren_tpu_torch.cli", frames[0],
+                             sky_path, "--serve", "0", "--output", serve_png],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        lines = _Lines(proc.stdout)
+        port = int(lines.wait_for(r"viewer: http://127\.0\.0\.1:(\d+)/", 180).group(1))
+
+        def get(path):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+                if resp.status != 200:
+                    raise AssertionError(f"{path}: HTTP {resp.status}")
+                return resp.read()
+
+        def sample():
+            return json.loads(get("/state.json"))["sample"]
+
+        def wait_sample(n, timeout=120):
+            deadline = time.time() + timeout
+            while (s := sample()) < n:
+                if time.time() > deadline:
+                    raise AssertionError(f"the interactive loop is at {s} of {n} samples")
+                time.sleep(0.02)
+            return s
+
+        wait_sample(64)
+        png = get("/frame.png")
+        w, h = (int.from_bytes(png[16 + 4 * i:20 + 4 * i], "big") for i in range(2))
+        if png[:8] != b"\x89PNG\r\n\x1a\n" or png[12:16] != b"IHDR" or (w, h) != (256, 256):
+            raise AssertionError(f"/frame.png is not a 256x256 PNG: {png[:24]!r}")
+        for edit in ("/set?seed=11", "/nav?fwd=1&right=0&up=0"):
+            s0 = wait_sample(256)
+            get(edit)
+            s1 = sample()
+            if not s1 < s0:
+                raise AssertionError(f"{edit} did not reset the accumulation ({s0} -> {s1})")
+            print(f"viewer {edit}: sample {s0} -> {s1}", flush=True)
+        get("/snapshot")
+        lines.wait_for(r"\(tonemapped snapshot\)", 300)
+        if not os.path.getsize(serve_png):
+            raise AssertionError(f"/snapshot wrote no {serve_png}")
+        proc.send_signal(signal.SIGINT)
+        if proc.wait(timeout=120) != 0:
+            raise AssertionError(f"the interactive loop exited with {proc.returncode}")
+        m = lines.wait_for(r"interactive: (\d+) spp at (\d+)x(\d+) in (\S+) s of tracing "
+                           r"\((\S+) spp/s, (\w+)\)", 10)
+        if m.group(6) != "cuda_kernel" or int(m.group(1)) < 64:
+            raise AssertionError(f"the interactive loop: {m.group(0)}")
+        print(f"interactive loop (--serve 0, port {port}): {m.group(1)} spp at "
+              f"{m.group(2)}x{m.group(3)}, {m.group(5)} spp/s of tracing; /snapshot "
+              f"{serve_png}; SIGINT -> exit 0 on {gpu_line}", flush=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    # ---- 9.6 checkpoints: 128 + 128 spp through a file = trace(256)
+    def emission_renderer():
+        return path_renderer(Volume(CLOUD), sky, RES, seed, "emission", device=dev)
+
+    before = megakernel.render.launches
+    ckpt = os.path.join(out, "checkpoint.npz")
+    r = emission_renderer()
+    r.trace(128)
+    r.save_checkpoint(ckpt)
+    resumed = emission_renderer()
+    resumed.load_checkpoint(ckpt)
+    resumed.trace(128)
+    straight = emission_renderer()
+    straight.trace(256)
+    launched("the checkpoint round trip", before)
+    if not resumed.last_engine == straight.last_engine == "cuda_kernel":
+        raise AssertionError(f"the checkpoint round trip ran {resumed.last_engine}")
+    check_fb("the checkpoint round trip", resumed.framebuffer(), resumed.resolution)
+    if resumed.sample != 256 or not torch.equal(resumed.framebuffer(), straight.framebuffer()):
+        raise AssertionError("128 + 128 spp through a checkpoint differ from trace(256)")
+    print("checkpoint: 128 spp, save, load into a new Renderer, 128 spp = trace(256), bitwise",
+          flush=True)
+    del r, resumed
+
+    # ---- 9.7 hot reload: a touched source is rebuilt and swapped in
+    inputs = scene(Volume(CLOUD), SMALL_RES, seed, DISPATCH_SPP, "plain")
+    first = megakernel.render(*inputs)
+    watcher = KernelWatcher()
+    old_lib = megakernel._LIB
+    st = os.stat(megakernel.SOURCE)
+    os.utime(megakernel.SOURCE, (st.st_atime, st.st_mtime + 1.0))
+    if not watcher.reload_modified_kernels() or megakernel._LIB is old_lib:
+        raise AssertionError("the touched megakernel.cu was not rebuilt and swapped in")
+    before = megakernel.render.launches
+    again = megakernel.render(*inputs)
+    launched("the reloaded kernel", before)
+    if not torch.equal(first, again):
+        raise AssertionError("the reloaded kernel's dispatch differs from the one before")
+    print("hot reload: touched megakernel.cu rebuilt, swapped in, the next dispatch bitwise "
+          "equal", flush=True)
+    del inputs, first, again
+
+    # ---- 9.8 the profiler
+    trace_dir = os.path.join(out, "profile")
+    before = megakernel.render.launches
+    with straight.profile(trace_dir):
+        straight.trace(64)
+    launched("the profiled trace", before)
+    if straight.last_engine != "cuda_kernel":
+        raise AssertionError(f"the profiled trace ran {straight.last_engine}")
+    names = set()
+    for name in os.listdir(trace_dir):
+        with open(os.path.join(trace_dir, name)) as f:
+            events = json.load(f).get("traceEvents", [])
+        names |= {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    kernels = sorted(n for n in names if "megakernel" in n)
+    if not kernels:
+        raise AssertionError(f"the profiler's trace names no megakernel kernel: {sorted(names)}")
+    print(f"profile: {trace_dir} names {kernels}", flush=True)
+    del straight
+    torch.cuda.empty_cache()
+    return tf_emission
 
 
 def main(argv=None) -> int:
@@ -386,6 +708,10 @@ def main(argv=None) -> int:
         raise AssertionError("the sites' stages are not every probe stage exactly once")
     print(f"probes: {len(every)} stages of python -m volren_tpu_torch.probes ok, in "
           f"{len(SITES)} call sites, on {gpu_line}", flush=True)
+
+    # ---- 9. the front ends
+    record["megakernel_tf_emission"]["launches"] = front_ends(
+        args.seed, sky_path, sky, gpu_line, scene, cuda_ms)
 
     kernels = [dict(name=kname, route="cuda", source="volren_tpu_torch/csrc/megakernel.cu",
                     replaces=replaces, library_ms=None, **record[kname])

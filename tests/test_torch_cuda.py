@@ -180,6 +180,59 @@ def test_renderer_on_card_launches_the_kernel():
     assert fb.is_cuda and bool(torch.isfinite(fb).all()) and float(fb[..., :3].mean()) > 0
 
 
+@pytest.mark.parametrize("tf,emission", VARIANTS, ids=VARIANT_IDS)
+def test_checkpoint_resume_equals_straight_trace_on_card(tf, emission, tmp_path):
+    """128 spp, a checkpoint, a new Renderer, 128 more = trace(256), bitwise
+    (the dispatches cut at the same 64-spp fences)."""
+    dev = _cuda()
+    first = _renderer(dev, tf=tf, emission=emission)
+    first.trace(128)
+    first.save_checkpoint(str(tmp_path / "c.npz"))
+    resumed = _renderer(dev, tf=tf, emission=emission)
+    resumed.load_checkpoint(str(tmp_path / "c.npz"))
+    assert resumed.framebuffer().is_cuda
+    before = megakernel.render.launches
+    resumed.trace(128)
+    assert megakernel.render.launches == before + 2
+    straight = _renderer(dev, tf=tf, emission=emission)
+    straight.trace(256)
+    assert resumed.sample == 256 and torch.equal(resumed.framebuffer(), straight.framebuffer())
+
+
+def test_hot_reload_swaps_in_a_rebuilt_library(tmp_path):
+    """An edited copy of megakernel.cu is rebuilt (a new library: its own
+    resident block counts and group counter) and swapped in; every variant
+    then renders as before, bitwise, at two group shapes; a source that
+    does not compile keeps the loaded library."""
+    from volren_tpu_torch.utils.hotreload import KernelWatcher
+
+    dev = _cuda()
+    scenes = [(_inputs(_renderer(dev, tf=tf, emission=emission), spp))
+              for tf, emission in VARIANTS for spp in (4, 64)]
+    before = [megakernel.render(*inputs) for inputs in scenes]
+    old = megakernel._lib()
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    src = csrc / "megakernel.cu"
+    with open(megakernel.SOURCE) as f:
+        src.write_text(f.read())
+    watcher = KernelWatcher(str(csrc))
+    src.write_text(src.read_text() + "\n// edited\n")
+    try:
+        assert watcher.reload_modified_kernels()
+        assert megakernel._LIB is not old and megakernel._LIB._name != old._name
+        for inputs, want in zip(scenes, before):
+            assert torch.equal(megakernel.render(*inputs), want)
+            assert torch.equal(megakernel.render(*inputs), want)
+        swapped = megakernel._LIB
+        src.write_text(src.read_text() + "\nthis is not C++\n")
+        assert not watcher.reload_modified_kernels()
+        assert megakernel._LIB is swapped
+    finally:
+        with megakernel._LIB_LOCK:
+            megakernel._LIB = old
+
+
 def test_kernel_wrapper_rejects_bad_tables():
     ks, pool, pf, pi = _inputs(_renderer(_cuda()))
     with pytest.raises(ValueError):

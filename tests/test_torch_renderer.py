@@ -3,6 +3,7 @@ of the render kernel), the dispatch fence, and the package's isolation
 from JAX."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -100,11 +101,16 @@ def test_trace_params_match_reference(random_grid16):
 
 def test_unported_variants_raise(random_grid16):
     """The TF and emission variants are ported (below); what is left of
-    them, the colormap LUTs, raises naming its ROADMAP item, and a
-    parameter block built for another variant is refused."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransferFunction().colormap("viridis")
+    the renderer's engines, the oracle engine (--no-dda) and rendering
+    across devices, raises naming its ROADMAP item, and a parameter block
+    built for another variant is refused."""
     r = _renderer(random_grid16)
+    for attr, value in (("engine", "oracle"), ("_use_dda", False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+            setattr(r, attr, value)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+        r.distribute()
+    assert r.engine == "megakernel" and r._use_dda
     ks = r._kernel_scene()
     pf, pi = tpack.build_params(ks, r._trace_params(), 8, 8, 0, 1)
     pool = tpack.build_env_pool(r._env_device, 5, 0)
@@ -185,7 +191,7 @@ def test_cuda_renderer_raises_without_card(monkeypatch):
         cli.main([os.path.join(REPO, ".scene_cache", "cloud512.brick"), "--render"])
 
 
-def test_cli_render_on_cpu(tmp_path, random_grid16):
+def test_cli_render_on_cpu(tmp_path, random_grid16, capsys):
     vol = tmp_path / "grid.brick"
     write_brick(str(vol), build_brick_grid(random_grid16))
     out = tmp_path / "img.png"
@@ -200,8 +206,10 @@ def test_cli_render_on_cpu(tmp_path, random_grid16):
     assert r.sppx == 3 and r.sample == 3 and r.bounces == 5 and r.phase == 0.3
     assert r.environment.strength == 2.0 and r.cam.fov_degree == 60.0
     assert r.framebuffer().shape == (8, 12, 4) and stats["spp"] == 3
-    with pytest.raises(ValueError):
-        cli.run([str(vol), "--render", "--no-such-flag"])
+    # an unknown argument is reported and ignored, as volren_tpu.cli does
+    r, stats = cli.run(args + ["--no-such-flag"])
+    assert stats["outputs"] == [str(png)] and r.sample == 3
+    assert "ignoring unknown argument: --no-such-flag" in capsys.readouterr().err
 
 
 def test_cli_density_scales_the_unit_cube_fit(tmp_path, random_grid16):
@@ -220,21 +228,49 @@ def test_cli_density_scales_the_unit_cube_fit(tmp_path, random_grid16):
 
 
 def test_package_never_imports_jax(tmp_path, random_grid16):
-    """A fresh interpreter imports the port and renders without jax."""
+    """A fresh interpreter imports the port and renders without jax,
+    volren_tpu, PIL, matplotlib or h5py: the renderer, the loaders (VDB,
+    NanoVDB, DICOM, blosc), the colormaps, volpy, and the CLI's
+    interactive loop with its viewer and kernel hot reload. No module of
+    the port names one of them in an import statement."""
     np.save(tmp_path / "grid.npy", random_grid16)
     code = (
-        "import sys; sys.path.insert(0, sys.argv[1]); import numpy as np\n"
+        "import sys, types, time; sys.path.insert(0, sys.argv[1]); import numpy as np\n"
         "import volren_tpu_torch\n"
         "from volren_tpu_torch.renderer import Renderer\n"
-        "from volren_tpu_torch.voldata import DenseGrid, Volume\n"
-        "r = Renderer(device='cpu'); r.volume = Volume(DenseGrid(16, 16, 16, np.load(sys.argv[2])))\n"
+        "from volren_tpu_torch.voldata import DenseGrid, Volume, load_grid\n"
+        "from volren_tpu_torch.voldata import blosc, dicom, nanovdb\n"
+        "from volren_tpu_torch.voldata.vdb import write_vdb\n"
+        "from volren_tpu_torch.scene.transferfunc import TransferFunction\n"
+        "from volren_tpu_torch import cli, viewer, volpy\n"
+        "from volren_tpu_torch.utils import hotreload\n"
+        "dense = np.load(sys.argv[2])\n"
+        "r = Renderer(device='cpu'); r.volume = Volume(DenseGrid(16, 16, 16, dense))\n"
         "r.scale_and_move_to_unit_cube(); r.bounces = 3; r.init(4, 4); r.commit(); r.trace(1)\n"
         "assert r.sample == 1\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'volren_tpu'))\n"
+        "TransferFunction().colormap('turbo')\n"
+        "write_vdb(sys.argv[3], dense, compression='blosc')\n"
+        "assert load_grid(sys.argv[3]).data.shape == (16, 16, 16)\n"
+        "def stop(s): raise KeyboardInterrupt\n"
+        "cli.time = types.SimpleNamespace(time=time.time, perf_counter=time.perf_counter, "
+        "sleep=stop)\n"
+        "r, stats = cli.run([sys.argv[3], '-w', '4', '-h', '4', '--spp', '4', '--bounces', '1', "
+        "'--cpu', '--serve', '0', '--turbo', '--output', sys.argv[4]])\n"
+        "assert stats['spp'] == 4\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'volren_tpu', 'PIL', 'matplotlib', 'h5py'))\n"
         "assert not bad, bad\n"
     )
-    subprocess.run([sys.executable, "-c", code, REPO, str(tmp_path / "grid.npy")],
+    subprocess.run([sys.executable, "-c", code, REPO, str(tmp_path / "grid.npy"),
+                    str(tmp_path / "grid.vdb"), str(tmp_path / "out.png")],
                    check=True, cwd=str(tmp_path), timeout=300)
+    forbidden = re.compile(r"^\s*(?:from|import)\s+(jax|jaxlib|volren_tpu|PIL|matplotlib|h5py)"
+                           r"(?![\w])", re.M)
+    for root, _dirs, files in os.walk(PACKAGE):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    assert not forbidden.findall(f.read()), name
 
 
 def test_package_reads_no_environment_variable():

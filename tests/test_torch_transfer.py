@@ -73,5 +73,15 @@ def test_lut_lookups_match_reference(left, width):
 
 
 def test_colormap_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransferFunction().colormap("turbo")
+    """It is now (the name is kept from when colormap raised): the CLI's
+    --turbo LUT equals the JAX package's bitwise, its device upload too,
+    and an unknown name raises as there."""
+    ours, theirs = TransferFunction(), JTransferFunction()
+    ours.colormap("turbo")
+    theirs.colormap("turbo")
+    assert np.array_equal(ours.lut, theirs.lut)
+    up = tscene.upload_transferfunc(ours, "cpu")
+    assert np.array_equal(up.lut.numpy(), np.asarray(jscene.upload_transferfunc(theirs).lut))
+    for tf in (ours, theirs):
+        with pytest.raises(KeyError):
+            tf.colormap("nope")

@@ -507,15 +507,18 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
 # the CUDA kernel: build, bind, launch
 # ---------------------------------------------------------------------------
 
+# the loaded library; utils.hotreload swaps in a rebuilt one under the lock.
+# What a library caches (its resident block counts, its group counter)
+# lives in the library, so a swapped-in one starts afresh.
 _LIB = None
 _LIB_LOCK = threading.Lock()
 
 
-def build(flags: list[str] = NVCC_FLAGS) -> str:
-    """Compile csrc/megakernel.cu with nvcc for sm_90a into
+def build(flags: list[str] = NVCC_FLAGS, source: str = SOURCE) -> str:
+    """Compile csrc/megakernel.cu (or ``source``) with nvcc for sm_90a into
     ``build/libvolren_megakernel_<hash>.so`` (``kernels.build.build``) and
     return its path."""
-    return _build.build(SOURCE, "volren_megakernel", flags)
+    return _build.build(source, "volren_megakernel", flags)
 
 
 def _variant_name(kernel: str) -> str:

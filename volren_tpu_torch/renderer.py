@@ -9,9 +9,21 @@ adds samples to the progressive mean in a device framebuffer, ``draw()``
 applies the Hable tonemap. On a CUDA device a trace launches the CUDA
 megakernel; on the CPU it runs the kernel's plain torch version. The
 choice follows ``device`` and is recorded in ``last_engine``.
+
+The rest of volren_tpu.renderer.Renderer's surface is here too:
+checkpoints (the same ``.npz`` keys, so either package loads the other's),
+``describe()``, ``profile()`` (a torch.profiler trace), ``save_with_alpha``,
+and the ``engine`` / ``step_engine`` names. The JAX package's step
+engines are bitwise-identical schedules of the same sample streams, so
+every name renders through the one kernel; the oracle engine and
+``distribute()`` are not ported yet and raise.
 """
 
 from __future__ import annotations
+
+import contextlib
+import os
+import time
 
 import numpy as np
 import torch
@@ -31,6 +43,13 @@ EMISSION_GRID_NAMES = ("flame", "flames", "temperature")  # renderer.cpp:65
 
 # samples per kernel dispatch (volren_tpu.renderer.Renderer.trace's fence)
 DISPATCH_SPP = 64
+
+# the port's one engine, and the names it answers to: volren_tpu's
+# "wavefront" engine and its step engines
+ENGINE = "megakernel"
+STEP_ENGINES = ("auto", "pallas", "device_queue", "queue", "chunked", "device", "host")
+_ORACLE = ("the oracle engine (global-majorant estimators, --no-dda) is not ported yet: "
+           "ROADMAP Queue 1 item 11")
 
 
 class Renderer:
@@ -67,13 +86,51 @@ class Renderer:
         self._height = 1024
         self._fb = None
         self._density_grids = []   # per-frame GridTables
+        self._density_ranges = []  # per-frame (density grid, its minorant_majorant())
         self._emission_grids = []  # per-frame GridTables or None
         self._majorant_emission = 0.0
         self._packed = None        # (frame, KernelScene)
         self._env_device = None
         self._tf_device = None
+        self._engine = ENGINE
+        self._step_engine = "auto"
         # "cuda_kernel" or "torch_plain": what the most recent trace() ran
         self.last_engine = None
+
+    # ---- engine selection (volren_tpu.renderer's names) ----
+
+    @property
+    def engine(self) -> str:
+        return self._engine
+
+    @engine.setter
+    def engine(self, name: str):
+        if name == "oracle":
+            raise NotImplementedError(_ORACLE)
+        if name not in (ENGINE, "wavefront"):
+            raise ValueError(f"unknown engine {name!r}")
+        self._engine = ENGINE
+
+    @property
+    def step_engine(self) -> str:
+        """The step engine asked for; every name renders through the kernel
+        (``last_engine`` says what ran)."""
+        return self._step_engine
+
+    @step_engine.setter
+    def step_engine(self, name: str):
+        if name not in STEP_ENGINES:
+            raise ValueError(f"unknown step engine {name!r} (one of {STEP_ENGINES})")
+        self._step_engine = name
+
+    @property
+    def _use_dda(self) -> bool:
+        return True
+
+    @_use_dda.setter
+    def _use_dda(self, value: bool):
+        if not value:
+            raise NotImplementedError(_ORACLE)
 
     # ---- lifecycle (RendererOpenGL::init/resize/commit/trace/draw/reset) ----
 
@@ -103,12 +160,15 @@ class Renderer:
         """Upload every animation frame's density grid, and its emission grid
         (the first of EMISSION_GRID_NAMES it has), as brick grids
         (renderer.cpp:56-76). The emission majorant over all frames
-        normalises the emission lookup."""
-        self._density_grids, self._emission_grids = [], []
+        normalises the emission lookup. Each frame's density majorant is
+        kept for ``_trace_params``: a dense grid's is a scan of every voxel
+        (tens of ms for a 512x512x256 frame), too slow to repeat per trace."""
+        self._density_grids, self._emission_grids, self._density_ranges = [], [], []
         self._majorant_emission = 0.0
         for frame in self.volume.grids:
             self._density_grids.append(dscene.upload_grid(
                 to_brick_grid(frame["density"]), self.volume.transform, self.device))
+            self._density_ranges.append((frame["density"], frame["density"].minorant_majorant()))
             emission = next((frame[n] for n in EMISSION_GRID_NAMES if n in frame), None)
             if emission is not None:
                 self._majorant_emission = max(self._majorant_emission,
@@ -126,7 +186,11 @@ class Renderer:
     def _trace_params(self) -> dscene.TraceParams:
         bb_min, bb_max = self.volume.AABB()
         extent = bb_max - bb_min
-        _mn, mj = self.volume.minorant_majorant()
+        frame, grid = self.volume.grid_frame_counter, self.volume.current_grid()
+        if frame < len(self._density_ranges) and self._density_ranges[frame][0] is grid:
+            _mn, mj = self._density_ranges[frame][1]   # the committed frame's
+        else:
+            _mn, mj = self.volume.minorant_majorant()
         maj = max(mj * self.density_scale, 1e-20)
         f32 = np.float32
         return dscene.TraceParams(
@@ -175,7 +239,8 @@ class Renderer:
             # the NEE pool is redrawn for every dispatch from (seed, sample)
             pool = build_env_pool(self._env_device, int(self.seed), int(self.sample))
             pf, pi = build_params(ks, params, self._width, self._height, self.sample, n)
-            accum = megakernel.render(ks, pool, pf, pi)
+            with torch.profiler.record_function("volren_tpu_torch.megakernel"):
+                accum = megakernel.render(ks, pool, pf, pi)
             self.last_engine = "cuda_kernel" if self.device.type == "cuda" else "torch_plain"
             prev = self.sample
             self.sample += n
@@ -211,6 +276,87 @@ class Renderer:
     def save(self, filename: str = "out.png"):
         save_ldr(filename, self.draw(), flip=True, alpha=False)
         print(f"{filename} written.")
+
+    def save_with_alpha(self, filename: str = "out.png"):
+        if not filename.endswith(".png"):
+            filename = filename.rsplit(".", 1)[0] + ".png"
+        save_ldr(filename, self.draw(), flip=True, alpha=True)
+        print(f"{filename} written.")
+
+    # ---- checkpoint / resume: the progressive state is (framebuffer,
+    # sample, seed), under volren_tpu's keys ----
+
+    def save_checkpoint(self, path: str):
+        np.savez_compressed(path, framebuffer=self._fb.cpu().numpy(), sample=self.sample,
+                            seed=self.seed)
+
+    def load_checkpoint(self, path: str):
+        with np.load(path) as data:
+            self._fb = torch.as_tensor(np.array(data["framebuffer"], np.float32),
+                                       device=self.device)
+            self.sample = int(data["sample"])
+            self.seed = int(data["seed"])
+        self._height, self._width = self._fb.shape[:2]
+
+    def distribute(self, mesh=None):
+        raise NotImplementedError("rendering across several devices is not ported yet: "
+                                  "ROADMAP Queue 1 item 13")
+
+    def describe(self) -> dict:
+        """All live parameters, under volren_tpu.renderer.Renderer.describe's
+        keys (``engine`` names the port's engine)."""
+        return {
+            "sample": self.sample,
+            "sppx": self.sppx,
+            "seed": self.seed,
+            "bounces": self.bounces,
+            "tonemap_exposure": self.tonemap_exposure,
+            "tonemap_gamma": self.tonemap_gamma,
+            "tonemapping": self.tonemapping,
+            "show_environment": self.show_environment,
+            "albedo": tuple(float(v) for v in self.albedo),
+            "phase": self.phase,
+            "density_scale": self.density_scale,
+            "emission_scale": self.emission_scale,
+            "vol_clip_min": tuple(float(v) for v in self.vol_clip_min),
+            "vol_clip_max": tuple(float(v) for v in self.vol_clip_max),
+            "env_strength": self.environment.strength,
+            "cam_pos": tuple(float(v) for v in self.cam.pos),
+            "cam_dir": tuple(float(v) for v in self.cam.dir),
+            "cam_fov": self.cam.fov_degree,
+            "resolution": self.resolution,
+            "engine": self.engine,
+            "grid_frames": self.volume.n_grid_frames(),
+            "grid_frame": self.volume.grid_frame_counter,
+            "transferfunc": None
+            if self.transferfunc is None
+            else {
+                "size": self.transferfunc.size,
+                "window_left": self.transferfunc.window_left,
+                "window_width": self.transferfunc.window_width,
+            },
+        }
+
+    def __repr__(self) -> str:
+        lines = [f"{k}: {v}" for k, v in self.describe().items()]
+        return "Renderer(\n  " + "\n  ".join(lines) + "\n)"
+
+    @contextlib.contextmanager
+    def profile(self, log_dir: str):
+        """Context manager: a torch.profiler trace (the card's kernels too
+        on a CUDA device) of the calls inside it, written to ``log_dir`` as
+        a Chrome trace (``*.pt.trace.json``, for Perfetto or TensorBoard).
+        Yields the profiler."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(log_dir, exist_ok=True)
+        with torch.profiler.profile(activities=activities) as prof:
+            yield prof
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"volren_{os.getpid()}_{time.time_ns()}.pt.trace.json"))
 
     # ---- helpers ----
 

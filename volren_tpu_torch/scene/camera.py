@@ -52,3 +52,36 @@ class Camera:
 
     def look_at(self, target: np.ndarray) -> None:
         self.dir = _normalize(np.asarray(target, np.float32) - self.pos)
+
+    # ---- COLMAP helpers (cf. reference src/bindings.cpp:196-206) ----
+
+    _GL_TO_COLMAP = np.linalg.inv(
+        np.diag(np.array([1.0, -1.0, -1.0, 1.0], dtype=np.float64))
+    )
+
+    def colmap_view_trans(self) -> np.ndarray:
+        m = self._GL_TO_COLMAP @ self.view.astype(np.float64)
+        return m[:3, 3].astype(np.float32)
+
+    def colmap_view_rot(self) -> np.ndarray:
+        """Quaternion (w, x, y, z) of the COLMAP world->camera rotation."""
+        m = (self._GL_TO_COLMAP @ self.view.astype(np.float64))[:3, :3]
+        # rotation matrix -> quaternion
+        t = np.trace(m)
+        if t > 0:
+            s = np.sqrt(t + 1.0) * 2
+            w, x, y, z = 0.25 * s, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s, (m[1, 0] - m[0, 1]) / s
+        elif m[0, 0] > m[1, 1] and m[0, 0] > m[2, 2]:
+            s = np.sqrt(1.0 + m[0, 0] - m[1, 1] - m[2, 2]) * 2
+            w, x, y, z = (m[2, 1] - m[1, 2]) / s, 0.25 * s, (m[0, 1] + m[1, 0]) / s, (m[0, 2] + m[2, 0]) / s
+        elif m[1, 1] > m[2, 2]:
+            s = np.sqrt(1.0 + m[1, 1] - m[0, 0] - m[2, 2]) * 2
+            w, x, y, z = (m[0, 2] - m[2, 0]) / s, (m[0, 1] + m[1, 0]) / s, 0.25 * s, (m[1, 2] + m[2, 1]) / s
+        else:
+            s = np.sqrt(1.0 + m[2, 2] - m[0, 0] - m[1, 1]) * 2
+            w, x, y, z = (m[1, 0] - m[0, 1]) / s, (m[0, 2] + m[2, 0]) / s, (m[1, 2] + m[2, 1]) / s, 0.25 * s
+        q = np.array([w, x, y, z], dtype=np.float64)
+        return (q / np.linalg.norm(q)).astype(np.float32)
+
+    def colmap_focal_length(self, height: int) -> float:
+        return height / (2.0 * np.tan(0.5 * np.radians(self.fov_degree)))

@@ -2,10 +2,9 @@
 
 Reference TransferFunction (src/transferfunc.cpp): density windowing
 (window_left/window_width), the alpha-CDF rewrite that the DDA majorant
-needs (transferfunc.cpp:33-58), random LUTs and the `%f, %f, %f, %f` text
-IO. Colormap LUTs (``colormap``, the CLI's --turbo / --viridis) are still
-to port (ROADMAP Queue 1): the JAX package builds them with matplotlib,
-which the card's machine does not have.
+needs (transferfunc.cpp:33-58), colormap LUTs (the CLI's --turbo /
+--viridis, from ``utils.colormaps``' tables), random LUTs and the
+`%f, %f, %f, %f` text IO.
 """
 
 from __future__ import annotations
@@ -13,6 +12,8 @@ from __future__ import annotations
 import re
 
 import numpy as np
+
+from ..utils import colormaps as _cm
 
 
 class TransferFunction:
@@ -38,9 +39,9 @@ class TransferFunction:
         self.lut = lut
 
     def colormap(self, name: str, n_bins: int = 256) -> None:
-        raise NotImplementedError(
-            f"colormap LUTs ({name!r}) are not ported yet: ROADMAP Queue 1, "
-            "colormaps (--turbo, --viridis)")
+        f = np.arange(n_bins, dtype=np.float32) / n_bins
+        rgb = _cm.get_colormap(name)(f)
+        self.lut = np.concatenate([rgb, f[:, None]], axis=1).astype(np.float32)
 
     def load_from_file(self, path: str) -> None:
         rows = []

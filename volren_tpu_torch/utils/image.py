@@ -14,8 +14,9 @@ def _chunk(tag: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
 
 
-def write_png(path: str, u8: np.ndarray) -> None:
-    """Write an (H, W, 3|4) uint8 image as an 8-bit RGB or RGBA PNG."""
+def encode_png(u8: np.ndarray) -> bytes:
+    """An (H, W, 3|4) uint8 image as the bytes of an 8-bit RGB or RGBA
+    PNG."""
     u8 = np.ascontiguousarray(u8, dtype=np.uint8)
     h, w, c = u8.shape
     if c not in (3, 4):
@@ -23,11 +24,14 @@ def write_png(path: str, u8: np.ndarray) -> None:
     # every scanline carries filter type 0 (None)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), u8.reshape(h, w * c)], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 6 if c == 4 else 2, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, u8: np.ndarray) -> None:
+    """Write an (H, W, 3|4) uint8 image as an 8-bit RGB or RGBA PNG."""
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_chunk(b"IHDR", ihdr))
-        f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(encode_png(u8))
 
 
 def save_ldr(path: str, img: np.ndarray, flip: bool = True, alpha: bool = False) -> None:

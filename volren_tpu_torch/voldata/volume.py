@@ -1,15 +1,17 @@
 """Volume container: animation frames of named grids (numpy copy of
-volren_tpu.voldata.volume, trimmed to .brick / .dense / in-memory grids).
+volren_tpu.voldata.volume).
 
 Mirrors voldata::Volume (API from call sites in
 reference src/renderer.cpp:56-124, reference src/main.cpp:37-62
 and reference src/bindings.cpp:83-94): frames are maps of grid name ->
-grid, with a shared world transform and a frame counter.
+grid, with a shared world transform and a frame counter; ``load_folder``
+loads an alphanumerically-ordered animation.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 
@@ -19,16 +21,31 @@ from .grid import DenseGrid, Grid
 
 def load_grid(path: str, name: str = "density") -> Grid:
     """Load a single named grid from a file, dispatched by extension
-    (cf. voldata::Volume::load_grid, call site reference src/main.cpp:49).
-    The port reads .brick and .dense; VDB, NanoVDB and DICOM are still to
-    port (ROADMAP Queue 1)."""
+    (cf. voldata::Volume::load_grid, call site reference src/main.cpp:49):
+    .brick, .dense, .nvdb, .vdb, and DICOM (.dcm, .dicom, or no extension:
+    a single file or a series folder)."""
     ext = os.path.splitext(path)[1].lower()
     if ext == ".brick":
         return read_brick(path)
     if ext == ".dense":
         return read_dense(path)
-    raise ValueError(f"unsupported grid file extension: {path} "
-                     "(volren_tpu_torch reads .brick and .dense)")
+    if ext == ".nvdb":
+        from .nanovdb import read_nanovdb
+
+        return read_nanovdb(path, name)
+    if ext == ".vdb":
+        from .vdb import read_vdb
+
+        return read_vdb(path, name)
+    if ext in (".dcm", ".dicom", ""):
+        from .dicom import read_dicom
+
+        return read_dicom(path)
+    raise ValueError(f"unsupported grid file extension: {path}")
+
+
+def _alphanum_key(s: str):
+    return [int(t) if t.isdigit() else t.lower() for t in re.split(r"(\d+)", s)]
 
 
 class Volume:
@@ -92,6 +109,36 @@ class Volume:
 
     def minorant_majorant(self, name: str = "density") -> tuple[float, float]:
         return self.current_grid(name).minorant_majorant()
+
+    # ---- loading ----
+
+    @classmethod
+    def load_folder(cls, path: str, grid_names=("density", "temperature", "flame", "flames")) -> "Volume":
+        """Load every grid file in a folder as animation frames, in
+        alphanumeric order (cf. reference src/main.cpp:40-42,
+        README.md:80)."""
+        vol = cls()
+        files = sorted(
+            (f for f in os.listdir(path) if not f.startswith(".")), key=_alphanum_key
+        )
+        for fname in files:
+            fpath = os.path.join(path, fname)
+            if not os.path.isfile(fpath):
+                continue
+            frame: dict[str, Grid] = {}
+            for name in grid_names:
+                try:
+                    frame[name] = load_grid(fpath, name)
+                except Exception:
+                    continue
+            if frame:
+                if "density" not in frame:
+                    # single-grid formats: treat the first grid as density
+                    frame["density"] = next(iter(frame.values()))
+                vol.grids.append(frame)
+        if not vol.grids:
+            raise RuntimeError(f"no loadable grids found in folder: {path}")
+        return vol
 
     def to_string(self, indent: str = "") -> str:
         lines = [f"{indent}Volume: {len(self.grids)} frame(s), frame counter {self.grid_frame_counter}"]
