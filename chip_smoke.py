@@ -9,7 +9,8 @@ of which raises on failure (exit code non-zero, no result line):
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
 2. build: the CUDA megakernel, its four <USE_TF, HAS_EMI> instantiations
-   (and their STATS twins), and the probe kernels, compiled with nvcc for
+   (and their STATS twins), the probe kernels and the oracle engine's
+   eight <USE_DDA, USE_TF, HAS_EMI> instantiations, compiled with nvcc for
    sm_90a from volren_tpu_torch/csrc into build/ (one nvcc per source, in
    parallel), with ptxas's registers, stack and spill of each;
 3. kernel vs plain: the CUDA kernel against its plain torch version on the
@@ -64,10 +65,37 @@ of which raises on failure (exit code non-zero, no result line):
    utils.hotreload.KernelWatcher, and the next dispatch equals the one
    before bitwise; (8) Renderer.profile writes a torch.profiler trace that
    names the megakernel. Each of (2)-(8) must launch the megakernel.
-In phases 5-9 the launch count of the path's kernel, set to 0 just before
-the run, must have risen during it; in phases 5-7 and 9 the framebuffer
-must be finite with a positive mean and the run must have used the CUDA
-kernel.
+10. the oracle engine (csrc/oracle.cu, volren_tpu/ops/tracer.py's
+   GLSL-order tracer): (1) every instantiation against its plain torch
+   version (ops/tracer.py) on the same CUDA tensors, on phase 3's two
+   scenes at 64x64, 16 bounces (TF with --fau, emission with the
+   half-resolution temperature grid), after one pass and after two,
+   bitwise, two runs bitwise identical, the kernel's count of capped loop
+   calls equal to the plain version's; (2) the oracle path at full width:
+   the CLI renders cloud512 at 1024x1024, 16 spp, 100 bounces with
+   --engine oracle under phase 5's sky: a PNG, a finite framebuffer with a
+   positive mean within 5% of phase 5's megakernel image, 16 launches of
+   <1,0,0>, the CUDA oracle as the engine; then, on that renderer's
+   scene, sky and bounces, the kernel's first pass from zero against the
+   plain version's over the whole 1024x1024 frame, bitwise, with the
+   same count of capped loop calls; (3) the other seven instantiations
+   on user paths at 256x256, 4 spp each through Renderer (--no-dda's
+   delta and ratio tracking with and without --fau and emission, the DDA
+   oracle with --fau, with emission and with both), each image mean
+   within 5% of the megakernel's at the same scene, size and 64 spp --
+   with emission, delta tracking's within [-5%, +10%], as the megakernel
+   and the DDA oracle share the reference's emission weighting
+   (volren_tpu/ops/tracking.py:12-19), which counts less emission -- and
+   each renderer's first pass from zero against the plain version's,
+   bitwise, over the whole frame for DDA and on 1 pixel in 64 for delta
+   tracking (its plain loops run long). The kernels line's times and
+   bounds of the oracle come from (2) and (3): the kernel's pass in CUDA
+   events, the plain version's on the host clock, the bound from the
+   plain version's loop counts (scaled to the frame where subsampled).
+In phases 5-10 the launch count of the path's kernel, set to 0 just before
+the run, must have risen during it; in phases 5-7, 9 and 10 the
+framebuffer must be finite with a positive mean and the run must have used
+the CUDA kernel.
 Every dispatch of phases 3-7 is also run through the kernel's STATS
 instantiation (megakernel.render_stats), which must render the same image
 (phases 3-4), count 0 capped samples, and in phase 4 count the events the
@@ -102,6 +130,12 @@ KERNELS = (("megakernel", "plain", "volren_tpu/ops/pallas/kernel.py:602"),
            ("megakernel_emission", "emission", "volren_tpu/ops/pallas/kernel.py:636"),
            ("megakernel_tf_emission", "tf+emission", "volren_tpu/ops/pallas/kernel.py:635"))
 FRAMES = 3                                 # phase 9's animated folder
+ORACLE_SPP, ORACLE_BOUNCES = 16, 16        # phase 10: the full-width path; kernel vs plain
+ORACLE_RES_SMALL, ORACLE_SPP_SMALL = 256, 4
+ORACLE_STRIDE_DELTA = 8                    # 10.3: delta tracking's plain pass on 1 pixel in 64
+ORACLE_REPLACES = "volren_tpu/ops/tracer.py:154 (trace_pass; XLA, no pallas_call)"
+ORACLE_VARIANTS = [(dda, tf, emi) for dda in (True, False) for tf in (False, True)
+                   for emi in (False, True)]
 VARIANT = {"plain": (False, False), "tf": (True, False), "emission": (False, True),
            "tf+emission": (True, True)}
 
@@ -408,6 +442,218 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
     return tf_emission
 
 
+def _path_name(tf, emi):
+    return {(False, False): "plain", (True, False): "tf", (False, True): "emission",
+            (True, True): "tf+emission"}[(tf, emi)]
+
+
+def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_means) -> dict:
+    """Phase 10 (see the module's docstring). ``scenes``: phase 3's
+    (name, dense) pairs; ``path_means``: phase 5's megakernel image mean
+    (rgb) of the plain path. Returns the kernels line's oracle entries."""
+    import torch
+
+    from volren_tpu_torch import cli
+    from volren_tpu_torch.measure import oracle_bound, path_renderer
+    from volren_tpu_torch.ops import tracer
+    from volren_tpu_torch.ops.geometry import sanitize
+    from volren_tpu_torch.ops.kernels import oracle
+    from volren_tpu_torch.voldata import DenseGrid, Volume
+
+    dev = torch.device("cuda")
+    t_phase = time.time()
+    record = {v: {"max_abs_err": 0.0} for v in ORACLE_VARIANTS}
+
+    def label(v):
+        return f"<{int(v[0])},{int(v[1])},{int(v[2])}>"
+
+    def oracle_renderer(volume, res, v, bounces):
+        r = path_renderer(volume, sky, res, seed, _path_name(v[1], v[2]), bounces, device=dev)
+        r.engine = "oracle"
+        r._use_dda = v[0]
+        return r
+
+    def rgb_mean(fb):
+        return float(fb[..., :3].mean())
+
+    def hold(name, r, v, stride):
+        """The kernel's first pass from zero on a user path's committed
+        renderer, against the plain version's on every ``stride``-th pixel
+        in x and y (all of them at stride 1), bitwise; the kernel timed in
+        CUDA events, the plain version on the host clock, the bound from
+        the plain version's counts (scaled to the frame). Returns the
+        kernels line's numbers."""
+        scene, tp, cfg = r._scene_tables(), r._trace_params(), r._config()
+        if (cfg.use_dda, cfg.use_tf, cfg.has_emission) != v:
+            raise AssertionError(f"{name} {label(v)}: the renderer set up {cfg}")
+        w, h = r._width, r._height
+        zero = torch.zeros(h, w, 4, device=dev)
+        capped = torch.zeros(1, dtype=torch.int32, device=dev)
+        k1 = oracle.trace_pass(scene, tp, cfg, zero, 1, capped=capped)
+        ms = cuda_ms(lambda: oracle.trace_pass(scene, tp, cfg, zero, 1), 3)
+        ys, xs = torch.meshgrid(torch.arange(0, h, stride, device=dev),
+                                torch.arange(0, w, stride, device=dev), indexing="ij")
+        ys, xs = ys.reshape(-1), xs.reshape(-1)
+        xy = torch.stack([xs, ys], -1).to(torch.int32)
+        stats = {}
+
+        def plain():
+            # tracer.trace_passes's pass 1, on the chosen pixels' lanes
+            rgba = torch.cat([tracer.trace_sample(scene, tp, cfg, xy[i:i + tracer.PLAIN_LANES],
+                                                  (w, h), 1, stats)
+                              for i in range(0, len(xy), tracer.PLAIN_LANES)])
+            fb = zero[ys, xs]
+            return fb + (sanitize(rgba) - fb) * torch.tensor(tracer.pass_weight(1), device=dev)
+
+        plain_ms, p1 = host_ms(plain)
+        k = k1[ys, xs]
+        err = float((k - p1).abs().max())
+        same = float((k == p1).all(-1).float().mean())
+        scale = w * h / len(xy)
+        bound_ms, bound_by, n_bytes, n_ops = oracle_bound(
+            scene, w * h, {key: n * scale for key, n in stats.items()})
+        print(f"oracle kernel vs plain [{name} {label(v)}, {w}x{h}, {tp.bounces} bounces, pass 1 "
+              f"from zero, 1 in {stride * stride} pixel(s): {len(xy)}]: max abs {err!r}, bitwise "
+              f"identical pixels {same!r}; kernel {ms!r} ms a pass (CUDA events), plain "
+              f"{plain_ms!r} ms for its {len(xy)} pixels; bound {bound_ms!r} ms by {bound_by} "
+              f"({n_bytes} bytes, {n_ops} f32 operations from the plain version's counts "
+              f"{stats} x {scale}); loop calls capped at {cfg.max_steps}: kernel {int(capped)} "
+              f"(frame), plain {stats.get('capped', 0)} on {gpu_line}", flush=True)
+        if not bool(torch.isfinite(k1).all()) or not torch.equal(k, p1):
+            raise AssertionError(f"{name} {label(v)}: the oracle kernel's pass is not bitwise "
+                                 f"equal to its plain version's")
+        if stride == 1 and int(capped) != stats.get("capped", 0):
+            raise AssertionError(f"{name} {label(v)}: the kernel counts {int(capped)} capped "
+                                 f"loop calls, the plain version {stats.get('capped', 0)}")
+        rec = record[v]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    # ---- 10.1 kernel vs plain version, every instantiation, 1 and 2 passes
+    for name, dense in scenes:
+        d, h, w = dense.shape
+        for v in ORACLE_VARIANTS:
+            r = oracle_renderer(Volume(DenseGrid(w, h, d, dense)), CMP_RES, v, ORACLE_BOUNCES)
+            scene, tp, cfg = r._scene_tables(), r._trace_params(), r._config()
+            if (cfg.use_dda, cfg.use_tf, cfg.has_emission) != v:
+                raise AssertionError(f"{name} {label(v)}: the renderer set up {cfg}")
+            zero = torch.zeros(CMP_RES, CMP_RES, 4, device=dev)
+            capped = torch.zeros(1, dtype=torch.int32, device=dev)
+            before = oracle.trace_pass.launches_by_variant.get(v, 0)
+            k1 = oracle.trace_pass(scene, tp, cfg, zero, 1, capped=capped)
+            k2 = oracle.trace_pass(scene, tp, cfg, k1, 2, capped=capped)
+            k1b = oracle.trace_pass(scene, tp, cfg, zero, 1)
+            k2b = oracle.trace_pass(scene, tp, cfg, k1b, 2)
+            if oracle.trace_pass.launches_by_variant.get(v, 0) != before + 4:
+                raise AssertionError(f"{name} {label(v)}: the variant's launch count did not rise")
+            if not (torch.equal(k1, k1b) and torch.equal(k2, k2b)):
+                raise AssertionError(f"{name} {label(v)}: the kernel is not bitwise deterministic")
+            # the plain version traces both passes' lanes together (the same
+            # framebuffers as pass after pass)
+            stats, frames = {}, []
+            tracer.trace_passes(scene, tp, cfg, zero, 1, 2, CMP_RES, CMP_RES, stats, frames=frames)
+            p1, p2 = frames
+            err = 0.0
+            for k, p, n in ((k1, p1, 1), (k2, p2, 2)):
+                err = max(err, float((k - p).abs().max()))
+                same = float((k == p).all(-1).float().mean())
+                print(f"oracle kernel vs plain [{name} {label(v)}, {CMP_RES}x{CMP_RES}, "
+                      f"{ORACLE_BOUNCES} bounces, after {n} pass(es)]: max abs "
+                      f"{float((k - p).abs().max())!r}, bitwise identical pixels {same!r}",
+                      flush=True)
+                if not bool(torch.isfinite(k).all()) or not torch.equal(k, p):
+                    raise AssertionError(f"{name} {label(v)}: the oracle kernel is not bitwise "
+                                         f"equal to its plain version after {n} pass(es)")
+            if int(capped) != stats.get("capped", 0):
+                raise AssertionError(f"{name} {label(v)}: the kernel counts {int(capped)} capped "
+                                     f"loop calls, the plain version {stats.get('capped', 0)}")
+            record[v]["max_abs_err"] = max(record[v]["max_abs_err"], err)
+            del r, scene
+    torch.cuda.empty_cache()
+
+    # ---- 10.2 the oracle path at full width, through the CLI
+    main_v = (True, False, False)
+    out_png = os.path.join(OUT_DIR, "cloud512_oracle.png")
+    oracle.trace_pass.launches = 0
+    oracle.trace_pass.launches_by_variant.clear()
+    r, stats = cli.run([CLOUD, sky_path, "--render", "-w", str(RES), "-h", str(RES), "--spp",
+                        str(ORACLE_SPP), "--bounces", str(BOUNCES), "--engine", "oracle",
+                        "--output", out_png, "--device", "cuda"])
+    launches = oracle.trace_pass.launches_by_variant.get(main_v, 0)
+    if launches != ORACLE_SPP or oracle.trace_pass.launches != ORACLE_SPP:
+        raise AssertionError(f"the oracle path ran {oracle.trace_pass.launches_by_variant}, not "
+                             f"{ORACLE_SPP} launches of {label(main_v)}")
+    record[main_v]["launches"] = launches
+    if r.last_engine != "cuda_oracle" or not all(os.path.getsize(p) for p in stats["outputs"]):
+        raise AssertionError(f"the oracle path ran {r.last_engine}, wrote {stats['outputs']}")
+    fb = r.framebuffer()
+    if tuple(fb.shape) != (RES, RES, 4) or not bool(torch.isfinite(fb).all()):
+        raise AssertionError("the oracle path's framebuffer is not a finite (H, W, 4) image")
+    mean, ref = rgb_mean(fb), path_means["plain"]
+    print(f"oracle path: cloud512 {RES}x{RES}, {ORACLE_SPP} spp, {BOUNCES} bounces through the "
+          f"CLI (--engine oracle): {ORACLE_SPP / stats['seconds']!r} spp/s "
+          f"({stats['seconds'] / ORACLE_SPP * 1e3!r} ms a pass on the host clock), {launches} "
+          f"launches of {label(main_v)}; image mean {mean!r} against the megakernel's {ref!r} "
+          f"(rel {abs(mean - ref) / ref!r}) on {gpu_line}", flush=True)
+    if not (mean > 0.0 and abs(mean - ref) / ref < 0.05):
+        raise AssertionError(f"the oracle path's image mean {mean!r} is not within 5% of the "
+                             f"megakernel's {ref!r}")
+    # the path's scene, sky and bounces: the whole frame against the plain version
+    hold("cloud512 oracle path", r, main_v, 1)
+    del r, fb
+    torch.cuda.empty_cache()
+
+    # ---- 10.3 the other instantiations on user paths at 256x256
+    mk_means = {}
+    for v in ORACLE_VARIANTS:
+        if v == main_v:
+            continue
+        path = _path_name(v[1], v[2])
+        if path not in mk_means:
+            mk = path_renderer(Volume(CLOUD), sky, ORACLE_RES_SMALL, seed, path, device=dev)
+            mk.trace(64)
+            mk_means[path] = rgb_mean(mk.framebuffer())
+            del mk
+        r = oracle_renderer(Volume(CLOUD), ORACLE_RES_SMALL, v, BOUNCES)
+        oracle.trace_pass.launches = 0
+        oracle.trace_pass.launches_by_variant.clear()
+        t0 = time.perf_counter()
+        r.trace(ORACLE_SPP_SMALL)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = oracle.trace_pass.launches_by_variant.get(v, 0)
+        if launches != ORACLE_SPP_SMALL or oracle.trace_pass.launches != launches:
+            raise AssertionError(f"{path} {label(v)}: ran {oracle.trace_pass.launches_by_variant}")
+        record[v]["launches"] = launches
+        fb = r.framebuffer()
+        mean, ref = rgb_mean(fb), mk_means[path]
+        # the megakernel, like the DDA oracle, weighs emission by the global
+        # inverse majorant at the local majorant's test rate (the reference's
+        # quirk, volren_tpu/ops/tracking.py:12-19; tests/test_torch_tracking.py
+        # shows the JAX functions' gap), so it counts less emission than
+        # delta tracking: with emission, delta tracking's image may be up to
+        # 10% brighter
+        quirk = (not v[0]) and v[2]
+        rel = (mean - ref) / ref
+        print(f"oracle {'DDA' if v[0] else 'delta/ratio'} {path} {label(v)}: cloud512 "
+              f"{ORACLE_RES_SMALL}x{ORACLE_RES_SMALL}, {ORACLE_SPP_SMALL} spp through Renderer in "
+              f"{seconds!r} s; image mean {mean!r} against the megakernel's {ref!r} at 64 spp "
+              f"(rel {rel!r}, bar {'[-0.05, 0.10], the DDA emission weight' if quirk else '0.05'})"
+              f" on {gpu_line}", flush=True)
+        agrees = -0.05 < rel < (0.10 if quirk else 0.05)
+        if r.last_engine != "cuda_oracle" or not bool(torch.isfinite(fb).all()) or \
+                not (mean > 0.0 and agrees):
+            raise AssertionError(f"{path} {label(v)}: {r.last_engine}, image mean {mean!r} "
+                                 f"against the megakernel's {ref!r}")
+        # the whole frame for DDA; delta tracking's long loops keep its plain
+        # version to 1 pixel in 64
+        hold(f"cloud512 {path}", r, v, 1 if v[0] else ORACLE_STRIDE_DELTA)
+        del r, fb
+        torch.cuda.empty_cache()
+    print(f"phase 10 (the oracle engine) took {time.time() - t_phase!r} s", flush=True)
+    return {f"oracle{label(v)}": rec for v, rec in record.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7, help="seed of the sky, grids and renders")
@@ -423,7 +669,7 @@ def main(argv=None) -> int:
     from volren_tpu_torch import cli
     from volren_tpu_torch import probes as probe_entry
     from volren_tpu_torch.measure import kernel_bound, path_renderer
-    from volren_tpu_torch.ops.kernels import megakernel
+    from volren_tpu_torch.ops.kernels import megakernel, oracle
     from volren_tpu_torch.ops.kernels import probes as probe_kernels
     from volren_tpu_torch.probes._common import Context
     from volren_tpu_torch.probes.sites import SITES
@@ -448,11 +694,14 @@ def main(argv=None) -> int:
 
     # ---- 2. build
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        builds = pool.submit(megakernel.build), pool.submit(probe_kernels.build)
-        lib, probe_lib = (b.result() for b in builds)
-    print(f"build: {os.path.relpath(lib, REPO)} and {os.path.relpath(probe_lib, REPO)} in "
-          f"{time.time() - t0:.2f} s; ptxas <USE_TF,HAS_EMI>: {megakernel.resource_usage(lib)}",
+    with ThreadPoolExecutor(3) as pool:
+        builds = (pool.submit(megakernel.build), pool.submit(probe_kernels.build),
+                  pool.submit(oracle.build))
+        lib, probe_lib, oracle_lib = (b.result() for b in builds)
+    print(f"build: {os.path.relpath(lib, REPO)}, {os.path.relpath(probe_lib, REPO)} and "
+          f"{os.path.relpath(oracle_lib, REPO)} in {time.time() - t0:.2f} s; ptxas "
+          f"<USE_TF,HAS_EMI>: {megakernel.resource_usage(lib)}", flush=True)
+    print(f"    ptxas oracle.cu <USE_DDA,USE_TF,HAS_EMI>: {oracle.resource_usage(oracle_lib)}",
           flush=True)
     for line in probe_kernels.resource_usage(probe_lib):
         print(f"    ptxas probes.cu {line}", flush=True)
@@ -592,6 +841,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
 
     # ---- 5-7. the three paths through the entry points a user calls
+    path_means = {}
+
     def check_path(kname, path, run):
         variant = VARIANT[path]
         megakernel.render.launches = 0
@@ -618,6 +869,7 @@ def main(argv=None) -> int:
               f"{SPP / seconds!r} spp/s ({seconds!r} s, {launches} kernel launch(es), "
               f"framebuffer mean {[round(m, 4) for m in mean]}) on {gpu_line}", flush=True)
         record[kname]["launches"] = launches
+        path_means[path] = float(fb[..., :3].mean())
 
     def run_cli(*extra):
         def run():
@@ -713,11 +965,18 @@ def main(argv=None) -> int:
     record["megakernel_tf_emission"]["launches"] = front_ends(
         args.seed, sky_path, sky, gpu_line, scene, cuda_ms)
 
+    # ---- 10. the oracle engine
+    oracle_record = oracle_phase(args.seed, sky_path, sky, gpu_line, cuda_ms, host_ms,
+                                 (("random16", g16), ("cloud512_crop64", crop)), path_means)
+
     kernels = [dict(name=kname, route="cuda", source="volren_tpu_torch/csrc/megakernel.cu",
                     replaces=replaces, library_ms=None, **record[kname])
                for kname, _path, replaces in KERNELS]
     kernels += [dict(name=site.name, route="cuda", source="volren_tpu_torch/csrc/probes.cu",
                      replaces=site.replaces, **record[site.name]) for site in SITES]
+    kernels += [dict(name=name, route="cuda", source="volren_tpu_torch/csrc/oracle.cu",
+                     replaces=ORACLE_REPLACES, library_ms=None, **rec)
+                for name, rec in oracle_record.items()]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(gpu_line)

@@ -343,3 +343,90 @@ def test_probe_row_scan_matches_cumsum():
     got = K.row_scan(x)
     assert K.row_scan.launches == before + 1
     torch.testing.assert_close(got, K.row_scan_plain(x), rtol=1e-5, atol=0)
+
+
+# ---- the oracle engine (csrc/oracle.cu)
+
+ORACLE_VARIANTS = [(dda, tf, emi) for dda in (True, False) for tf in (False, True)
+                   for emi in (False, True)]
+ORACLE_IDS = [f"{'dda' if d else 'delta'}{'-tf' if t else ''}{'-emi' if e else ''}"
+              for d, t, e in ORACLE_VARIANTS]
+
+
+def _oracle_renderer(device, use_dda, tf, emission, width=37, height=23):
+    r = _renderer(device, tf=tf, emission=emission, width=width, height=height)
+    r.engine = "oracle"
+    r._use_dda = use_dda
+    return r
+
+
+def _oracle_inputs(r):
+    return r._scene_tables(), r._trace_params(), r._config()
+
+
+@pytest.mark.parametrize("passes", [1, 3])
+@pytest.mark.parametrize("use_dda,tf,emission", ORACLE_VARIANTS, ids=ORACLE_IDS)
+def test_oracle_kernel_matches_plain_version(use_dda, tf, emission, passes):
+    """Every <USE_DDA, USE_TF, HAS_EMI> instantiation equals the plain torch
+    version on the same CUDA tensors bitwise, pass after pass, at a ragged
+    37x23, and is bitwise identical run to run."""
+    from volren_tpu_torch.ops import tracer
+    from volren_tpu_torch.ops.kernels import oracle
+
+    dev = _cuda()
+    scene, params, cfg = _oracle_inputs(_oracle_renderer(dev, use_dda, tf, emission))
+    fb = kb = kb2 = torch.zeros(23, 37, 4, device=dev)
+    before = oracle.trace_pass.launches_by_variant.get((use_dda, tf, emission), 0)
+    for s in range(1, passes + 1):
+        fb = tracer.trace_pass(scene, params, cfg, fb, s, 37, 23)
+        kb = oracle.trace_pass(scene, params, cfg, kb, s)
+        kb2 = oracle.trace_pass(scene, params, cfg, kb2, s)
+        assert torch.equal(kb, fb), (s, float((kb - fb).abs().max()))
+        assert torch.equal(kb, kb2)
+    assert oracle.trace_pass.launches_by_variant[(use_dda, tf, emission)] == before + 2 * passes
+    assert bool(torch.isfinite(kb).all()) and float(kb[..., :3].mean()) > 0
+
+
+@pytest.mark.parametrize("use_dda", [True, False], ids=["dda", "delta"])
+def test_oracle_kernel_matches_plain_version_with_the_cap_binding(use_dda):
+    """max_steps = 3: most tracking loop calls stop mid-loop; the kernel
+    keeps their state as the plain version does, and counts as many capped
+    loop calls."""
+    from volren_tpu_torch.ops import tracer
+    from volren_tpu_torch.ops.kernels import oracle
+
+    dev = _cuda()
+    scene, params, cfg = _oracle_inputs(_oracle_renderer(dev, use_dda, True, True))
+    cfg = cfg._replace(max_steps=3)
+    stats = {}
+    plain = tracer.trace_pass(scene, params, cfg, torch.zeros(23, 37, 4, device=dev), 1, 37, 23,
+                              stats)
+    capped = torch.zeros(1, dtype=torch.int32, device=dev)
+    got = oracle.trace_pass(scene, params, cfg, torch.zeros(23, 37, 4, device=dev), 1,
+                            capped=capped)
+    assert stats["capped"] > 0 and int(capped) == stats["capped"]
+    assert torch.equal(got, plain)
+
+
+def test_oracle_renderer_and_cli_launch_the_kernel(tmp_path):
+    from volren_tpu_torch import cli
+    from volren_tpu_torch.ops.kernels import oracle
+
+    dev = _cuda()
+    r = _oracle_renderer(dev, True, False, False, 32, 32)
+    before = oracle.trace_pass.launches
+    r.trace(3)
+    assert r.last_engine == "cuda_oracle" and oracle.trace_pass.launches == before + 3
+    fb = r.framebuffer()
+    assert fb.is_cuda and bool(torch.isfinite(fb).all()) and float(fb[..., :3].mean()) > 0
+    grid = tmp_path / "grid.dense"
+    from volren_tpu_torch.voldata import write_dense
+
+    write_dense(str(grid), DenseGrid(16, 16, 16, _grid16()))
+    for flags, variant in ((["--no-dda"], (False, False, False)),
+                           (["--engine", "oracle"], (True, False, False))):
+        before = oracle.trace_pass.launches_by_variant.get(variant, 0)
+        r, stats = cli.run([str(grid), "--render", "-w", "16", "-h", "16", "--spp", "2",
+                            "--bounces", "8", "--output", str(tmp_path / "o.png"), *flags])
+        assert r.last_engine == "cuda_oracle"
+        assert oracle.trace_pass.launches_by_variant[variant] == before + 2

@@ -24,6 +24,7 @@ from volren_tpu.renderer import Renderer as JRenderer
 from volren_tpu.viewer import ViewerServer as JViewerServer
 from volren_tpu_torch import cli, volpy
 from volren_tpu_torch import renderer as renderer_module
+from volren_tpu_torch.ops.kernels import build as kbuild
 from volren_tpu_torch.ops.kernels import megakernel
 from volren_tpu_torch.renderer import Renderer
 from volren_tpu_torch.scene.environment import procedural_sky
@@ -214,12 +215,20 @@ def test_cli_state_matches_reference(case, scene_files, tmp_path, monkeypatch, c
     assert ours._majorant_emission == theirs._majorant_emission
 
 
-def test_cli_unported_flags_raise(scene_files):
-    for flag in ("--no-dda", "--distribute"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1[13]"):
-            cli.run([scene_files.frame, "--render", "--cpu", flag])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli.run([scene_files.frame, "--render", "--cpu", "--engine", "oracle"])
+def test_cli_unported_flags_raise(scene_files, tmp_path):
+    """--distribute is not ported yet and raises, naming its ROADMAP item;
+    --no-dda (the global-majorant estimators, as in volren_tpu.cli) and
+    --engine oracle render through the oracle engine on the CPU."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 1$"):
+        cli.run([scene_files.frame, "--render", "--cpu", "--distribute"])
+    for flags, use_dda in ((["--no-dda"], False), (["--engine", "oracle"], True)):
+        out = str(tmp_path / f"oracle_{use_dda}.png")
+        r, stats = cli.run([scene_files.frame, "--render", "--cpu", "-w", "8", "-h", "8",
+                            "--spp", "2", "--bounces", "4", "--output", out, *flags])
+        assert r.engine == "oracle" and r._use_dda == use_dda and r._config().has_emission
+        assert r.last_engine == "torch_oracle" and r.sample == 2
+        assert all(os.path.getsize(p) for p in stats["outputs"])
+        assert np.isfinite(r.fbo_data()).all() and r.fbo_data().mean() > 0.0
 
 
 # ---- checkpoints ----
@@ -410,6 +419,54 @@ def test_hot_reload_swaps_a_rebuilt_library(tmp_path, capsys):
     assert not watcher.reload_modified_kernels()
     assert fake._LIB == ("lib", "lib_1.so")  # the loaded library stays
     assert "expected a ';'" in capsys.readouterr().out
+
+
+def test_hot_reload_rebuilds_every_loaded_source_on_a_header_change(tmp_path):
+    """A changed shared header (csrc/*.cuh) rebuilds each loaded kernel
+    from its source beside it; a module not loaded yet is left alone."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("megakernel.cu", "oracle.cu", "common.cuh"):
+        (csrc / name).write_text(f"// {name}\n")
+    built = []
+
+    def fake(loaded):
+        m = types.SimpleNamespace(_LIB=loaded, _LIB_LOCK=threading.Lock())
+        m.build = lambda source: built.append(source) or f"lib_{len(built)}.so"
+        m.load = lambda path: ("lib", path)
+        return m
+
+    mega, orc = fake(("lib", "first.so")), fake(None)
+    watcher = hotreload.KernelWatcher(str(csrc), {"megakernel.cu": mega, "oracle.cu": orc})
+    st = os.stat(csrc / "common.cuh")
+    os.utime(csrc / "common.cuh", (st.st_atime, st.st_mtime + 1))
+    assert watcher.reload_modified_kernels()
+    assert built == [str(csrc / "megakernel.cu")] and mega._LIB == ("lib", "lib_1.so")
+    assert orc._LIB is None
+
+
+def test_a_kernel_build_is_keyed_by_its_shared_headers(tmp_path, monkeypatch):
+    """The library's name hashes the source, the headers beside it and
+    csrc's shared ones, so a header edit rebuilds (nvcc stubbed: none here)."""
+    assert os.path.join(kbuild.CSRC, "common.cuh") in kbuild.headers(megakernel.SOURCE)
+    src = tmp_path / "megakernel.cu"
+    src.write_text("// kernel\n")
+    (tmp_path / "local.cuh").write_text("// one\n")
+    calls = []
+
+    def nvcc(cmd, **kw):
+        calls.append(cmd)
+        with open(cmd[cmd.index("-o") + 1], "w"):
+            pass
+        return types.SimpleNamespace(returncode=0, stdout="", stderr="")
+
+    monkeypatch.setattr(kbuild, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(kbuild.subprocess, "run", nvcc)
+    first = kbuild.build(str(src), "k")
+    assert kbuild.build(str(src), "k") == first and len(calls) == 1
+    assert calls[0][calls[0].index("-I") + 1] == kbuild.CSRC
+    (tmp_path / "local.cuh").write_text("// two\n")
+    assert kbuild.build(str(src), "k") != first and len(calls) == 2
 
 
 def test_hot_reload_of_the_real_kernel_module(tmp_path, monkeypatch):

@@ -100,17 +100,21 @@ def test_trace_params_match_reference(random_grid16):
 
 
 def test_unported_variants_raise(random_grid16):
-    """The TF and emission variants are ported (below); what is left of
-    the renderer's engines, the oracle engine (--no-dda) and rendering
-    across devices, raises naming its ROADMAP item, and a parameter block
-    built for another variant is refused."""
+    """The TF and emission variants and the oracle engine are ported; what
+    is left, rendering across devices, raises naming its ROADMAP item. The
+    megakernel, DDA-only, refuses the global-majorant estimators
+    (``_use_dda = False``) as volren_tpu's wavefront engine does, and a
+    parameter block built for another variant is refused."""
     r = _renderer(random_grid16)
-    for attr, value in (("engine", "oracle"), ("_use_dda", False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-            setattr(r, attr, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 1$"):
         r.distribute()
     assert r.engine == "megakernel" and r._use_dda
+    r._use_dda = False
+    with pytest.raises(NotImplementedError, match="DDA-only"):
+        r.trace(1)
+    r.engine = "oracle"
+    assert r.engine == "oracle"
+    r.engine, r._use_dda = "megakernel", True
     ks = r._kernel_scene()
     pf, pi = tpack.build_params(ks, r._trace_params(), 8, 8, 0, 1)
     pool = tpack.build_env_pool(r._env_device, 5, 0)

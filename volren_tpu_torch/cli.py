@@ -34,8 +34,10 @@ localhost viewer (``viewer.ViewerServer``) at a preview resolution whose
 ``--device`` defaults to cuda and raises when no CUDA device is present:
 the CLI never drops to the CPU by itself; ``--cpu`` is ``--device cpu``.
 ``--engine`` and ``--step-engine`` take volren_tpu's names (every step
-engine renders through the one CUDA kernel); ``--no-dda`` (the oracle
-engine) and ``--distribute`` are not ported yet and raise. Deliberate
+engine renders through the megakernel; ``--engine oracle`` through the
+oracle engine, ``csrc/oracle.cu``); ``--no-dda`` selects the
+global-majorant estimators and with them the oracle engine, as in
+volren_tpu.cli; ``--distribute`` is not ported yet and raises. Deliberate
 differences from volren_tpu.cli: ``--density`` multiplies the density
 scale that the unit-cube fit sets (there, loading the volume resets it);
 ``--vol_rot_*`` rotates the committed grids (there it moves only the
@@ -252,7 +254,9 @@ def run(argv: list[str]):
         elif arg == "--vol_crop_max":
             renderer.vol_clip_max = np.array([float(v) for v in take(3)], np.float32)
         elif arg == "--no-dda":
-            renderer._use_dda = False  # the oracle engine: raises
+            # the global-majorant estimators live in the oracle engine only
+            renderer._use_dda = False
+            renderer.engine = "oracle"
         elif arg == "--engine":
             renderer.engine = take()
         elif arg == "--step-engine":

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 // slot indices of the parameter block; must match
@@ -65,16 +67,8 @@ constexpr int PI_WIDTH = 0, PI_HEIGHT = 1, PI_SPP_BASE = 2, PI_BOUNCES = 3,
               PI_EMI_N_BRICKS = 30, PI_EMI_N_SLOTS = 33;
 constexpr int POOL_N = 16384;
 
-constexpr double PI_D = 3.14159265358979323846;
-constexpr float INV_4PI = float(1.0 / (4.0 * PI_D));
 constexpr float INV_2PI = float(1.0 / (2.0 * PI_D));
 constexpr float INV_PI = float(1.0 / PI_D);
-constexpr float TWO_PI = float(2.0 * PI_D);
-constexpr float SIXTH = float(1.0 / 6.0);
-constexpr float INV_255 = float(1.0 / 255.0);
-constexpr float INV_2_24 = float(1.0 / 16777216.0);
-// upper clamp of the TF window coordinate (ops/transfer.py WINDOW_MAX)
-constexpr float TF_WINDOW_MAX = float(1.0 - 1e-6);
 
 enum { MODE_EXTEND = 2, MODE_SHADOW = 3 };   // render_plain's values
 enum { EV_NONE = 0, EV_EXT_HIT = 1, EV_EXT_EXIT = 2, EV_SH_HIT = 3,
@@ -107,17 +101,6 @@ struct Tables {
   const float* __restrict__ pool;
   const float* __restrict__ tf_lut;    // USE_TF only: (tf_size, 4) RGBA
 };
-
-// NaN-propagating min / max (torch.minimum / maximum / clamp semantics)
-__device__ __forceinline__ float vmin(float a, float b) {
-  return (a != a || a < b) ? a : b;
-}
-__device__ __forceinline__ float vmax(float a, float b) {
-  return (a != a || a > b) ? a : b;
-}
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
 
 // ---- the STATS instantiation's counters (never launched by the render
 // path): per dispatch, warp-level loop and march-substep issues with the
@@ -165,30 +148,6 @@ struct Counters {
   }
 };
 
-__device__ __forceinline__ uint32_t tea(uint32_t v0, uint32_t v1) {
-  uint32_t s0 = 0;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    s0 += 0x9E3779B9u;
-    v0 += ((v1 << 4) + 0xA341316Cu) ^ (v1 + s0) ^ ((v1 >> 5) + 0xC8013EA4u);
-    v1 += ((v0 << 4) + 0xAD90777Du) ^ (v0 + s0) ^ ((v0 >> 5) + 0x7E95761Eu);
-  }
-  return v0;
-}
-
-// LCG step: the uniform comes from the next state; only an active draw
-// advances the stream (the kernels' masked _rng)
-__device__ __forceinline__ float rng(uint32_t& seed, bool active) {
-  const uint32_t nxt = seed * 1664525u + 1013904223u;
-  const float u = float(nxt & 0x00FFFFFFu) * INV_2_24;
-  if (active) seed = nxt;
-  return u;
-}
-
-__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
-  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
-}
-
 __device__ __forceinline__ void norm3(float v[3]) {
   const float inv = 1.0f / vmax(sqrtf(dot3(v, v)), 1e-20f);
   v[0] = v[0] * inv;
@@ -200,19 +159,6 @@ __device__ __forceinline__ void mat3_vec(const float* m, const float v[3], float
   out[0] = v[0] * m[0] + v[1] * m[1] + v[2] * m[2];
   out[1] = v[0] * m[3] + v[1] * m[4] + v[2] * m[5];
   out[2] = v[0] * m[6] + v[1] * m[7] + v[2] * m[8];
-}
-
-__device__ __forceinline__ float luma(const float c[3]) {
-  return c[0] * 0.212671f + c[1] * 0.715160f + c[2] * 0.072169f;
-}
-
-__device__ __forceinline__ float sanitize(float x) {
-  return isfinite(x) ? x : 0.0f;
-}
-
-__device__ __forceinline__ float hg_phase(float cos_t, float g) {
-  const float denom = 1.0f + g * g + 2.0f * g * cos_t;
-  return INV_4PI * (1.0f - g * g) / (denom * sqrtf(vmax(denom, 1e-12f)));
 }
 
 __device__ __forceinline__ void align(const float n[3], const float v[3], float out[3]) {

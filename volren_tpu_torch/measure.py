@@ -29,11 +29,20 @@ Prints:
    blocks' durations and the tail, capped samples, march substeps per
    sample and the dispatch's events, beside the render kernel's
    CUDA-event ms on the same dispatch and its work bound from those
-   events.
+   events;
+7. the oracle engine (csrc/oracle.cu, ``engine = "oracle"``) with DDA
+   tracking on the same three paths: spp/s, the median of 3 x trace(16)
+   after a warm-up, and the kernel's CUDA-event ms of each of one
+   trace(16)'s passes, with the tracking loop calls its 8192-iteration cap
+   stopped, and the pass's work bound (``oracle_bound``) from the plain
+   version's counts on every 16th pixel in x and y, scaled to the image
+   (the plain version at full width would take minutes).
+   ``--oracle-only`` runs this section alone.
 
 Every line carries the card's name and power limit as nvidia-smi gives
 them. The module also holds what chip_smoke.py shares with it: the three
-paths' renderers and the kernel's work bound (``kernel_bound``).
+paths' renderers and the kernels' work bounds (``kernel_bound``,
+``oracle_bound``).
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ import numpy as np
 import torch
 
 from .cli import FAU_LUT
-from .ops.kernels import megakernel
+from .ops import tracer
+from .ops.kernels import megakernel, oracle
 from .ops.kernels.pack import build_env_pool, build_params
 from .renderer import DISPATCH_SPP, Renderer
 from .scene.environment import Environment, procedural_sky
@@ -102,6 +112,92 @@ def kernel_bound(ks, pool: torch.Tensor, pi: np.ndarray, stats: dict):
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_F32_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             n_bytes, ops)
+
+
+# float32 operations of one counted unit of the oracle's plain version
+# (ops/tracer.py, ``stats``), counted by hand from csrc/oracle.cu as
+# OPS_PER_EVENT is: a path (TEA, camera ray, escape term, framebuffer
+# update), a bounce (the 9-level warp with its lookup, two ray set-ups,
+# phase functions, MIS, roulette, HG scatter), an iteration of a
+# global-majorant loop (a stochastic-tricubic density tap; TF: the 8-corner
+# trilinear and the LUT), an iteration of a DDA loop (majorant and step;
+# TF: its LUT), a DDA density test, and an emission tap.
+ORACLE_OPS = {"paths": 520, "bounce_iters": 500, "iter": 130, "iter_tf": 230,
+              "dda_iter": 85, "dda_iter_tf": 105, "dda_test": 130, "dda_test_tf": 230,
+              "emission": 155}
+
+
+def oracle_bound(scene, n_pix: int, stats: dict):
+    """The least time the card could take for one oracle pass, as
+    ``kernel_bound`` works it out: max(bytes / peak bytes/s, float32
+    operations / peak float32/s). Bytes: every table the kernel reads,
+    once, and the (n_pix, 4) float32 framebuffer read and written once.
+    Operations: the loop iterations, tests, bounces and paths that the
+    plain version counted on the same inputs (``stats`` of one pass) times
+    ORACLE_OPS. Returns (ms, "bytes" | "operations", bytes, operations)."""
+    g, env = scene.density, scene.env
+    tables = [g.atlas, g.slot, g.lo, g.hi, g.mip_maj, env.envmap, *env.imp_mips]
+    if scene.tf is not None:
+        tables.append(scene.tf.lut)
+    if scene.emission is not None:
+        e = scene.emission
+        tables += [e.atlas, e.slot, e.lo, e.hi]
+    n_bytes = sum(t.numel() * t.element_size() for t in tables) + 2 * n_pix * 4 * 4
+    tf = "_tf" if scene.tf is not None else ""
+    w = ORACLE_OPS
+    ops = w["paths"] * stats.get("paths", 0) + w["bounce_iters"] * stats.get("bounce_iters", 0)
+    ops += w["emission"] * stats.get("emission", 0)
+    for loop in ("sample_volume", "transmittance"):
+        ops += w["iter" + tf] * stats.get(f"{loop}_iters", 0)
+        ops += w["dda_iter" + tf] * stats.get(f"{loop}_dda_iters", 0)
+        ops += w["dda_test" + tf] * stats.get(f"{loop}_dda_tests", 0)
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_F32_S
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            n_bytes, ops)
+
+
+ORACLE_SPP = 16      # section 7's trace(16)
+ORACLE_STRIDE = 16   # section 7's pixel subsample for the bound
+
+
+def oracle_metric(r: Renderer, label: str, card: str, reps: int = 3) -> dict:
+    """Section 7 for one committed renderer: its oracle engine's spp/s over
+    ``reps`` x trace(ORACLE_SPP) after a warm-up, and the kernel's
+    CUDA-event ms per pass of one more trace, with the loop calls that the
+    cap stopped. Returns the numbers."""
+    r.engine = "oracle"
+    r.render(ORACLE_SPP)
+    walls = []
+    for _ in range(reps):
+        r.reset()
+        walls.append(_wall(lambda: r.trace(ORACLE_SPP)))
+    rates = [ORACLE_SPP / w for w in walls]
+    scene, tp, cfg = r._scene_tables(), r._trace_params(), r._config()
+    capped = torch.zeros(1, dtype=torch.int32, device=r.device)
+    fb, ms = torch.zeros_like(r.framebuffer()), []
+    for s in range(1, ORACLE_SPP + 1):
+        t, fb = _event_ms(lambda: oracle.trace_pass(scene, tp, cfg, fb, s, capped=capped))
+        ms.append(t)
+    w, h = r._width, r._height
+    ys, xs = torch.meshgrid(torch.arange(0, h, ORACLE_STRIDE, dtype=torch.int32),
+                            torch.arange(0, w, ORACLE_STRIDE, dtype=torch.int32), indexing="ij")
+    xy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(r.device)
+    stats = {}
+    tracer.trace_sample(scene, tp, cfg, xy, (w, h), 1, stats)
+    scale = w * h / xy.shape[0]
+    bound_ms, bound_by, _, n_ops = oracle_bound(scene, w * h,
+                                                {k: n * scale for k, n in stats.items()})
+    out = {"spp_s": ORACLE_SPP / statistics.median(walls), "rates": rates, "pass_ms": ms,
+           "capped": int(capped), "mean": r.framebuffer().mean((0, 1)).tolist(),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    print(f"oracle spp/s, {label} {w}x{h}, {r.bounces} bounces, {reps} x "
+          f"trace({ORACLE_SPP}): median {out['spp_s']!r}, all {rates!r}; kernel ms per pass "
+          f"median {statistics.median(ms)!r}, all {ms!r}; bound {bound_ms!r} ms by {bound_by} "
+          f"({n_ops!r} f32 operations, from the plain version's counts on 1 in "
+          f"{ORACLE_STRIDE * ORACLE_STRIDE} pixels {stats}); loop calls capped at "
+          f"{cfg.max_steps}: {out['capped']}; framebuffer mean {out['mean']!r}; engine "
+          f"{r.last_engine} [{card}]", flush=True)
+    return out
 
 
 def temperature_grid(w: int, h: int, d: int, seed: int) -> DenseGrid:
@@ -201,6 +297,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7, help="seed of the sky and the renders")
     ap.add_argument("--reps", type=int, default=5, help="trace(256) calls for the median")
+    ap.add_argument("--oracle-only", action="store_true", help="run section 7 alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("measure: no CUDA device", file=sys.stderr)
@@ -217,6 +314,10 @@ def main(argv=None) -> int:
 
     def renderer(res, bounces=BOUNCES, path="plain"):
         return path_renderer(Volume(CLOUD), sky, res, args.seed, path, bounces)
+
+    if args.oracle_only:
+        oracle_section(renderer, card)
+        return 0
 
     # ---- 1-2. the end-to-end metric of each path, and a trace taken apart
     r = renderer(RES)
@@ -286,7 +387,18 @@ def main(argv=None) -> int:
                       ("plain", 512), ("plain", 256)):
         schedule_stats(renderer(res, path=path), f"{path} {res}x{res}", args.seed, card)
         torch.cuda.empty_cache()
+
+    # ---- 7. the oracle engine
+    oracle_section(renderer, card)
     return 0
+
+
+def oracle_section(renderer, card: str):
+    print(f"ptxas oracle <USE_DDA,USE_TF,HAS_EMI>: {oracle.resource_usage(oracle.build())}",
+          flush=True)
+    for path in ("plain", "tf", "emission"):
+        oracle_metric(renderer(RES, path=path), f"cloud512 {path}", card)
+        torch.cuda.empty_cache()
 
 
 def schedule_stats(r: Renderer, label: str, seed: int, card: str) -> dict:

@@ -24,20 +24,31 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false"]
 
 
+def headers(source: str) -> list[str]:
+    """The device headers (``*.cuh``) that ``source`` may include: those
+    beside it, and the shared ones of ``csrc``, which nvcc finds through
+    ``-I csrc`` wherever the source lies."""
+    dirs = sorted({os.path.dirname(os.path.abspath(source)), CSRC})
+    return [os.path.join(d, f) for d in dirs for f in sorted(os.listdir(d)) if f.endswith(".cuh")]
+
+
 def build(source: str, name: str, flags: list[str] = NVCC_FLAGS) -> str:
     """Compile ``source`` with nvcc into ``build/lib<name>_<hash>.so`` and
-    return its path. The hash covers the source and the flags, so an edit
-    always rebuilds. nvcc's output (with ptxas's resource usage) is kept
-    beside the library as ``.log``."""
-    with open(source, "rb") as f:
-        key = hashlib.sha1(f.read() + " ".join(flags).encode()).hexdigest()[:12]
+    return its path. The hash covers the source, the shared headers and the
+    flags, so an edit always rebuilds. nvcc's output (with ptxas's resource
+    usage) is kept beside the library as ``.log``."""
+    key = hashlib.sha1(" ".join(flags).encode())
+    for path in (source, *headers(source)):
+        with open(path, "rb") as f:
+            key.update(f.read())
+    key = key.hexdigest()[:12]
     out = os.path.join(BUILD_DIR, f"lib{name}_{key}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *flags, "-Xptxas", "-v", "-o", tmp, source],
+    proc = subprocess.run([nvcc, *flags, "-I", CSRC, "-Xptxas", "-v", "-o", tmp, source],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")

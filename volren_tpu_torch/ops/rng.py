@@ -46,3 +46,24 @@ def rng_masked(state: torch.Tensor, active: torch.Tensor):
     as the kernel's ``_rng`` does."""
     new_state, u = rng(state)
     return torch.where(active, new_state, state), u
+
+
+def rng2_masked(state: torch.Tensor, active: torch.Tensor):
+    """Two masked draws; returns (state, (N, 2) uniforms)."""
+    state, a = rng_masked(state, active)
+    state, b = rng_masked(state, active)
+    return state, torch.stack([a, b], dim=-1)
+
+
+def rng2(state: torch.Tensor):
+    state, a = rng(state)
+    state, b = rng(state)
+    return state, torch.stack([a, b], dim=-1)
+
+
+def rng3_masked(state: torch.Tensor, active: torch.Tensor):
+    """Three masked draws; returns (state, (N, 3) uniforms)."""
+    state, a = rng_masked(state, active)
+    state, b = rng_masked(state, active)
+    state, c = rng_masked(state, active)
+    return state, torch.stack([a, b, c], dim=-1)

@@ -4,7 +4,9 @@ The counterpart of volren_tpu.ops.scene. A brick grid becomes flat
 per-brick tables (atlas slot, range min, range max) beside the u8 atlas and
 the flat majorant pyramid; an environment becomes its RGB texture and the
 alias table that samples its importance map; a transfer function becomes
-its (S, 4) LUT and density window. The TPU-only tables of the JAX package
+its (S, 4) LUT and density window. ``SceneTables`` and ``TraceConfig``
+are the oracle engine's scene and switches (volren_tpu.ops.scene's
+``SceneDevice`` and ``TraceConfig``). The TPU-only tables of the JAX package
 (one-hot majorants and the bf16 alpha pair table, pre-decoded dense grids,
 quad rows) have no counterpart here.
 """
@@ -41,6 +43,11 @@ class EnvTables(NamedTuple):
     transform: np.ndarray        # (3, 3) float32
     inv_transform: np.ndarray    # (3, 3) float32
     strength: float
+    # the luminance importance pyramid that the oracle engine's
+    # hierarchical warp walks: GL mip m is imp_mips[m], (512 >> m)^2
+    # float32 rows in v-order, 512^2 down to 1^2; views into one flat
+    # tensor, level after level (``imp_pyramid``)
+    imp_mips: tuple = ()
 
 
 class TFTables(NamedTuple):
@@ -49,6 +56,28 @@ class TFTables(NamedTuple):
     lut: torch.Tensor            # (S, 4) float32 RGBA, alpha CDF-rewritten if needed
     window_left: float           # float32 values
     window_width: float
+
+
+class SceneTables(NamedTuple):
+    """The oracle engine's scene (volren_tpu.ops.scene.SceneDevice)."""
+
+    density: GridTables
+    emission: GridTables | None
+    env: EnvTables
+    tf: TFTables | None
+
+
+class TraceConfig(NamedTuple):
+    """The oracle engine's compile-time switches (volren_tpu.ops.scene.
+    TraceConfig without its TPU-only ``use_onehot`` and
+    ``env_nearest_nee``, both off where the JAX oracle runs on the CPU):
+    DDA or global-majorant tracking, the TF, the emission grid, and the
+    per-call iteration cap of every tracking loop."""
+
+    use_dda: bool = True
+    use_tf: bool = False
+    has_emission: bool = False
+    max_steps: int = 8192
 
 
 class TraceParams(NamedTuple):
@@ -115,6 +144,18 @@ def upload_grid(brick_grid, volume_transform: np.ndarray, device) -> GridTables:
     )
 
 
+def imp_pyramid(levels, device) -> tuple:
+    """The importance pyramid as views into one flat float32 tensor,
+    level after level (the layout csrc/oracle.cu reads)."""
+    levels = [np.asarray(m, np.float32) for m in levels]
+    flat = torch.as_tensor(np.concatenate([m.reshape(-1) for m in levels]), device=device)
+    out, off = [], 0
+    for m in levels:
+        out.append(flat[off:off + m.size].view(*m.shape))
+        off += m.size
+    return tuple(out)
+
+
 def build_alias_table(weights: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Vose's alias method over flat nonnegative weights."""
     w = np.asarray(weights, np.float64).reshape(-1)
@@ -166,6 +207,7 @@ def upload_environment(env, device) -> EnvTables:
         transform=transform,
         inv_transform=np.linalg.inv(transform.astype(np.float64)).astype(np.float32),
         strength=float(np.float32(env.strength)),
+        imp_mips=imp_pyramid(env.impmap_mips, device),
     )
 
 
@@ -214,7 +256,7 @@ def from_reference(*, atlas, brick_meta, mip_maj, transform, inv_transform,
                    envmap, alias_packed, imp_avg, env_transform,
                    env_inv_transform, env_strength, pool=None, params=None,
                    tf_lut=None, tf_window=(0.0, 1.0), emission=None,
-                   mip_tf=None, device="cpu") -> Reference:
+                   mip_tf=None, imp_mips=(), device="cpu") -> Reference:
     """The JAX package's scene, NEE pool and trace parameters, as numpy
     arrays, -> the port's ``Reference`` tables.
 
@@ -229,8 +271,9 @@ def from_reference(*, atlas, brick_meta, mip_maj, transform, inv_transform,
     emission ``GridDevice``'s ``atlas``, ``brick_meta``, ``mip_maj``,
     ``transform`` and ``inv_transform``; ``mip_tf`` is a pre-baked TF
     majorant table (``renderer._render_pallas``'s ``mip_override``),
-    flat, cut to the pyramid's length. Tests feed both packages the same
-    tables through this."""
+    flat, cut to the pyramid's length; ``imp_mips`` is the
+    ``EnvDevice``'s importance pyramid (GL mip order, 512^2 first). Tests
+    feed both packages the same tables through this."""
     grid = _grid_from_reference(atlas, brick_meta, mip_maj, transform, inv_transform, device)
     env = EnvTables(
         envmap=torch.as_tensor(np.array(np.asarray(envmap)[..., :3], np.float32), device=device),
@@ -239,6 +282,7 @@ def from_reference(*, atlas, brick_meta, mip_maj, transform, inv_transform,
         transform=np.asarray(env_transform, np.float32),
         inv_transform=np.asarray(env_inv_transform, np.float32),
         strength=float(np.asarray(env_strength, np.float32)),
+        imp_mips=imp_pyramid(imp_mips, device) if len(imp_mips) else (),
     )
     pool_t = None
     if pool is not None:

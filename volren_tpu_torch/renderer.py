@@ -10,13 +10,21 @@ applies the Hable tonemap. On a CUDA device a trace launches the CUDA
 megakernel; on the CPU it runs the kernel's plain torch version. The
 choice follows ``device`` and is recorded in ``last_engine``.
 
+``engine = "oracle"`` traces with the oracle engine instead
+(volren_tpu.ops.tracer, the GLSL-order tracer): one progressive pass per
+sample, each one launch of ``csrc/oracle.cu`` on a CUDA device
+(``ops/kernels/oracle.py``) or its plain torch version on the CPU. It is
+the only engine with the global-majorant estimators, delta and ratio
+tracking: ``_use_dda = False`` selects them, and the megakernel engine,
+DDA-only, refuses to trace with it.
+
 The rest of volren_tpu.renderer.Renderer's surface is here too:
 checkpoints (the same ``.npz`` keys, so either package loads the other's),
 ``describe()``, ``profile()`` (a torch.profiler trace), ``save_with_alpha``,
 and the ``engine`` / ``step_engine`` names. The JAX package's step
 engines are bitwise-identical schedules of the same sample streams, so
-every name renders through the one kernel; the oracle engine and
-``distribute()`` are not ported yet and raise.
+every name renders through the megakernel; ``distribute()`` is not ported
+yet and raises.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import torch
 
 from .ops import scene as dscene
 from .ops import tonemap as _tonemap
-from .ops.kernels import megakernel
+from .ops.kernels import megakernel, oracle
 from .ops.kernels.pack import bake_tf_majorant, build_env_pool, build_params, pack_scene
 from .scene.camera import Camera
 from .scene.environment import Environment
@@ -44,12 +52,11 @@ EMISSION_GRID_NAMES = ("flame", "flames", "temperature")  # renderer.cpp:65
 # samples per kernel dispatch (volren_tpu.renderer.Renderer.trace's fence)
 DISPATCH_SPP = 64
 
-# the port's one engine, and the names it answers to: volren_tpu's
-# "wavefront" engine and its step engines
+# the port's engines: the megakernel (which volren_tpu's "wavefront"
+# engine and its step engines name) and the oracle
 ENGINE = "megakernel"
+ORACLE = "oracle"
 STEP_ENGINES = ("auto", "pallas", "device_queue", "queue", "chunked", "device", "host")
-_ORACLE = ("the oracle engine (global-majorant estimators, --no-dda) is not ported yet: "
-           "ROADMAP Queue 1 item 11")
 
 
 class Renderer:
@@ -94,7 +101,11 @@ class Renderer:
         self._tf_device = None
         self._engine = ENGINE
         self._step_engine = "auto"
-        # "cuda_kernel" or "torch_plain": what the most recent trace() ran
+        # DDA tracking (True) or the global-majorant estimators, delta and
+        # ratio tracking (the oracle engine only; the CLI's --no-dda)
+        self._use_dda = True
+        # "cuda_kernel" / "torch_plain" (the megakernel) or "cuda_oracle" /
+        # "torch_oracle": what the most recent trace() ran
         self.last_engine = None
 
     # ---- engine selection (volren_tpu.renderer's names) ----
@@ -105,11 +116,9 @@ class Renderer:
 
     @engine.setter
     def engine(self, name: str):
-        if name == "oracle":
-            raise NotImplementedError(_ORACLE)
-        if name not in (ENGINE, "wavefront"):
+        if name not in (ENGINE, "wavefront", ORACLE):
             raise ValueError(f"unknown engine {name!r}")
-        self._engine = ENGINE
+        self._engine = ORACLE if name == ORACLE else ENGINE
 
     @property
     def step_engine(self) -> str:
@@ -122,15 +131,6 @@ class Renderer:
         if name not in STEP_ENGINES:
             raise ValueError(f"unknown step engine {name!r} (one of {STEP_ENGINES})")
         self._step_engine = name
-
-    @property
-    def _use_dda(self) -> bool:
-        return True
-
-    @_use_dda.setter
-    def _use_dda(self, value: bool):
-        if not value:
-            raise NotImplementedError(_ORACLE)
 
     # ---- lifecycle (RendererOpenGL::init/resize/commit/trace/draw/reset) ----
 
@@ -212,6 +212,24 @@ class Renderer:
                                     if self._majorant_emission > 0.0 else 1.0)),
         )
 
+    def _frame_emission(self):
+        """The current frame's own emission grid, or None."""
+        frame = self.volume.grid_frame_counter
+        return self._emission_grids[frame] if frame < len(self._emission_grids) else None
+
+    def _config(self) -> dscene.TraceConfig:
+        """The oracle's switches for the current frame (volren_tpu.renderer.
+        Renderer._config without its TPU-only fields)."""
+        return dscene.TraceConfig(use_dda=bool(self._use_dda),
+                                  use_tf=self._tf_device is not None,
+                                  has_emission=self._frame_emission() is not None)
+
+    def _scene_tables(self) -> dscene.SceneTables:
+        """The oracle's scene for the current frame."""
+        return dscene.SceneTables(density=self._density_grids[self.volume.grid_frame_counter],
+                                  emission=self._frame_emission(), env=self._env_device,
+                                  tf=self._tf_device)
+
     def _kernel_scene(self):
         """The kernel's tables for the current frame (packed once per
         frame), with the TF majorant table baked for the current trace
@@ -228,11 +246,23 @@ class Renderer:
 
     def trace(self, spp: int = 1):
         """Advance the progressive accumulation by ``spp`` samples
-        (renderer.cpp:78-145), in dispatches of at most DISPATCH_SPP. The
-        tables (and a TF majorant table) are set up once per trace."""
+        (renderer.cpp:78-145): with the megakernel, in dispatches of at
+        most DISPATCH_SPP, the tables (and a TF majorant table) set up once
+        per trace; with the oracle, one pass per sample
+        (volren_tpu/renderer.py:700-711)."""
         if not self._density_grids:
             self.commit()
         spp = int(spp)
+        if self._engine == ORACLE:
+            with torch.profiler.record_function("volren_tpu_torch.oracle"):
+                self._fb = oracle.trace_passes(self._scene_tables(), self._trace_params(),
+                                               self._config(), self._fb, self.sample + 1, spp)
+            self.last_engine = "cuda_oracle" if self.device.type == "cuda" else "torch_oracle"
+            self.sample += spp
+            return
+        if not self._use_dda:
+            raise NotImplementedError("the megakernel engine is DDA-only; use engine='oracle' "
+                                      "for the global-majorant estimators")
         ks, params = self._kernel_scene(), self._trace_params()
         while spp > 0:
             n = min(DISPATCH_SPP, spp)
@@ -300,11 +330,12 @@ class Renderer:
 
     def distribute(self, mesh=None):
         raise NotImplementedError("rendering across several devices is not ported yet: "
-                                  "ROADMAP Queue 1 item 13")
+                                  "ROADMAP Queue 1 item 1")
 
     def describe(self) -> dict:
         """All live parameters, under volren_tpu.renderer.Renderer.describe's
-        keys (``engine`` names the port's engine)."""
+        keys (``engine`` names the port's engine: "megakernel" or
+        "oracle")."""
         return {
             "sample": self.sample,
             "sppx": self.sppx,

@@ -5,9 +5,10 @@ The reference polls shader mtimes every second and recompiles + resets the
 progressive accumulation on change (reference src/main.cpp:490-496). Here
 the "shaders" are the CUDA sources in ``volren_tpu_torch/csrc``: on a
 change, a source whose library is loaded is rebuilt through
-``ops/kernels/build.py`` (whose hash covers the source) and the new library
-replaces the old one under its module's lock; the caller resets its
-accumulation. A failed build prints nvcc's error and keeps the loaded
+``ops/kernels/build.py`` (whose hash covers the source and the shared
+``.cuh`` headers; a changed header rebuilds every loaded source) and the
+new library replaces the old one under its module's lock; the caller
+resets its accumulation. A failed build prints nvcc's error and keeps the loaded
 library, as the reference keeps its old shader.
 """
 
@@ -16,11 +17,11 @@ from __future__ import annotations
 import os
 
 from ..ops.kernels import build as _build
-from ..ops.kernels import megakernel
+from ..ops.kernels import megakernel, oracle
 
 # a source's file name -> the module that builds, loads and holds its
 # library (the probes' kernels run on no render path)
-KERNELS = {"megakernel.cu": megakernel}
+KERNELS = {"megakernel.cu": megakernel, "oracle.cu": oracle}
 
 
 class KernelWatcher:
@@ -32,7 +33,7 @@ class KernelWatcher:
 
     def _files(self):
         return sorted(os.path.join(self.csrc, f) for f in os.listdir(self.csrc)
-                      if f.endswith(".cu"))
+                      if f.endswith((".cu", ".cuh")))
 
     def _scan(self) -> list[str]:
         changed = []
@@ -52,7 +53,10 @@ class KernelWatcher:
         reference). A library not loaded yet is left alone: its first
         launch builds the source as it then is."""
         swapped = False
-        for path in self._scan():
+        changed = self._scan()
+        if any(p.endswith(".cuh") for p in changed):
+            changed = [os.path.join(self.csrc, name) for name in self.kernels]
+        for path in changed:
             module = self.kernels.get(os.path.basename(path))
             if module is None or module._LIB is None:
                 continue
