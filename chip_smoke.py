@@ -92,7 +92,30 @@ of which raises on failure (exit code non-zero, no result line):
    bounds of the oracle come from (2) and (3): the kernel's pass in CUDA
    events, the plain version's on the host clock, the bound from the
    plain version's loop counts (scaled to the frame where subsampled).
-In phases 5-10 the launch count of the path's kernel, set to 0 just before
+11. rendering across devices (volren_tpu_torch.parallel): (1) 4-spp
+   1024x1024 cloud512 dispatches of all four variants over 2, 3 (ragged:
+   342, 342, 340 rows) and 4 row bands, concatenated, bitwise the whole
+   dispatch, and so are the STATS twins' bands, with 0 capped; the band
+   overhead (4 bands launched in turn against one dispatch, plain, 4 and 64
+   spp); (2) distribute() in a world of one over NCCL: two trace(64)s,
+   each bitwise the undistributed render (a world of one makes no
+   collective), then NCCL's all_reduce and all_gather of the whole frame
+   over the one rank, which must return it; (3) two spawned processes on the one card over gloo
+   (parallel.dryrun), meshes (2, 1) and (1, 2) at 256x256, 64 spp, 100
+   bounces: bands bitwise one process, the sample split within 1e-5, the
+   CUDA kernel launched on every rank; (4) the CLI with --distribute under
+   python -m torch.distributed.run --standalone --nproc_per_node 1. Its
+   spp/s are printed with the remark that they are no scaling numbers: the
+   smoke runs on one card.
+12. the denoiser and the scripts: denoise_image on phase 5's 1024x1024
+   framebuffer, 20 bf16 train_steps at batch 8, patch 64 on patches of
+   that framebuffer and a 4-spp one of the same renderer (the loss must
+   fall), then every script as python -m volren_tpu_torch.scripts.<name>
+   on the card (make_cloud, styletransfer, datagen_colmap and compare_rmse
+   at once; datagen_denoise, then train_denoiser on its output), and a
+   256x256 --render denoised with the trained parameters, all under
+   build/chip_smoke/scripts.
+In phases 5-11 the launch count of the path's kernel, set to 0 just before
 the run, must have risen during it; in phases 5-7, 9 and 10 the
 framebuffer must be finite with a positive mean and the run must have used
 the CUDA kernel.
@@ -111,6 +134,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -654,6 +678,283 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
     return {f"oracle{label(v)}": rec for v, rec in record.items()}
 
 
+BAND_SPLITS = (2, 3, 4)                    # phase 11: row bands of a dispatch
+DIST_RES, DIST_SPP = 256, 64               # 11.3: two processes over gloo
+DIST_CASES = ((2, 1, DIST_RES, DIST_RES, DIST_SPP), (1, 2, DIST_RES, DIST_RES, DIST_SPP))
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_PATCH = 20, 8, 64   # phase 12
+# ptxas registers of <USE_TF,HAS_EMI> before the kernel took a row band
+PREV_REGISTERS = {"<0,0>": 62, "<1,0>": 64, "<0,1>": 70, "<1,1>": 80}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def sharding_phase(seed, sky_path, sky, gpu_line, cuda_ms) -> dict:
+    """Phase 11 (see the module's docstring). Returns the numbers PERF.md
+    cites: the band overhead, the world-of-one spp/s, the NCCL merge's ms
+    and the two-process runs' records."""
+    import torch
+    import torch.distributed as dist
+
+    from volren_tpu_torch.measure import PEAK_BYTES_S, path_renderer
+    from volren_tpu_torch.ops.kernels import megakernel
+    from volren_tpu_torch.ops.kernels.pack import DISPATCH_SPP, build_env_pool, build_params
+    from volren_tpu_torch.parallel import dryrun, sharding
+    from volren_tpu_torch.voldata import Volume
+
+    t_phase = time.time()
+    out = {}
+
+    def merge_bound_ms(width, height, n_tiles):
+        # a rank's band read once and the whole (H, W, 4) f32 sum written once
+        rows = sharding.band_rows(height, n_tiles, 0)[1]
+        return (rows + height) * width * 16 / PEAK_BYTES_S * 1e3
+
+    # 11.1 row bands of 4-spp 1024^2 dispatches, every variant, and its twin
+    for path in VARIANT:
+        r = path_renderer(Volume(CLOUD), sky, RES, seed, path, device="cuda")
+        ks, tp = r._kernel_scene(), r._trace_params()
+        pool = build_env_pool(r._env_device, seed, 0)
+        pf, pi = build_params(ks, tp, RES, RES, 0, MAIN_CMP_SPP)
+        whole = megakernel.render(ks, pool, pf, pi)
+        for n in BAND_SPLITS:
+            parts, twins = [], []
+            for t in range(n):
+                row0, rows = sharding.band_rows(RES, n, t)
+                _pf, bpi = build_params(ks, tp, RES, RES, 0, MAIN_CMP_SPP, row0, rows)
+                parts.append(megakernel.render(ks, pool, pf, bpi))
+                img, st = megakernel.render_stats(ks, pool, pf, bpi)
+                if st["capped"] != 0:
+                    raise AssertionError(f"{path} band {t}/{n}: {st['capped']} capped samples")
+                twins.append(img)
+            if not torch.equal(torch.cat(parts), whole):
+                raise AssertionError(f"{path}: {n} row bands are not bitwise the whole dispatch")
+            if not torch.equal(torch.cat(twins), whole):
+                raise AssertionError(f"{path}: the STATS twin's {n} bands are not the whole")
+        print(f"bands [{path}]: cloud512 {RES}x{RES}, {MAIN_CMP_SPP} spp over {BAND_SPLITS} row "
+              f"bands (ragged: {[sharding.band_rows(RES, 3, t)[1] for t in range(3)]} rows), "
+              f"kernel and STATS twin bitwise the whole dispatch, 0 capped", flush=True)
+        if path == "plain":
+            for spp in (MAIN_CMP_SPP, DISPATCH_SPP):
+                _pf, spi = build_params(ks, tp, RES, RES, 0, spp)
+                bands = [build_params(ks, tp, RES, RES, 0, spp, *sharding.band_rows(RES, 4, t))[1]
+                         for t in range(4)]
+                one = cuda_ms(lambda: megakernel.render(ks, pool, pf, spi), 3)
+                four = cuda_ms(lambda: [megakernel.render(ks, pool, pf, b) for b in bands], 3)
+                out[f"band_ms_{spp}"] = (one, four)
+                print(f"    band overhead, plain {spp} spp: one dispatch {one!r} ms, 4 bands in "
+                      f"turn {four!r} ms ({four / one!r}x) on {gpu_line}", flush=True)
+        del r, ks, pool, whole, parts, twins
+        torch.cuda.empty_cache()
+
+    # 11.2 distribute() in a world of one over NCCL
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        one = path_renderer(Volume(CLOUD), sky, RES, seed, "plain", device="cuda")
+        one.render(DISPATCH_SPP)
+        r = path_renderer(Volume(CLOUD), sky, RES, seed, "plain", device="cuda")
+        r.distribute()
+        if r.mesh.group is None or dist.get_backend(r.mesh.gather_group) != "nccl":
+            raise AssertionError("distribute() did not take the NCCL group")
+        for run in ("first", "second"):
+            megakernel.render.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render(DISPATCH_SPP)
+            seconds = time.perf_counter() - t0
+            launches = megakernel.render.launches
+            if launches <= 0 or r.last_engine != "cuda_kernel":
+                raise AssertionError(f"the distributed path launched {launches} "
+                                     f"({r.last_engine})")
+            if not torch.equal(r.framebuffer(), one.framebuffer()):
+                raise AssertionError("distribute() in a world of one is not bitwise trace(64)")
+            out[f"world_of_one_{run}"] = {"spp_s": DISPATCH_SPP / seconds, "launches": launches}
+            print(f"distribute(), {run} render: a world of one over NCCL, cloud512 {RES}x{RES}, "
+                  f"trace({DISPATCH_SPP}) bitwise the undistributed one, {launches} launch(es), "
+                  f"no collective, {DISPATCH_SPP / seconds!r} spp/s (one process: not a "
+                  f"scaling number) on {gpu_line}", flush=True)
+        # a world of one makes no collective, so NCCL itself is held on the
+        # whole frame: an all_reduce and an all_gather over one rank return it
+        g = r.mesh.group
+        frame = one.framebuffer().reshape(-1, 4)
+        summed, parts = frame.clone(), [torch.empty_like(frame)]
+
+        def nccl_merge():
+            dist.all_reduce(summed, group=g)
+            dist.all_gather(parts, frame, group=g)
+
+        nccl_merge()   # makes the communicator
+        if not (torch.equal(summed, frame) and torch.equal(parts[0], frame)):
+            raise AssertionError("NCCL's all_reduce / all_gather over one rank changed the frame")
+        out["nccl_ms"] = cuda_ms(nccl_merge, 5)
+        print(f"NCCL in a world of one: all_reduce + all_gather of the {RES}x{RES}x4 f32 frame "
+              f"{out['nccl_ms']!r} ms (CUDA events; bound {2 * merge_bound_ms(RES, RES, 1)!r} ms "
+              f"by bytes) on {gpu_line}", flush=True)
+        del one, r, frame, summed, parts
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # 11.3 two spawned processes on the one card over gloo
+    records = dryrun.dryrun(2, DIST_CASES, device="cuda", volume=CLOUD, sky=sky_path,
+                            bounces=BOUNCES, seed=seed, timeout=300)
+    for rec in records:
+        print(f"gloo, 2 processes on one card, mesh {rec['mesh']}: {DIST_RES}x{DIST_RES}, "
+              f"{DIST_SPP} spp: ok {rec['ok']}, bitwise {rec['bitwise']}, max abs "
+              f"{rec['max_abs']!r}, {rec['launches']} launch(es) per rank, {rec['engines']}, "
+              f"{DIST_SPP / rec['seconds']!r} spp/s of the slowest rank, a merge alone "
+              f"{rec['merge_ms']!r} ms (bound {merge_bound_ms(DIST_RES, DIST_RES, rec['mesh'][0])!r}"
+              f" ms by bytes; two processes share one card: not a scaling number) on "
+              f"{gpu_line}", flush=True)
+        if not rec["ok"] or rec["launches"] <= 0 or rec["engines"] != ["cuda_kernel"]:
+            raise AssertionError(f"the two-process render disagrees with one process: {rec}")
+    out["gloo"] = records
+
+    # 11.4 the CLI under torch.distributed.run
+    png = os.path.join(OUT_DIR, "distributed.png")
+    for old in (png, png.replace(".png", "_000000.png")):
+        if os.path.exists(old):
+            os.remove(old)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", "1", "-m", "volren_tpu_torch.cli", CLOUD,
+                           sky_path, "--render", "-w", str(DIST_RES), "-h", str(DIST_RES),
+                           "--spp", str(DIST_SPP), "--bounces", str(BOUNCES), "--distribute",
+                           "--output", png], capture_output=True, text=True, cwd=REPO,
+                          timeout=300)
+    written = png.replace(".png", "_000000.png")
+    if proc.returncode != 0 or "cuda_kernel" not in proc.stdout or not os.path.getsize(written):
+        raise AssertionError(f"the CLI under torch.distributed.run failed ({proc.returncode}): "
+                             f"{proc.stdout[-800:]}{proc.stderr[-1500:]}")
+    print(f"CLI --distribute under torch.distributed.run --nproc_per_node 1: {written} in "
+          f"{time.perf_counter() - t0!r} s of wall, "
+          f"{[ln for ln in proc.stdout.splitlines() if 'spp/s' in ln][-1].strip()}", flush=True)
+    print(f"phase 11 (rendering across devices) took {time.time() - t_phase!r} s", flush=True)
+    return out
+
+
+def denoiser_phase(seed, sky_path, gpu_line, clean_fb, noisy_fb) -> dict:
+    """Phase 12 (see the module's docstring). ``clean_fb`` / ``noisy_fb``:
+    phase 5's 256-spp framebuffer and a 4-spp one of the same renderer."""
+    import numpy as np
+    import torch
+
+    from volren_tpu_torch import cli
+    from volren_tpu_torch.measure import denoiser_bound
+    from volren_tpu_torch.models import denoiser
+    from volren_tpu_torch.utils.image import read_png, save_ldr
+
+    t_phase = time.time()
+    out = {}
+    model, opt, sched = denoiser.create_train_state(seed, device="cuda")
+    denoiser.denoise_image(model, clean_fb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    den = denoiser.denoise_image(model, clean_fb)
+    torch.cuda.synchronize()
+    out["denoise_ms"] = (time.perf_counter() - t0) * 1e3
+    if den.shape != clean_fb.shape or not bool(torch.isfinite(den).all()) or \
+            not bool((den >= 0).all()):
+        raise AssertionError("denoise_image gave no finite, non-negative image")
+    bound_ms, bound_by = denoiser_bound(model.features, 1, RES, RES)
+    print(f"denoise_image: {RES}x{RES} framebuffer, bf16, {out['denoise_ms']!r} ms (host clock, "
+          f"synced); bound {bound_ms!r} ms by {bound_by} on {gpu_line}", flush=True)
+    # 20 steps on one batch of patches of the 4-spp / 256-spp pair
+    rng = np.random.default_rng(seed)
+    ys = rng.integers(0, RES - TRAIN_PATCH + 1, TRAIN_BATCH)
+    xs = rng.integers(0, RES - TRAIN_PATCH + 1, TRAIN_BATCH)
+
+    def patches(fb):
+        chw = fb.permute(2, 0, 1)
+        return torch.stack([chw[:, y:y + TRAIN_PATCH, x:x + TRAIN_PATCH] for y, x in zip(ys, xs)])
+
+    noisy, clean = patches(noisy_fb), patches(clean_fb)
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(denoiser.train_step(model, opt, sched, noisy, clean)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"training did not lower the loss: {losses}")
+    out["train_step_ms"] = float(np.median(times[1:]))
+    bound_ms, bound_by = denoiser_bound(model.features, TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH,
+                                        train=True)
+    print(f"train_step: {TRAIN_STEPS} steps at batch {TRAIN_BATCH}, patch {TRAIN_PATCH}, bf16: "
+          f"loss {losses[0]!r} -> {losses[-1]!r}, median {out['train_step_ms']!r} ms a step "
+          f"(first {times[0]!r} ms; host clock, synced); bound {bound_ms!r} ms by {bound_by} "
+          f"on {gpu_line}", flush=True)
+
+    # every script as python -m volren_tpu_torch.scripts.<name> on the card
+    sdir = os.path.join(OUT_DIR, "scripts")
+    shutil.rmtree(sdir, ignore_errors=True)
+    os.makedirs(sdir)
+
+    def script(name, *args):
+        return [sys.executable, "-m", f"volren_tpu_torch.scripts.{name}", *args]
+
+    content, style = os.path.join(sdir, "content.png"), os.path.join(sdir, "style.png")
+    save_ldr(content, clean_fb.cpu().numpy()[::4, ::4] * 0.5, flip=True)
+    save_ldr(style, noisy_fb.cpu().numpy()[::4, ::4] * 0.5, flip=True)
+    t0 = time.perf_counter()
+    side = {  # independent scripts, all at once
+        "make_cloud": script("make_cloud", "--res", "64", "--output",
+                             os.path.join(sdir, "cloud64.brick")),
+        "styletransfer": script("styletransfer", content, style, "--epochs", "20",
+                                "--save_epochs", "20", "--image_size", "256", "--output",
+                                os.path.join(sdir, "styled.png")),
+        "datagen_colmap": script("datagen_colmap", "--views", "2", "--spp", "64", "--res", "128",
+                                 "--out", os.path.join(sdir, "colmap")),
+        "compare_rmse": script("compare_rmse", content, content),
+    }
+    procs = {k: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 cwd=REPO) for k, cmd in side.items()}
+    stem = os.path.join(sdir, "ds")
+    chain = [script("datagen_denoise", "--count", "2", "--spp", "256", "--res", "128",
+                    "--output", stem),
+             script("train_denoiser", stem + "_input.npz", stem + "_target.npz", "--steps",
+                    "40", "--batch", "4", "--patch", "64", "--output",
+                    os.path.join(sdir, "params.pkl"))]
+    for cmd in chain:
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO, timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"{cmd[2]} failed ({proc.returncode}): {proc.stderr[-1500:]}")
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} failed ({proc.returncode}): {stderr[-1500:]}")
+    with np.load(stem + "_input.npz") as f:
+        if f["color"].shape != (2, 3, 128, 128) or not np.isfinite(f["color"]).all():
+            raise AssertionError("datagen_denoise wrote no finite (2, 3, 128, 128) dataset")
+    views = sorted(f for f in os.listdir(os.path.join(sdir, "colmap")) if f.endswith(".png"))
+    if len(views) != 2 or read_png(os.path.join(sdir, "colmap", views[0])).shape != (128, 128, 4):
+        raise AssertionError(f"datagen_colmap wrote {views}")
+    out["scripts_s"] = time.perf_counter() - t0
+    # a render denoised with the trained parameters
+    r, _stats = cli.run([CLOUD, sky_path, "--render", "-w", "256", "-h", "256", "--spp", "16",
+                         "--bounces", str(BOUNCES), "--output",
+                         os.path.join(sdir, "render.png"), "--device", "cuda"])
+    model = denoiser.Denoiser().to("cuda")
+    model.load_state_dict(denoiser.from_flax_params(
+        denoiser.load_params(os.path.join(sdir, "params.pkl")), model))
+    den = denoiser.denoise_image(model, r.fbo_data())
+    if not bool(torch.isfinite(den).all()):
+        raise AssertionError("the trained denoiser's image is not finite")
+    save_ldr(os.path.join(sdir, "render_denoised.png"), den.cpu().numpy(), flip=True)
+    print(f"scripts: make_cloud, styletransfer, datagen_colmap, compare_rmse, datagen_denoise "
+          f"-> train_denoiser as python -m volren_tpu_torch.scripts.<name>, "
+          f"{out['scripts_s']!r} s; a 256x256 --render denoised with the trained parameters, "
+          f"under {sdir}", flush=True)
+    print(f"phase 12 (the denoiser and the scripts) took {time.time() - t_phase!r} s", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7, help="seed of the sky, grids and renders")
@@ -701,6 +1002,12 @@ def main(argv=None) -> int:
     print(f"build: {os.path.relpath(lib, REPO)}, {os.path.relpath(probe_lib, REPO)} and "
           f"{os.path.relpath(oracle_lib, REPO)} in {time.time() - t0:.2f} s; ptxas "
           f"<USE_TF,HAS_EMI>: {megakernel.resource_usage(lib)}", flush=True)
+    usage = megakernel.resource_usage(lib)
+    regs = dict(re.findall(r"(<[01],[01]>) Used (\d+) registers", usage))
+    spills = re.findall(r"(<[01],[01]>(?: stats)?) \d+ bytes stack frame, (\d+) bytes spill stores",
+                        usage)
+    print(f"    megakernel registers with the row band {regs}, before it {PREV_REGISTERS}; "
+          f"spill stores (bytes) {spills}", flush=True)
     print(f"    ptxas oracle.cu <USE_DDA,USE_TF,HAS_EMI>: {oracle.resource_usage(oracle_lib)}",
           flush=True)
     for line in probe_kernels.resource_usage(probe_lib):
@@ -841,7 +1148,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
 
     # ---- 5-7. the three paths through the entry points a user calls
-    path_means = {}
+    path_means, path_renderers = {}, {}
 
     def check_path(kname, path, run):
         variant = VARIANT[path]
@@ -870,6 +1177,7 @@ def main(argv=None) -> int:
               f"framebuffer mean {[round(m, 4) for m in mean]}) on {gpu_line}", flush=True)
         record[kname]["launches"] = launches
         path_means[path] = float(fb[..., :3].mean())
+        path_renderers[path] = r
 
     def run_cli(*extra):
         def run():
@@ -897,6 +1205,12 @@ def main(argv=None) -> int:
     check_path("megakernel", "plain", run_cli())
     check_path("megakernel_tf", "tf", run_cli("--fau"))
     check_path("megakernel_emission", "emission", run_emission)
+    main_r = path_renderers.pop("plain")
+    clean_fb = main_r.framebuffer()[..., :3].clone()
+    main_r.render(MAIN_CMP_SPP)
+    noisy_fb = main_r.framebuffer()[..., :3].clone()
+    path_renderers.clear()
+    del main_r
 
     # ---- 8. the probe kernels: kernel vs plain at each call site's shapes
     ctx = Context(dev)
@@ -968,6 +1282,13 @@ def main(argv=None) -> int:
     # ---- 10. the oracle engine
     oracle_record = oracle_phase(args.seed, sky_path, sky, gpu_line, cuda_ms, host_ms,
                                  (("random16", g16), ("cloud512_crop64", crop)), path_means)
+
+    # ---- 11. rendering across devices
+    sharding_phase(args.seed, sky_path, sky, gpu_line, cuda_ms)
+
+    # ---- 12. the denoiser and the scripts
+    denoiser_phase(args.seed, sky_path, gpu_line, clean_fb, noisy_fb)
+    del clean_fb, noisy_fb
 
     kernels = [dict(name=kname, route="cuda", source="volren_tpu_torch/csrc/megakernel.cu",
                     replaces=replaces, library_ms=None, **record[kname])

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from volren_tpu_torch.ops.kernels import megakernel
-from volren_tpu_torch.ops.kernels.pack import PI_MAX_ITERS, build_env_pool, build_params
+from volren_tpu_torch.ops.kernels.pack import (PI_MAX_ITERS, PI_ROW0, PI_ROWS, build_env_pool,
+                                               build_params)
 from volren_tpu_torch.renderer import Renderer
 from volren_tpu_torch.scene.environment import Environment, procedural_sky
 from volren_tpu_torch.scene.transferfunc import TransferFunction
@@ -33,13 +34,15 @@ def _grid16():
     return dense
 
 
-def _renderer(device, seed=123, tf=False, emission=False, width=RES, height=RES):
+def _renderer(device, seed=123, tf=False, emission=False, width=RES, height=RES, env=None):
     """The 16^3 test scene; ``tf`` adds a non-monotone LUT with a moved
-    window, ``emission`` a radial temperature grid at half resolution."""
+    window, ``emission`` a radial temperature grid at half resolution.
+    ``env``: the scene's sky, Environment(procedural_sky(64, 32, seed=4)),
+    if made already."""
     r = Renderer(device=device)
     r.volume = Volume(DenseGrid(16, 16, 16, _grid16()))
     r.scale_and_move_to_unit_cube()
-    r.set_environment(Environment(procedural_sky(64, 32, seed=4)))
+    r.set_environment(env or Environment(procedural_sky(64, 32, seed=4)))
     r.bounces = 16
     r.seed = seed
     if tf:
@@ -138,6 +141,34 @@ def test_kernel_matches_plain_version_at_ragged_shapes(spp, tf, emission):
     assert a.shape == (37 * 23, 4) and torch.equal(a, b)
     plain = megakernel.render_plain(*inputs)
     assert torch.equal(a, plain), float((a - plain).abs().max())
+
+
+@pytest.mark.parametrize("tf,emission", VARIANTS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("spp", [4, 64])
+def test_kernel_row_bands_are_the_whole_dispatch(spp, tf, emission):
+    """37 x 23 over 2, 3 (8, 8, 7 rows) and 4 (6, 6, 6, 5) row bands: each
+    band's tiles and output cover its rows only, its pixels keep the whole
+    frame's seeds and rays, so the bands concatenated are bitwise the whole
+    dispatch, in the kernel and in its STATS instantiation; and a band
+    equals the plain version's band bitwise."""
+    from volren_tpu_torch.parallel.sharding import band_rows
+
+    r = _renderer(_cuda(), tf=tf, emission=emission, width=37, height=23)
+    ks, pool, pf, pi = _inputs(r, spp=spp)
+    whole = megakernel.render(ks, pool, pf, pi)
+    for n in (2, 3, 4):
+        parts, stats_parts = [], []
+        for t in range(n):
+            row0, rows = band_rows(23, n, t)
+            _pf, bpi = build_params(ks, r._trace_params(), 37, 23, 0, spp, row0, rows)
+            parts.append(megakernel.render(ks, pool, pf, bpi))
+            stats_parts.append(megakernel.render_stats(ks, pool, pf, bpi)[0])
+        assert torch.equal(torch.cat(parts), whole), n
+        assert torch.equal(torch.cat(stats_parts), whole), n
+    # the last split's second band, rows 6-11
+    band = pi.copy()
+    band[PI_ROW0], band[PI_ROWS] = 6, 6
+    assert torch.equal(parts[1], megakernel.render_plain(ks, pool, pf, band))
 
 
 def test_stats_instantiation_counts_the_dispatch():

@@ -216,11 +216,20 @@ def test_cli_state_matches_reference(case, scene_files, tmp_path, monkeypatch, c
 
 
 def test_cli_unported_flags_raise(scene_files, tmp_path):
-    """--distribute is not ported yet and raises, naming its ROADMAP item;
-    --no-dda (the global-majorant estimators, as in volren_tpu.cli) and
-    --engine oracle render through the oracle engine on the CPU."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 1$"):
-        cli.run([scene_files.frame, "--render", "--cpu", "--distribute"])
+    """Every flag once left unported now runs: --distribute without a
+    launcher renders in a world of one, the same image as without it, and
+    refuses nothing; --no-dda (the global-majorant estimators, as in
+    volren_tpu.cli) and --engine oracle render through the oracle engine on
+    the CPU."""
+    images = []
+    for extra in ([], ["--distribute"]):
+        out = str(tmp_path / f"dist{len(extra)}.png")
+        r, stats = cli.run([scene_files.frame, "--render", "--cpu", "-w", "8", "-h", "8",
+                            "--spp", "2", "--bounces", "4", "--output", out, *extra])
+        assert r.mesh.shape == {"tiles": 1, "spp": 1} and r.mesh.group is None
+        assert len(stats["outputs"]) == 1
+        images.append(r.framebuffer())
+    assert torch.equal(images[0], images[1])
     for flags, use_dda in ((["--no-dda"], False), (["--engine", "oracle"], True)):
         out = str(tmp_path / f"oracle_{use_dda}.png")
         r, stats = cli.run([scene_files.frame, "--render", "--cpu", "-w", "8", "-h", "8",

@@ -37,7 +37,14 @@ the CLI never drops to the CPU by itself; ``--cpu`` is ``--device cpu``.
 engine renders through the megakernel; ``--engine oracle`` through the
 oracle engine, ``csrc/oracle.cu``); ``--no-dda`` selects the
 global-majorant estimators and with them the oracle engine, as in
-volren_tpu.cli; ``--distribute`` is not ported yet and raises. Deliberate
+volren_tpu.cli. ``--distribute`` renders across the ranks of the default
+process group as row bands (``Renderer.distribute``): under
+``python -m torch.distributed.run --nproc_per_node N -m
+volren_tpu_torch.cli ... --render --distribute`` each rank joins torch's
+rendezvous (NCCL on the card, gloo on the CPU), traces its band on
+``cuda:rank % device_count``, and rank 0 alone writes the PNGs; without a
+launcher it is a world of one. The interactive loop does not run across
+several ranks. Deliberate
 differences from volren_tpu.cli: ``--density`` multiplies the density
 scale that the unit-cube fit sets (there, loading the volume resets it);
 ``--vol_rot_*`` rotates the committed grids (there it moves only the
@@ -56,6 +63,7 @@ import time
 import numpy as np
 import torch
 
+from .parallel import init_from_launcher
 from .renderer import DISPATCH_SPP, EMISSION_GRID_NAMES, Renderer
 from .scene.environment import Environment, rotation_y
 from .scene.transferfunc import TransferFunction
@@ -266,7 +274,8 @@ def run(argv: list[str]):
         elif arg == "--fps":
             animation_fps = float(take())
         elif arg == "--distribute":
-            renderer.distribute()  # raises
+            init_from_launcher(renderer.device)
+            renderer.distribute()
         elif arg == "--serve":
             has_port = i + 1 < len(argv) and argv[i + 1].isdigit()
             serve_port = int(take()) if has_port else DEFAULT_SERVE_PORT
@@ -323,6 +332,9 @@ def run(argv: list[str]):
     renderer.reset()
 
     if interactive:
+        if renderer.mesh.size > 1:
+            raise NotImplementedError("--distribute across several ranks renders offline: "
+                                      "add --render")
         return renderer, _interactive_loop(renderer, out_filename, animate, animation_fps,
                                            serve_port)
     return renderer, _offline(renderer, out_filename)
@@ -330,7 +342,8 @@ def run(argv: list[str]):
 
 def _offline(renderer: Renderer, out_filename: str) -> dict:
     """Render every animation frame to ``<stem>_<frame:06d>.png``
-    (main.cpp:524-558)."""
+    (main.cpp:524-558); across a mesh, only its rank 0 writes them."""
+    writer = renderer.mesh.rank == 0
     print("rendering...")
     stem = os.path.splitext(out_filename)[0]
     outputs, frames = [], []
@@ -347,10 +360,11 @@ def _offline(renderer: Renderer, out_filename: str) -> dict:
         seconds += dt
         print(f"\n{renderer.sppx} samples in {dt:.1f}s ({renderer.sppx / dt:.2f} spp/s, "
               f"{renderer.last_engine})")
-        out_fn = f"{stem}_{frame:06d}.png"
-        save_ldr(out_fn, renderer.draw(), flip=True, alpha=True)
-        print(f"{out_fn} written.")
-        outputs.append(out_fn)
+        if writer:
+            out_fn = f"{stem}_{frame:06d}.png"
+            save_ldr(out_fn, renderer.draw(), flip=True, alpha=True)
+            print(f"{out_fn} written.")
+            outputs.append(out_fn)
         fb = renderer.framebuffer()
         frames.append({"seconds": dt, "finite": bool(torch.isfinite(fb).all()),
                        "mean": fb.mean(dim=(0, 1)).tolist()})
@@ -466,7 +480,11 @@ def _interactive_loop(renderer: Renderer, out_filename: str, animate: bool,
 
 
 def main(argv: list[str] | None = None) -> int:
-    run(sys.argv[1:] if argv is None else argv)
+    try:
+        run(sys.argv[1:] if argv is None else argv)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return 0
 
 

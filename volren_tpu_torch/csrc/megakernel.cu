@@ -6,7 +6,11 @@
 // the emission variant (`has_emi`, kernel.py:636), here the template
 // parameters USE_TF and HAS_EMI. For every pixel, `spp` full volumetric
 // path samples, written once as the per-pixel SUM over samples of (L.rgb,
-// alpha). The plain torch version of the same function is
+// alpha). A dispatch may trace a band of the frame's rows only (pi[PI_ROW0],
+// pi[PI_ROWS]; parallel/sharding.py renders across devices with bands):
+// its pixels keep the whole frame's seeds and camera rays, so the bands of
+// a frame, put together, are bitwise the whole frame's dispatch. The plain
+// torch version of the same function is
 // volren_tpu_torch/ops/kernels/megakernel.py::render_plain; this file
 // repeats its arithmetic operation for operation (built with -fmad=false,
 // IEEE division and square root), so the two images are bitwise equal.
@@ -64,7 +68,7 @@ constexpr int PI_WIDTH = 0, PI_HEIGHT = 1, PI_SPP_BASE = 2, PI_BOUNCES = 3,
               PI_SEED = 4, PI_SPP = 5, PI_N_BRICKS = 6, PI_N_SLOTS = 9,
               PI_ENV_H = 10, PI_ENV_W = 11, PI_MIP_DIMS = 12,
               PI_MIP_OFFSETS = 24, PI_MAX_ITERS = 28, PI_TF_SIZE = 29,
-              PI_EMI_N_BRICKS = 30, PI_EMI_N_SLOTS = 33;
+              PI_EMI_N_BRICKS = 30, PI_EMI_N_SLOTS = 33, PI_ROW0 = 34, PI_ROWS = 35;
 constexpr int POOL_N = 16384;
 
 constexpr float INV_2PI = float(1.0 / (2.0 * PI_D));
@@ -82,7 +86,8 @@ struct Params {
   uint32_t seed;
   int env_h, env_w, mip_dims[12], mip_offsets[4];
   int budget, tf_size;
-  int tile_w, tile_h, tiles_x, n_groups;   // the schedule's pixel groups
+  int row0, rows;                          // the band of rows traced
+  int tile_w, tile_h, tiles_x, n_groups;   // the schedule's pixel groups over the band
 };
 
 // one brick grid: u8 atlas (slots, 512), per-brick slot / decode range
@@ -556,8 +561,10 @@ __device__ __forceinline__ float4 capped_slot() {
   return make_float4(0.0f, 0.0f, 0.0f, __int_as_float(0x7fffffff));
 }
 
-// One warp renders one group: the pixels of a tile_w x tile_h tile (cut at
-// the image's edge) and all their samples. Its items are (pixel j, sample
+// One warp renders one group: the pixels of a tile_w x tile_h tile of the
+// band (cut at the band's edge) and all their samples. The tiles and the
+// output cover the band's rows only; a pixel's seed, camera ray and samples
+// are the whole frame's. Its items are (pixel j, sample
 // k) = j * spp + k, served in rounds of SLOTS: each lane traces one item at
 // a time and, when its sample ends, leaves the sample's (L.rgb, alpha) in
 // the item's slot and takes the round's next item (a ballot and a prefix
@@ -568,8 +575,8 @@ __device__ __forceinline__ void render_group(const Params& P, const Tables& T,
                                              float* __restrict__ out, int group,
                                              float4* slot, Counters& cnt) {
   const int lane = threadIdx.x & 31;
-  const int x0 = (group % P.tiles_x) * P.tile_w, y0 = (group / P.tiles_x) * P.tile_h;
-  const int cw = min(P.tile_w, P.width - x0), ch = min(P.tile_h, P.height - y0);
+  const int x0 = (group % P.tiles_x) * P.tile_w, y0 = P.row0 + (group / P.tiles_x) * P.tile_h;
+  const int cw = min(P.tile_w, P.width - x0), ch = min(P.tile_h, P.row0 + P.rows - y0);
   const int n_items = cw * ch * P.spp;
   float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // lane j: pixel j's sum
   Lane s;
@@ -651,7 +658,8 @@ __device__ __forceinline__ void render_group(const Params& P, const Tables& T,
     __syncwarp();
   }
   if (lane < cw * ch)
-    reinterpret_cast<float4*>(out)[size_t(y0 + lane / cw) * P.width + x0 + lane % cw] = acc;
+    reinterpret_cast<float4*>(out)[size_t(y0 - P.row0 + lane / cw) * P.width + x0 + lane % cw] =
+        acc;
 }
 
 // the groups a launch has handed out. Every warp takes groups until one
@@ -691,10 +699,10 @@ void group_tile(int spp, int& tile_w, int& tile_h) {
   tile_h = g / tile_w;
 }
 
-int n_groups(int width, int height, int spp) {
+int n_groups(int width, int rows, int spp) {
   int tw, th;
   group_tile(spp, tw, th);
-  return ((width + tw - 1) / tw) * ((height + th - 1) / th);
+  return ((width + tw - 1) / tw) * ((rows + th - 1) / th);
 }
 
 using Kernel = void (*)(const Params, const Tables, float*, unsigned long long*,
@@ -710,11 +718,11 @@ Kernel pick_kernel(bool use_tf, bool has_emi, bool stats) {
 
 }  // namespace
 
-// The launch's block count: as many blocks as fit on the card at once
-// (asked once per instantiation), and no more than the groups need. Any
-// count renders the same image. The STATS instantiation writes a (start,
-// end) pair of %globaltimer per block.
-extern "C" int volren_launch_blocks(int width, int height, int spp, int use_tf, int has_emi,
+// The launch's block count for a band of `rows` rows: as many blocks as fit
+// on the card at once (asked once per instantiation), and no more than the
+// groups need. Any count renders the same image. The STATS instantiation
+// writes a (start, end) pair of %globaltimer per block.
+extern "C" int volren_launch_blocks(int width, int rows, int spp, int use_tf, int has_emi,
                                     int stats) {
   static int resident[2][2][2] = {};
   int& fit = resident[use_tf != 0][has_emi != 0][stats != 0];
@@ -726,12 +734,14 @@ extern "C" int volren_launch_blocks(int width, int height, int spp, int use_tf, 
                                                   THREADS, 0);
     fit = sms * per_sm;
   }
-  const int need = (n_groups(width, height, spp) + WARPS - 1) / WARPS;
+  const int need = (n_groups(width, rows, spp) + WARPS - 1) / WARPS;
   return fit < need ? fit : need;
 }
 
 // Host entry, bound with ctypes. `pf` / `pi` are HOST arrays (the parameter
-// block of pack.build_params); every other pointer is device memory. The
+// block of pack.build_params); every other pointer is device memory. `out`
+// holds the band's pixels, pi[PI_ROWS] x pi[PI_WIDTH], rows from
+// pi[PI_ROW0] (`n_pix` of them). The
 // parameter block selects the variant: pi[PI_TF_SIZE] > 0 needs `tf_lut`
 // (and `mip` is then the TF-baked table), pi[PI_EMI_N_SLOTS] > 0 needs the
 // four emission tables; pointers of an absent variant may be null. The
@@ -788,9 +798,13 @@ extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
   for (int k = 0; k < 4; ++k) P.mip_offsets[k] = pi[PI_MIP_OFFSETS + k];
   P.budget = pi[PI_MAX_ITERS];
   P.tf_size = pi[PI_TF_SIZE];
+  P.row0 = pi[PI_ROW0];
+  P.rows = pi[PI_ROWS];
+  if (P.row0 < 0 || P.rows < 0 || P.row0 + P.rows > P.height || n_pix != P.rows * P.width)
+    return int(cudaErrorInvalidValue);
   group_tile(P.spp, P.tile_w, P.tile_h);
   P.tiles_x = (P.width + P.tile_w - 1) / P.tile_w;
-  P.n_groups = n_groups(P.width, P.height, P.spp);
+  P.n_groups = n_groups(P.width, P.rows, P.spp);
   Tables T;
   T.dens = {static_cast<const uint8_t*>(atlas), static_cast<const int*>(slot),
             static_cast<const float*>(lo), static_cast<const float*>(hi),
@@ -808,7 +822,7 @@ extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
       (has_emi && !(emi_atlas && emi_slot && emi_lo && emi_hi)) || (stats && !btimes))
     return int(cudaErrorInvalidValue);
   const Kernel kernel = pick_kernel(use_tf, has_emi, stats != nullptr);
-  kernel<<<volren_launch_blocks(P.width, P.height, P.spp, use_tf, has_emi, stats != nullptr),
+  kernel<<<volren_launch_blocks(P.width, P.rows, P.spp, use_tf, has_emi, stats != nullptr),
            THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       P, T, static_cast<float*>(out), static_cast<unsigned long long*>(stats),
       static_cast<unsigned long long*>(btimes));

@@ -76,6 +76,7 @@ RES, BOUNCES, METRIC_SPP = 1024, 100, 256
 # bytes/s and float32 operations/s outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12      # dense bf16 on the tensor cores
 
 # float32 operations of one event, counted by hand from csrc/megakernel.cu
 # (each add, multiply, divide, compare, min/max, conversion and
@@ -112,6 +113,37 @@ def kernel_bound(ks, pool: torch.Tensor, pi: np.ndarray, stats: dict):
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_F32_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             n_bytes, ops)
+
+
+def denoiser_bound(features, n: int, h: int, w: int, train: bool = False):
+    """The least time the card could take for the UNet denoiser
+    (models/denoiser.py) on n (3, h, w) images: max(bytes / peak bytes/s,
+    operations / peak rate), the operations being its convolutions' 2
+    multiply-add operations per weight and output pixel -- bf16 ones at the
+    bf16 tensor-core peak, the f32 head at the f32 peak -- three times that
+    for a training step (forward, the input's and the weights' gradients).
+    Bytes: the input, the output (or the target) and the parameters, once.
+    Returns (ms, "bytes" | "operations")."""
+    levels = len(features) - 1
+    convs = []                                     # (in, out, level)
+    ch = 3
+    for lvl, f in enumerate(features[:-1]):
+        convs += [(ch, f, lvl), (f, f, lvl)]
+        ch = f
+    convs += [(ch, features[-1], levels), (features[-1], features[-1], levels)]
+    ch = features[-1]
+    for lvl, f in reversed(list(enumerate(features[:-1]))):
+        convs += [(ch + f, f, lvl), (f, f, lvl)]
+        ch = f
+
+    # a level's pixels: avg_pool floors each halving
+    bf16 = sum(2 * 9 * cin * cout * (h >> lvl) * (w >> lvl) for cin, cout, lvl in convs) * n
+    f32 = 2 * 9 * ch * 3 * h * w * n
+    params = sum(9 * cin * cout + cout for cin, cout, _ in convs) + 9 * ch * 3 + 3
+    reps = 3 if train else 1
+    t_ops = reps * (bf16 / PEAK_BF16_S + f32 / PEAK_F32_S)
+    t_bytes = (2 * n * 3 * h * w * 4 + params * 4) / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 # float32 operations of one counted unit of the oracle's plain version

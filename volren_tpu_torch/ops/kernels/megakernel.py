@@ -60,8 +60,8 @@ from .pack import (
     PF_ENV_STRENGTH, PF_IMP_AVG, PF_INV_MAJORANT, PF_INV_XFORM, PF_MAJORANT,
     PF_PHASE_G, PF_SHOW_ENV, PF_TF_LEFT, PF_TF_WIDTH, PF_ZCAM, PI_BOUNCES,
     PI_EMI_N_BRICKS, PI_EMI_N_SLOTS, PI_ENV_H, PI_ENV_W, PI_HEIGHT,
-    PI_MAX_ITERS, PI_MIP_DIMS, PI_MIP_OFFSETS, PI_N_BRICKS, PI_N_SLOTS,
-    PI_SEED, PI_SPP, PI_SPP_BASE, PI_TF_SIZE, PI_WIDTH, POOL_N, PF_SIZE,
+    PI_MAX_ITERS, PI_MIP_DIMS, PI_MIP_OFFSETS, PI_N_BRICKS, PI_N_SLOTS, PI_ROW0,
+    PI_ROWS, PI_SEED, PI_SPP, PI_SPP_BASE, PI_TF_SIZE, PI_WIDTH, POOL_N, PF_SIZE,
     PI_SIZE, KernelScene,
 )
 
@@ -98,14 +98,19 @@ def _variant(ks: KernelScene, pi: np.ndarray):
         raise ValueError("a TF scene needs its baked majorant table (pack.bake_tf_majorant)")
     if use_tf and ks.tf.lut.shape[0] != int(pi[PI_TF_SIZE]):
         raise ValueError("the parameter block was built for another LUT size")
+    row0, rows = int(pi[PI_ROW0]), int(pi[PI_ROWS])
+    if row0 < 0 or rows < 0 or row0 + rows > int(pi[PI_HEIGHT]):
+        raise ValueError(f"the band's rows [{row0}, {row0 + rows}) are not rows of the frame")
     return use_tf, has_emi
 
 
 def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
                  pi: np.ndarray, stats: dict | None = None) -> torch.Tensor:
     """The render kernel in plain torch, vectorized over (pixel, sample)
-    lanes, at most PLAIN_LANES at a time. Returns the (H*W, 4) float32
-    per-pixel sums of (L.rgb, alpha). A sample that takes
+    lanes, at most PLAIN_LANES at a time. Returns the (rows*W, 4) float32
+    per-pixel sums of (L.rgb, alpha) of the band's ``pi[PI_ROWS]`` rows
+    from ``pi[PI_ROW0]`` (the whole frame's H*W by default); a band's
+    pixels keep the whole frame's seeds and camera rays. A sample that takes
     ``pi[PI_MAX_ITERS]`` march substeps without ending is capped: it ends
     and adds nothing. With a ``stats`` dict, adds the number of
     lanes that ran each event (keys of EVENTS) and the capped samples
@@ -130,6 +135,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     emi_scale, emi_norm, emi_x = s(PF_EMI_SCALE), s(PF_EMI_NORM), s3(PF_EMI_X, 16)
     show_env = bool(pf[PF_SHOW_ENV] > 0.0)
     W, H = int(pi[PI_WIDTH]), int(pi[PI_HEIGHT])
+    row0, rows = int(pi[PI_ROW0]), int(pi[PI_ROWS])
     spp, spp_base, bounces = int(pi[PI_SPP]), int(pi[PI_SPP_BASE]), int(pi[PI_BOUNCES])
     seed0 = int(np.asarray(pi[PI_SEED]).view(np.uint32))
     bx, by, bz = (int(v) for v in pi[PI_N_BRICKS:PI_N_BRICKS + 3])
@@ -152,7 +158,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         if stats is not None:
             stats[event] = stats.get(event, 0) + int(mask.sum())
 
-    n_pix = W * H
+    n_pix = W * rows
     s_h = torch.tensor(float(H), dtype=f32, device=dev)
     dim_tab = torch.tensor([8.0, 16.0, 32.0, 64.0], dtype=f32, device=dev)
     inv_dim_tab = 1.0 / dim_tab
@@ -460,13 +466,15 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         st["mode"] = torch.where(over, MODE_INACTIVE, st["mode"]).to(i32)
 
     acc = torch.zeros(n_pix, 4, dtype=f32, device=dev)
+    if n_pix == 0:
+        return acc
     per_chunk = max(1, PLAIN_LANES // n_pix)
     for k0 in range(0, spp, per_chunk):
         n_spp = min(per_chunk, spp - k0)
         # lane j * n_pix + p traces sample k0 + j of pixel p
         n = n_spp * n_pix
         pix = torch.arange(n, device=dev, dtype=torch.int64) % n_pix
-        px, py = pix % W, pix // W
+        px, py = pix % W, row0 + pix // W
         lane_u = (mul32(py, W) + px) & 0xFFFFFFFF       # uint32 py * W + px
         sample = spp_base + k0 + torch.arange(n, device=dev, dtype=torch.int64) // n_pix
         lane_seed = tea(mul32(lane_u, seed0), (sample + 1) & 0xFFFFFFFF)
@@ -585,7 +593,7 @@ def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         ptrs[1:] = [t.data_ptr() for t in (ks.emi_atlas, ks.emi_slot, ks.emi_lo, ks.emi_hi)]
     _check(ks.env, "env", torch.float32, (int(pi[PI_ENV_H]) * int(pi[PI_ENV_W]), 3))
     _check(pool, "pool", torch.float32, (POOL_N, 8))
-    n_pix = int(pi[PI_WIDTH]) * int(pi[PI_HEIGHT])
+    n_pix = int(pi[PI_WIDTH]) * int(pi[PI_ROWS])
     out = torch.empty(n_pix, 4, dtype=torch.float32, device=ks.atlas.device)
     pf = np.ascontiguousarray(pf, np.float32)
     pi = np.ascontiguousarray(pi, np.int32)
@@ -604,10 +612,14 @@ def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
 
 def render(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
            pi: np.ndarray) -> torch.Tensor:
-    """Render one dispatch; returns the (H*W, 4) per-pixel sums. CUDA
-    tensors launch the CUDA kernel's variant for the scene (and add one to
-    ``render.launches`` and to ``render.launches_by_variant[(use_tf,
-    has_emi)]``); CPU tensors run ``render_plain``."""
+    """Render one dispatch; returns the (rows*W, 4) per-pixel sums of its
+    band (H*W: the whole frame). CUDA tensors launch the CUDA kernel's
+    variant for the scene (and add one to ``render.launches`` and to
+    ``render.launches_by_variant[(use_tf, has_emi)]``; a band of no rows
+    launches nothing); CPU tensors run ``render_plain``."""
+    if ks.atlas.is_cuda and int(pi[PI_ROWS]) == 0:
+        _variant(ks, pi)
+        return torch.zeros(0, 4, dtype=torch.float32, device=ks.atlas.device)
     if ks.atlas.is_cuda:
         out = _launch_cuda(ks, pool, pf, pi)
         render.launches += 1
@@ -649,7 +661,7 @@ def render_stats(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     lib = _lib()
     dev = ks.atlas.device
     use_tf, has_emi = _variant(ks, pi)
-    n_blocks = lib.volren_launch_blocks(int(pi[PI_WIDTH]), int(pi[PI_HEIGHT]), int(pi[PI_SPP]),
+    n_blocks = lib.volren_launch_blocks(int(pi[PI_WIDTH]), int(pi[PI_ROWS]), int(pi[PI_SPP]),
                                         int(use_tf), int(has_emi), 1)
     counters = torch.zeros(len(STATS), dtype=torch.int64, device=dev)
     btimes = torch.zeros(n_blocks, 2, dtype=torch.int64, device=dev)

@@ -37,6 +37,9 @@ from ..transfer import tf_alpha_majorant
 
 # NEE environment sample pool size (volren_tpu.ops.pallas.pack.POOL_N)
 POOL_N = 16384
+# samples per pixel of one kernel dispatch (volren_tpu.renderer.Renderer.
+# trace's fence); each dispatch draws its own NEE pool (build_env_pool)
+DISPATCH_SPP = 64
 # march substeps a sample may take before it ends with nothing added to its
 # pixel: the iteration cap of a 1-spp dispatch of the Pallas kernel
 # (kernel.py:2106, (2048 + 512 * spp) * 8 per strip), here per sample
@@ -82,6 +85,8 @@ PI_MAX_ITERS = 28       # per-sample march-substep budget (STEP_BUDGET)
 PI_TF_SIZE = 29         # LUT bins; 0 = no TF
 PI_EMI_N_BRICKS = 30    # 3: emission grid bx, by, bz
 PI_EMI_N_SLOTS = 33     # emission atlas slots; 0 = no emission
+PI_ROW0 = 34            # the band of rows a dispatch traces: its first row
+PI_ROWS = 35            # and its row count (0, height: the whole frame)
 PI_SIZE = 40
 
 
@@ -198,8 +203,13 @@ def build_env_pool(env: EnvTables, seed: int, spp_base: int) -> torch.Tensor:
 
 
 def build_params(ks: KernelScene, params: TraceParams, width: int, height: int,
-                 spp_base: int, spp: int):
-    """(pf, pi) host arrays for one dispatch of ``spp`` samples per pixel."""
+                 spp_base: int, spp: int, row0: int = 0, rows: int | None = None):
+    """(pf, pi) host arrays for one dispatch of ``spp`` samples per pixel
+    of a ``width`` x ``height`` frame, over its ``rows`` rows from ``row0``
+    (all of them by default)."""
+    rows = height - row0 if rows is None else rows
+    if row0 < 0 or rows < 0 or row0 + rows > height:
+        raise ValueError(f"rows [{row0}, {row0 + rows}) are not rows of a {height}-row frame")
     f32 = np.float32
     pf = np.zeros(PF_SIZE, f32)
     pf[PF_CAM_POS:PF_CAM_POS + 3] = params.cam_pos
@@ -238,6 +248,7 @@ def build_params(ks: KernelScene, params: TraceParams, width: int, height: int,
     pi[PI_MIP_DIMS:PI_MIP_DIMS + 12] = np.asarray(ks.mip_dims).reshape(-1)
     pi[PI_MIP_OFFSETS:PI_MIP_OFFSETS + 4] = ks.mip_offsets
     pi[PI_MAX_ITERS] = STEP_BUDGET
+    pi[PI_ROW0], pi[PI_ROWS] = row0, rows
     if ks.tf is not None:
         pi[PI_TF_SIZE] = ks.tf.lut.shape[0]
     if ks.emi_atlas is not None:

@@ -23,8 +23,11 @@ checkpoints (the same ``.npz`` keys, so either package loads the other's),
 ``describe()``, ``profile()`` (a torch.profiler trace), ``save_with_alpha``,
 and the ``engine`` / ``step_engine`` names. The JAX package's step
 engines are bitwise-identical schedules of the same sample streams, so
-every name renders through the megakernel; ``distribute()`` is not ported
-yet and raises.
+every name renders through the megakernel. ``distribute(mesh)`` renders
+across the ranks of a torch.distributed group (``parallel.sharding``): each
+rank traces its band of rows for its share of every dispatch's samples on
+``cuda:rank % device_count``, and every rank ends each dispatch with the
+whole frame; the oracle engine ignores the mesh, as volren_tpu's does.
 """
 
 from __future__ import annotations
@@ -39,7 +42,8 @@ import torch
 from .ops import scene as dscene
 from .ops import tonemap as _tonemap
 from .ops.kernels import megakernel, oracle
-from .ops.kernels.pack import bake_tf_majorant, build_env_pool, build_params, pack_scene
+from .ops.kernels.pack import DISPATCH_SPP, bake_tf_majorant, build_env_pool, pack_scene
+from .parallel import sharding
 from .scene.camera import Camera
 from .scene.environment import Environment
 from .scene.transferfunc import TransferFunction
@@ -48,9 +52,6 @@ from .voldata import Volume
 from .voldata.brick import to_brick_grid
 
 EMISSION_GRID_NAMES = ("flame", "flames", "temperature")  # renderer.cpp:65
-
-# samples per kernel dispatch (volren_tpu.renderer.Renderer.trace's fence)
-DISPATCH_SPP = 64
 
 # the port's engines: the megakernel (which volren_tpu's "wavefront"
 # engine and its step engines name) and the oracle
@@ -107,6 +108,9 @@ class Renderer:
         # "cuda_kernel" / "torch_plain" (the megakernel) or "cuda_oracle" /
         # "torch_oracle": what the most recent trace() ran
         self.last_engine = None
+        # the parallel.sharding.Mesh the megakernel renders across: a world
+        # of one until distribute()
+        self.mesh = sharding.Mesh(1, 1)
 
     # ---- engine selection (volren_tpu.renderer's names) ----
 
@@ -264,19 +268,23 @@ class Renderer:
             raise NotImplementedError("the megakernel engine is DDA-only; use engine='oracle' "
                                       "for the global-majorant estimators")
         ks, params = self._kernel_scene(), self._trace_params()
+        # this rank's band of the running mean: the whole frame in a world
+        # of one, gathered from every rank after the dispatches otherwise
+        row0, rows = sharding.band_rows(self._height, self.mesh.n_tiles, self.mesh.tile)
+        band = self._fb[row0:row0 + rows]
         while spp > 0:
             n = min(DISPATCH_SPP, spp)
-            # the NEE pool is redrawn for every dispatch from (seed, sample)
-            pool = build_env_pool(self._env_device, int(self.seed), int(self.sample))
-            pf, pi = build_params(ks, params, self._width, self._height, self.sample, n)
             with torch.profiler.record_function("volren_tpu_torch.megakernel"):
-                accum = megakernel.render(ks, pool, pf, pi)
+                # the NEE pool is redrawn for every dispatch from (seed, sample)
+                pool = build_env_pool(self._env_device, int(self.seed), int(self.sample))
+                accum = sharding.render_sharded(ks, pool, params, self._width, self._height,
+                                                n, self.sample, self.mesh)
             self.last_engine = "cuda_kernel" if self.device.type == "cuda" else "torch_plain"
             prev = self.sample
             self.sample += n
-            accum = accum.reshape(self._height, self._width, 4)
-            self._fb = (self._fb * prev + accum) / self.sample
+            band = (band * prev + accum.reshape(rows, self._width, 4)) / self.sample
             spp -= n
+        self._fb = sharding.gather_bands(band, self.mesh, self._width, self._height)
 
     def render(self, spp: int):
         """Render spp samples from scratch (bindings.cpp:124-132)."""
@@ -329,8 +337,35 @@ class Renderer:
         self._height, self._width = self._fb.shape[:2]
 
     def distribute(self, mesh=None):
-        raise NotImplementedError("rendering across several devices is not ported yet: "
-                                  "ROADMAP Queue 1 item 1")
+        """Render across ``mesh`` (a ``parallel.sharding.Mesh``): with no
+        argument, a mesh of every rank of the default group as row bands
+        (``make_mesh(n_tiles=world size)``; a world of one when no group is
+        initialised). On a CUDA device each rank moves to ``cuda:rank %
+        device_count``."""
+        mesh = sharding.make_mesh() if mesh is None else mesh
+        if self.device.type == "cuda":
+            device = torch.device("cuda", mesh.global_rank % torch.cuda.device_count())
+            self._move_to(device)
+            torch.cuda.set_device(device)
+        self.mesh = mesh
+        return self
+
+    def _move_to(self, device: torch.device):
+        """Put the renderer's device state on ``device``."""
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if device == self.device:
+            return
+        self.device = device
+        self._packed = None
+        if self._fb is not None:
+            self._fb = self._fb.to(device)
+        if self._env_device is not None:
+            self.set_environment(self.environment)
+        if self._tf_device is not None:
+            self.set_transferfunc(self.transferfunc)
+        if self._density_grids:
+            self.commit()
 
     def describe(self) -> dict:
         """All live parameters, under volren_tpu.renderer.Renderer.describe's
