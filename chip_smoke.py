@@ -66,32 +66,34 @@ of which raises on failure (exit code non-zero, no result line):
    before bitwise; (8) Renderer.profile writes a torch.profiler trace that
    names the megakernel. Each of (2)-(8) must launch the megakernel.
 10. the oracle engine (csrc/oracle.cu, volren_tpu/ops/tracer.py's
-   GLSL-order tracer): (1) every instantiation against its plain torch
-   version (ops/tracer.py) on the same CUDA tensors, on phase 3's two
-   scenes at 64x64, 16 bounces (TF with --fau, emission with the
-   half-resolution temperature grid), after one pass and after two,
-   bitwise, two runs bitwise identical, the kernel's count of capped loop
-   calls equal to the plain version's; (2) the oracle path at full width:
-   the CLI renders cloud512 at 1024x1024, 16 spp, 100 bounces with
-   --engine oracle under phase 5's sky: a PNG, a finite framebuffer with a
-   positive mean within 5% of phase 5's megakernel image, 16 launches of
-   <1,0,0>, the CUDA oracle as the engine; then, on that renderer's
-   scene, sky and bounces, the kernel's first pass from zero against the
-   plain version's over the whole 1024x1024 frame, bitwise, with the
-   same count of capped loop calls; (3) the other seven instantiations
-   on user paths at 256x256, 4 spp each through Renderer (--no-dda's
-   delta and ratio tracking with and without --fau and emission, the DDA
-   oracle with --fau, with emission and with both), each image mean
-   within 5% of the megakernel's at the same scene, size and 64 spp --
-   with emission, delta tracking's within [-5%, +10%], as the megakernel
-   and the DDA oracle share the reference's emission weighting
-   (volren_tpu/ops/tracking.py:12-19), which counts less emission -- and
-   each renderer's first pass from zero against the plain version's,
-   bitwise, over the whole frame for DDA and on 1 pixel in 64 for delta
-   tracking (its plain loops run long). The kernels line's times and
-   bounds of the oracle come from (2) and (3): the kernel's pass in CUDA
-   events, the plain version's on the host clock, the bound from the
-   plain version's loop counts (scaled to the frame where subsampled).
+   GLSL-order tracer; a launch traces all of a call's passes): (1) every
+   instantiation against its plain torch version (ops/tracer.py) on the
+   same CUDA tensors, on phase 3's two scenes at 64x64, 16 bounces (TF
+   with --fau, emission with the half-resolution temperature grid), after
+   launches of 1, 2, 5 and 33 passes one after another, bitwise, two runs
+   bitwise identical, the kernel's count of capped loop calls equal to the
+   plain version's; (2) the oracle path at full width: the CLI renders
+   cloud512 at 1024x1024, 16 spp, 100 bounces with --engine oracle under
+   phase 5's sky: a PNG, a finite framebuffer with a positive mean within
+   5% of phase 5's megakernel image, ceil(16 / 64) = 1 launch of <1,0,0>,
+   the CUDA oracle as the engine; on that renderer's scene, sky and
+   bounces, the path's launch of 16 passes from zero again: bitwise the
+   render's framebuffer, timed, through the STATS instantiation (the same
+   framebuffer, 0 capped loop calls, the counts for the bound), and
+   bitwise the plain version's 16 passes on 1 pixel in 64; (3) the other
+   seven instantiations on user paths at 256x256, 4 spp each through
+   Renderer (--no-dda's delta and ratio tracking with and without --fau
+   and emission, the DDA oracle with --fau, with emission and with both),
+   one launch each, each image mean within 5% of the megakernel's at the
+   same scene, size and 64 spp -- with emission, delta tracking's within
+   [-5%, +10%], as the megakernel and the DDA oracle share the reference's
+   emission weighting (volren_tpu/ops/tracking.py:12-19), which counts
+   less emission -- and each renderer's launch held as in (2), against
+   the plain version on 1 pixel in 4 for DDA and 1 in 256 for delta
+   tracking (its plain loops run long). The kernels line's oracle entries
+   come from (2) and (3): ms of the path's launch (CUDA events) and ms a
+   pass, its bound from the STATS counts and the share, the launches of
+   the path's run, and the plain version's host-clock ms.
 11. rendering across devices (volren_tpu_torch.parallel): (1) 4-spp
    1024x1024 cloud512 dispatches of all four variants over 2, 3 (ragged:
    342, 342, 340 rows) and 4 row bands, concatenated, bitwise the whole
@@ -155,8 +157,10 @@ KERNELS = (("megakernel", "plain", "volren_tpu/ops/pallas/kernel.py:602"),
            ("megakernel_tf_emission", "tf+emission", "volren_tpu/ops/pallas/kernel.py:635"))
 FRAMES = 3                                 # phase 9's animated folder
 ORACLE_SPP, ORACLE_BOUNCES = 16, 16        # phase 10: the full-width path; kernel vs plain
+ORACLE_LAUNCHES = (1, 2, 5, 33)            # 10.1: passes of the launches, one after another
 ORACLE_RES_SMALL, ORACLE_SPP_SMALL = 256, 4
-ORACLE_STRIDE_DELTA = 8                    # 10.3: delta tracking's plain pass on 1 pixel in 64
+# the plain version's pixels: 1 in ORACLE_STRIDE_* squared (10.2, 10.3 DDA, 10.3 delta)
+ORACLE_STRIDE_MAIN, ORACLE_STRIDE_DDA, ORACLE_STRIDE_DELTA = 8, 2, 16
 ORACLE_REPLACES = "volren_tpu/ops/tracer.py:154 (trace_pass; XLA, no pallas_call)"
 ORACLE_VARIANTS = [(dda, tf, emi) for dda in (True, False) for tf in (False, True)
                    for emi in (False, True)]
@@ -482,6 +486,7 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
     from volren_tpu_torch.ops import tracer
     from volren_tpu_torch.ops.geometry import sanitize
     from volren_tpu_torch.ops.kernels import oracle
+    from volren_tpu_torch.renderer import DISPATCH_SPP
     from volren_tpu_torch.voldata import DenseGrid, Volume
 
     dev = torch.device("cuda")
@@ -500,60 +505,76 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
     def rgb_mean(fb):
         return float(fb[..., :3].mean())
 
-    def hold(name, r, v, stride):
-        """The kernel's first pass from zero on a user path's committed
-        renderer, against the plain version's on every ``stride``-th pixel
-        in x and y (all of them at stride 1), bitwise; the kernel timed in
-        CUDA events, the plain version on the host clock, the bound from
-        the plain version's counts (scaled to the frame). Returns the
-        kernels line's numbers."""
+    def hold(name, r, v, spp, stride):
+        """The path's launch of ``spp`` passes from zero on its committed
+        renderer (the launch its render made: bitwise its framebuffer),
+        against the plain version's passes on every ``stride``-th pixel in
+        x and y, bitwise; timed in CUDA events (the plain version on the
+        host clock); and through the STATS instantiation, which must trace
+        the same framebuffer. 0 capped loop calls in all three. The bound
+        from the STATS counts. Records the kernels line's numbers."""
         scene, tp, cfg = r._scene_tables(), r._trace_params(), r._config()
         if (cfg.use_dda, cfg.use_tf, cfg.has_emission) != v:
             raise AssertionError(f"{name} {label(v)}: the renderer set up {cfg}")
         w, h = r._width, r._height
         zero = torch.zeros(h, w, 4, device=dev)
         capped = torch.zeros(1, dtype=torch.int32, device=dev)
-        k1 = oracle.trace_pass(scene, tp, cfg, zero, 1, capped=capped)
-        ms = cuda_ms(lambda: oracle.trace_pass(scene, tp, cfg, zero, 1), 3)
+        fb = oracle.trace_passes(scene, tp, cfg, zero, 1, spp, capped=capped)
+        ms = cuda_ms(lambda: oracle.trace_passes(scene, tp, cfg, zero, 1, spp), 3)
+        got, st = oracle.trace_stats(scene, tp, cfg, zero, 1, spp)
+        if not (torch.equal(fb, r.framebuffer()) and torch.equal(got, fb)):
+            raise AssertionError(f"{name} {label(v)}: the launch of {spp} passes, its STATS twin "
+                                 f"and the render's framebuffer differ")
         ys, xs = torch.meshgrid(torch.arange(0, h, stride, device=dev),
                                 torch.arange(0, w, stride, device=dev), indexing="ij")
         ys, xs = ys.reshape(-1), xs.reshape(-1)
-        xy = torch.stack([xs, ys], -1).to(torch.int32)
+        xy = torch.stack([xs, ys], -1).to(torch.int32).repeat(spp, 1)
+        samples = torch.arange(1, spp + 1, device=dev).repeat_interleave(len(ys))
         stats = {}
 
         def plain():
-            # tracer.trace_passes's pass 1, on the chosen pixels' lanes
-            rgba = torch.cat([tracer.trace_sample(scene, tp, cfg, xy[i:i + tracer.PLAIN_LANES],
-                                                  (w, h), 1, stats)
-                              for i in range(0, len(xy), tracer.PLAIN_LANES)])
-            fb = zero[ys, xs]
-            return fb + (sanitize(rgba) - fb) * torch.tensor(tracer.pass_weight(1), device=dev)
+            # tracer.trace_passes on the chosen pixels' (pixel, pass) lanes
+            L = tracer.PLAIN_LANES
+            rgba = torch.cat([tracer.trace_sample(scene, tp, cfg, xy[i:i + L], (w, h),
+                                                  samples[i:i + L], stats)
+                              for i in range(0, len(xy), L)])
+            rgba = sanitize(rgba).reshape(spp, len(ys), 4)
+            out = zero[ys, xs]
+            for k in range(spp):
+                out = out + (rgba[k] - out) * torch.tensor(tracer.pass_weight(k + 1), device=dev)
+            return out
 
-        plain_ms, p1 = host_ms(plain)
-        k = k1[ys, xs]
-        err = float((k - p1).abs().max())
-        same = float((k == p1).all(-1).float().mean())
-        scale = w * h / len(xy)
-        bound_ms, bound_by, n_bytes, n_ops = oracle_bound(
-            scene, w * h, {key: n * scale for key, n in stats.items()})
-        print(f"oracle kernel vs plain [{name} {label(v)}, {w}x{h}, {tp.bounces} bounces, pass 1 "
-              f"from zero, 1 in {stride * stride} pixel(s): {len(xy)}]: max abs {err!r}, bitwise "
-              f"identical pixels {same!r}; kernel {ms!r} ms a pass (CUDA events), plain "
-              f"{plain_ms!r} ms for its {len(xy)} pixels; bound {bound_ms!r} ms by {bound_by} "
-              f"({n_bytes} bytes, {n_ops} f32 operations from the plain version's counts "
-              f"{stats} x {scale}); loop calls capped at {cfg.max_steps}: kernel {int(capped)} "
-              f"(frame), plain {stats.get('capped', 0)} on {gpu_line}", flush=True)
-        if not bool(torch.isfinite(k1).all()) or not torch.equal(k, p1):
-            raise AssertionError(f"{name} {label(v)}: the oracle kernel's pass is not bitwise "
-                                 f"equal to its plain version's")
-        if stride == 1 and int(capped) != stats.get("capped", 0):
-            raise AssertionError(f"{name} {label(v)}: the kernel counts {int(capped)} capped "
-                                 f"loop calls, the plain version {stats.get('capped', 0)}")
+        plain_ms, p = host_ms(plain)
+        k = fb[ys, xs]
+        err = float((k - p).abs().max())
+        same = float((k == p).all(-1).float().mean())
+        bound_ms, bound_by, n_bytes, n_ops = oracle_bound(scene, w * h, st)
+        counts = {key: n for key, n in st.items() if isinstance(n, int)}
+        print(f"oracle kernel vs plain [{name} {label(v)}, {w}x{h}, {tp.bounces} bounces, a "
+              f"launch of {spp} passes from zero, 1 in {stride * stride} pixel(s): {len(ys)}]: "
+              f"max abs {err!r}, bitwise identical pixels {same!r}; kernel {ms!r} ms a launch, "
+              f"{ms / spp!r} ms a pass (CUDA events), plain {plain_ms!r} ms for its {len(xy)} "
+              f"lanes (host clock); bound {bound_ms!r} ms by {bound_by} ({n_bytes} bytes, "
+              f"{n_ops} f32 operations from the STATS counts {counts}), share {bound_ms / ms!r}; "
+              f"SIMT bounce loop {st['simt_bounce']!r}, tracking loop {st['simt_track']!r}; "
+              f"{st['blocks']} blocks, block ms {st['block_ms']!r}, tail {st['tail_ms']!r} ms; "
+              f"loop calls capped at {cfg.max_steps}: kernel {int(capped)}, STATS "
+              f"{st['capped']} (frame), plain {stats.get('capped', 0)} on {gpu_line}", flush=True)
+        if not bool(torch.isfinite(fb).all()) or not torch.equal(k, p):
+            raise AssertionError(f"{name} {label(v)}: the oracle kernel's launch is not bitwise "
+                                 f"equal to its plain version's passes")
+        if int(capped) != 0 or st["capped"] != 0 or stats.get("capped", 0) != 0:
+            raise AssertionError(f"{name} {label(v)}: capped loop calls: kernel {int(capped)}, "
+                                 f"STATS {st['capped']}, plain {stats.get('capped', 0)}")
         rec = record[v]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        rec.update(ms=ms, ms_per_pass=ms / spp, passes_per_launch=spp, bound_ms=bound_ms,
+                   bound_by=bound_by, share=bound_ms / ms, plain_ms=plain_ms,
+                   plain_of=f"{spp} passes from zero on {len(ys)} pixels")
 
-    # ---- 10.1 kernel vs plain version, every instantiation, 1 and 2 passes
+    # ---- 10.1 kernel vs plain version, every instantiation, launches of
+    # 1, 2, 5 and 33 passes one after another
+    n_total = sum(ORACLE_LAUNCHES)
     for name, dense in scenes:
         d, h, w = dense.shape
         for v in ORACLE_VARIANTS:
@@ -564,30 +585,36 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
             zero = torch.zeros(CMP_RES, CMP_RES, 4, device=dev)
             capped = torch.zeros(1, dtype=torch.int32, device=dev)
             before = oracle.trace_pass.launches_by_variant.get(v, 0)
-            k1 = oracle.trace_pass(scene, tp, cfg, zero, 1, capped=capped)
-            k2 = oracle.trace_pass(scene, tp, cfg, k1, 2, capped=capped)
-            k1b = oracle.trace_pass(scene, tp, cfg, zero, 1)
-            k2b = oracle.trace_pass(scene, tp, cfg, k1b, 2)
-            if oracle.trace_pass.launches_by_variant.get(v, 0) != before + 4:
+            runs = []
+            for c in (capped, None):
+                fb, first, fbs = zero, 1, []
+                for n in ORACLE_LAUNCHES:
+                    fb = oracle.trace_passes(scene, tp, cfg, fb, first, n, capped=c)
+                    fbs.append(fb)
+                    first += n
+                runs.append(fbs)
+            if oracle.trace_pass.launches_by_variant.get(v, 0) != before + 2 * len(ORACLE_LAUNCHES):
                 raise AssertionError(f"{name} {label(v)}: the variant's launch count did not rise")
-            if not (torch.equal(k1, k1b) and torch.equal(k2, k2b)):
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
                 raise AssertionError(f"{name} {label(v)}: the kernel is not bitwise deterministic")
-            # the plain version traces both passes' lanes together (the same
+            # the plain version traces the passes' lanes together (the same
             # framebuffers as pass after pass)
             stats, frames = {}, []
-            tracer.trace_passes(scene, tp, cfg, zero, 1, 2, CMP_RES, CMP_RES, stats, frames=frames)
-            p1, p2 = frames
-            err = 0.0
-            for k, p, n in ((k1, p1, 1), (k2, p2, 2)):
-                err = max(err, float((k - p).abs().max()))
-                same = float((k == p).all(-1).float().mean())
+            tracer.trace_passes(scene, tp, cfg, zero, 1, n_total, CMP_RES, CMP_RES, stats,
+                                frames=frames)
+            err, done = 0.0, 0
+            for n, k in zip(ORACLE_LAUNCHES, runs[0]):
+                done += n
+                p = frames[done - 1]
+                e = float((k - p).abs().max())
+                err = max(err, e)
                 print(f"oracle kernel vs plain [{name} {label(v)}, {CMP_RES}x{CMP_RES}, "
-                      f"{ORACLE_BOUNCES} bounces, after {n} pass(es)]: max abs "
-                      f"{float((k - p).abs().max())!r}, bitwise identical pixels {same!r}",
-                      flush=True)
+                      f"{ORACLE_BOUNCES} bounces, a launch of {n} pass(es), after {done}]: max "
+                      f"abs {e!r}, bitwise identical pixels "
+                      f"{float((k == p).all(-1).float().mean())!r}", flush=True)
                 if not bool(torch.isfinite(k).all()) or not torch.equal(k, p):
                     raise AssertionError(f"{name} {label(v)}: the oracle kernel is not bitwise "
-                                         f"equal to its plain version after {n} pass(es)")
+                                         f"equal to its plain version after {done} pass(es)")
             if int(capped) != stats.get("capped", 0):
                 raise AssertionError(f"{name} {label(v)}: the kernel counts {int(capped)} capped "
                                      f"loop calls, the plain version {stats.get('capped', 0)}")
@@ -597,6 +624,7 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
 
     # ---- 10.2 the oracle path at full width, through the CLI
     main_v = (True, False, False)
+    want = -(-ORACLE_SPP // DISPATCH_SPP)
     out_png = os.path.join(OUT_DIR, "cloud512_oracle.png")
     oracle.trace_pass.launches = 0
     oracle.trace_pass.launches_by_variant.clear()
@@ -604,9 +632,9 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
                         str(ORACLE_SPP), "--bounces", str(BOUNCES), "--engine", "oracle",
                         "--output", out_png, "--device", "cuda"])
     launches = oracle.trace_pass.launches_by_variant.get(main_v, 0)
-    if launches != ORACLE_SPP or oracle.trace_pass.launches != ORACLE_SPP:
+    if launches != want or oracle.trace_pass.launches != want:
         raise AssertionError(f"the oracle path ran {oracle.trace_pass.launches_by_variant}, not "
-                             f"{ORACLE_SPP} launches of {label(main_v)}")
+                             f"{want} launch(es) of {label(main_v)}")
     record[main_v]["launches"] = launches
     if r.last_engine != "cuda_oracle" or not all(os.path.getsize(p) for p in stats["outputs"]):
         raise AssertionError(f"the oracle path ran {r.last_engine}, wrote {stats['outputs']}")
@@ -617,18 +645,19 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
     print(f"oracle path: cloud512 {RES}x{RES}, {ORACLE_SPP} spp, {BOUNCES} bounces through the "
           f"CLI (--engine oracle): {ORACLE_SPP / stats['seconds']!r} spp/s "
           f"({stats['seconds'] / ORACLE_SPP * 1e3!r} ms a pass on the host clock), {launches} "
-          f"launches of {label(main_v)}; image mean {mean!r} against the megakernel's {ref!r} "
+          f"launch(es) of {label(main_v)}; image mean {mean!r} against the megakernel's {ref!r} "
           f"(rel {abs(mean - ref) / ref!r}) on {gpu_line}", flush=True)
     if not (mean > 0.0 and abs(mean - ref) / ref < 0.05):
         raise AssertionError(f"the oracle path's image mean {mean!r} is not within 5% of the "
                              f"megakernel's {ref!r}")
-    # the path's scene, sky and bounces: the whole frame against the plain version
-    hold("cloud512 oracle path", r, main_v, 1)
+    # the path's launch, scene, sky and bounces against the plain version
+    hold("cloud512 oracle path", r, main_v, ORACLE_SPP, ORACLE_STRIDE_MAIN)
     del r, fb
     torch.cuda.empty_cache()
 
     # ---- 10.3 the other instantiations on user paths at 256x256
     mk_means = {}
+    want = -(-ORACLE_SPP_SMALL // DISPATCH_SPP)
     for v in ORACLE_VARIANTS:
         if v == main_v:
             continue
@@ -646,7 +675,7 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = oracle.trace_pass.launches_by_variant.get(v, 0)
-        if launches != ORACLE_SPP_SMALL or oracle.trace_pass.launches != launches:
+        if launches != want or oracle.trace_pass.launches != launches:
             raise AssertionError(f"{path} {label(v)}: ran {oracle.trace_pass.launches_by_variant}")
         record[v]["launches"] = launches
         fb = r.framebuffer()
@@ -669,9 +698,10 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
                 not (mean > 0.0 and agrees):
             raise AssertionError(f"{path} {label(v)}: {r.last_engine}, image mean {mean!r} "
                                  f"against the megakernel's {ref!r}")
-        # the whole frame for DDA; delta tracking's long loops keep its plain
-        # version to 1 pixel in 64
-        hold(f"cloud512 {path}", r, v, 1 if v[0] else ORACLE_STRIDE_DELTA)
+        # half the pixels in x and y for DDA; delta tracking's long loops
+        # keep its plain version to 1 pixel in 256
+        hold(f"cloud512 {path}", r, v, ORACLE_SPP_SMALL,
+             ORACLE_STRIDE_DDA if v[0] else ORACLE_STRIDE_DELTA)
         del r, fb
         torch.cuda.empty_cache()
     print(f"phase 10 (the oracle engine) took {time.time() - t_phase!r} s", flush=True)
@@ -1300,8 +1330,11 @@ def main(argv=None) -> int:
                 for name, rec in oracle_record.items()]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    # the oracle's: ms a pass of its launch, the bound's share, what plain_ms traced
+    extra = ("ms_per_pass", "passes_per_launch", "share", "plain_of")
     print(gpu_line)
-    print(json.dumps({"kernels": [{k: entry[k] for k in keys} for entry in kernels]}))
+    print(json.dumps({"kernels": [{k: entry[k] for k in keys + extra if k in keys or k in entry}
+                                  for entry in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -12,7 +12,7 @@ import torch
 from volren_tpu_torch.ops.kernels import megakernel
 from volren_tpu_torch.ops.kernels.pack import (PI_MAX_ITERS, PI_ROW0, PI_ROWS, build_env_pool,
                                                build_params)
-from volren_tpu_torch.renderer import Renderer
+from volren_tpu_torch.renderer import DISPATCH_SPP, Renderer
 from volren_tpu_torch.scene.environment import Environment, procedural_sky
 from volren_tpu_torch.scene.transferfunc import TransferFunction
 from volren_tpu_torch.voldata import DenseGrid, Volume
@@ -395,34 +395,60 @@ def _oracle_inputs(r):
     return r._scene_tables(), r._trace_params(), r._config()
 
 
-@pytest.mark.parametrize("passes", [1, 3])
+def _fb0(seed):
+    """A non-zero running mean to start from."""
+    return torch.rand(23, 37, 4, generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("passes", [1, 3, 32, 33, 70])
 @pytest.mark.parametrize("use_dda,tf,emission", ORACLE_VARIANTS, ids=ORACLE_IDS)
 def test_oracle_kernel_matches_plain_version(use_dda, tf, emission, passes):
-    """Every <USE_DDA, USE_TF, HAS_EMI> instantiation equals the plain torch
-    version on the same CUDA tensors bitwise, pass after pass, at a ragged
-    37x23, and is bitwise identical run to run."""
+    """Every <USE_DDA, USE_TF, HAS_EMI> instantiation's launch of
+    ``passes`` passes (a tile of 32 / n pixels to a warp below 32 passes,
+    one pixel in rounds of 64 slots above) equals the plain torch version
+    on the same CUDA tensors bitwise, at a ragged 37x23, from a non-zero
+    framebuffer at sample 5, and is bitwise identical run to run: one
+    launch per call."""
     from volren_tpu_torch.ops import tracer
     from volren_tpu_torch.ops.kernels import oracle
 
     dev = _cuda()
     scene, params, cfg = _oracle_inputs(_oracle_renderer(dev, use_dda, tf, emission))
-    fb = kb = kb2 = torch.zeros(23, 37, 4, device=dev)
+    fb0 = _fb0(passes).to(dev)
+    plain = tracer.trace_passes(scene, params, cfg, fb0, 5, passes, 37, 23)
     before = oracle.trace_pass.launches_by_variant.get((use_dda, tf, emission), 0)
-    for s in range(1, passes + 1):
-        fb = tracer.trace_pass(scene, params, cfg, fb, s, 37, 23)
-        kb = oracle.trace_pass(scene, params, cfg, kb, s)
-        kb2 = oracle.trace_pass(scene, params, cfg, kb2, s)
-        assert torch.equal(kb, fb), (s, float((kb - fb).abs().max()))
-        assert torch.equal(kb, kb2)
-    assert oracle.trace_pass.launches_by_variant[(use_dda, tf, emission)] == before + 2 * passes
-    assert bool(torch.isfinite(kb).all()) and float(kb[..., :3].mean()) > 0
+    kb = oracle.trace_passes(scene, params, cfg, fb0, 5, passes)
+    kb2 = oracle.trace_passes(scene, params, cfg, fb0, 5, passes)
+    assert oracle.trace_pass.launches_by_variant[(use_dda, tf, emission)] == before + 2
+    assert torch.equal(kb, plain), float((kb - plain).abs().max())
+    assert torch.equal(kb, kb2)
+    assert bool(torch.isfinite(kb).all()) and not torch.equal(kb, fb0)
+
+
+@pytest.mark.parametrize("use_dda", [True, False], ids=["dda", "delta"])
+def test_oracle_kernel_launches_fold_in_pass_order(use_dda):
+    """Launches of 3, 1 and 4 passes after one another equal one launch of
+    8 and the passes one at a time, bitwise."""
+    from volren_tpu_torch.ops.kernels import oracle
+
+    dev = _cuda()
+    scene, params, cfg = _oracle_inputs(_oracle_renderer(dev, use_dda, True, True))
+    fb0 = _fb0(8).to(dev)
+    whole = oracle.trace_passes(scene, params, cfg, fb0, 2, 8)
+    split = oracle.trace_passes(scene, params, cfg, fb0, 2, 3)
+    split = oracle.trace_passes(scene, params, cfg, split, 5, 1)
+    split = oracle.trace_passes(scene, params, cfg, split, 6, 4)
+    one = fb0
+    for s in range(2, 10):
+        one = oracle.trace_pass(scene, params, cfg, one, s)
+    assert torch.equal(split, whole) and torch.equal(one, whole)
 
 
 @pytest.mark.parametrize("use_dda", [True, False], ids=["dda", "delta"])
 def test_oracle_kernel_matches_plain_version_with_the_cap_binding(use_dda):
     """max_steps = 3: most tracking loop calls stop mid-loop; the kernel
     keeps their state as the plain version does, and counts as many capped
-    loop calls."""
+    loop calls, over a launch of 3 passes."""
     from volren_tpu_torch.ops import tracer
     from volren_tpu_torch.ops.kernels import oracle
 
@@ -430,13 +456,36 @@ def test_oracle_kernel_matches_plain_version_with_the_cap_binding(use_dda):
     scene, params, cfg = _oracle_inputs(_oracle_renderer(dev, use_dda, True, True))
     cfg = cfg._replace(max_steps=3)
     stats = {}
-    plain = tracer.trace_pass(scene, params, cfg, torch.zeros(23, 37, 4, device=dev), 1, 37, 23,
-                              stats)
+    fb0 = _fb0(3).to(dev)
+    plain = tracer.trace_passes(scene, params, cfg, fb0, 2, 3, 37, 23, stats)
     capped = torch.zeros(1, dtype=torch.int32, device=dev)
-    got = oracle.trace_pass(scene, params, cfg, torch.zeros(23, 37, 4, device=dev), 1,
-                            capped=capped)
+    got = oracle.trace_passes(scene, params, cfg, fb0, 2, 3, capped=capped)
     assert stats["capped"] > 0 and int(capped) == stats["capped"]
     assert torch.equal(got, plain)
+
+
+@pytest.mark.parametrize("use_dda,tf,emission", ORACLE_VARIANTS, ids=ORACLE_IDS)
+def test_oracle_stats_instantiation_counts_the_plain_versions_units(use_dda, tf, emission):
+    """The STATS instantiation renders the same framebuffer as the render
+    path's launches and counts what the plain version counts: paths,
+    bounce and tracking-loop iterations, DDA tests, emission taps, capped
+    loop calls; its SIMT efficiencies are shares."""
+    from volren_tpu_torch.ops import tracer
+    from volren_tpu_torch.ops.kernels import oracle
+
+    dev = _cuda()
+    scene, params, cfg = _oracle_inputs(_oracle_renderer(dev, use_dda, tf, emission))
+    fb0 = torch.rand(23, 37, 4, generator=torch.Generator().manual_seed(3)).to(dev)
+    stats = {}
+    plain = tracer.trace_passes(scene, params, cfg, fb0, 2, 3, 37, 23, stats)
+    got, st = oracle.trace_stats(scene, params, cfg, fb0, 2, 3)
+    assert torch.equal(got, plain)
+    assert torch.equal(got, oracle.trace_passes(scene, params, cfg, fb0, 2, 3))
+    for key, n in stats.items():
+        assert st[key] == n, (key, st[key], n)
+    assert st["paths"] == 3 * 37 * 23 and st["capped"] == stats.get("capped", 0)
+    assert 0.0 < st["simt_bounce"] <= 1.0 and 0.0 < st["simt_track"] <= 1.0
+    assert st["blocks"] >= 1 and 0.0 <= st["tail_ms"] <= st["span_ms"]
 
 
 def test_oracle_renderer_and_cli_launch_the_kernel(tmp_path):
@@ -445,9 +494,12 @@ def test_oracle_renderer_and_cli_launch_the_kernel(tmp_path):
 
     dev = _cuda()
     r = _oracle_renderer(dev, True, False, False, 32, 32)
-    before = oracle.trace_pass.launches
-    r.trace(3)
-    assert r.last_engine == "cuda_oracle" and oracle.trace_pass.launches == before + 3
+    for spp in (3, 130):   # ceil(spp / DISPATCH_SPP) launches
+        before = oracle.trace_pass.launches
+        r.trace(spp)
+        assert r.last_engine == "cuda_oracle"
+        assert oracle.trace_pass.launches == before + -(-spp // DISPATCH_SPP)
+    assert r.sample == 133
     fb = r.framebuffer()
     assert fb.is_cuda and bool(torch.isfinite(fb).all()) and float(fb[..., :3].mean()) > 0
     grid = tmp_path / "grid.dense"
@@ -457,7 +509,7 @@ def test_oracle_renderer_and_cli_launch_the_kernel(tmp_path):
     for flags, variant in ((["--no-dda"], (False, False, False)),
                            (["--engine", "oracle"], (True, False, False))):
         before = oracle.trace_pass.launches_by_variant.get(variant, 0)
-        r, stats = cli.run([str(grid), "--render", "-w", "16", "-h", "16", "--spp", "2",
+        r, stats = cli.run([str(grid), "--render", "-w", "16", "-h", "16", "--spp", "70",
                             "--bounces", "8", "--output", str(tmp_path / "o.png"), *flags])
-        assert r.last_engine == "cuda_oracle"
-        assert oracle.trace_pass.launches_by_variant[variant] == before + 2
+        assert r.last_engine == "cuda_oracle" and r.sample == 70
+        assert oracle.trace_pass.launches_by_variant[variant] == before + 2   # 64 + 6

@@ -84,6 +84,20 @@ def test_progressive_passes_equal_one_batched_trace(random_grid16, monkeypatch):
     assert oracle.trace_pass.launches == before
 
 
+def test_split_traces_fold_in_pass_order(random_grid16):
+    """trace(5) equals trace(2) then trace(3) bitwise: each call folds its
+    passes into the running mean after the earlier calls' passes, in pass
+    order, as the kernel's launches do (one launch per call)."""
+    r = port_renderer(random_grid16, True, False, False)
+    r.init(16, 16)
+    r.render(5)
+    assert r.framebuffer().shape == (16, 16, 4)
+    whole = r.framebuffer().clone()
+    r.render(2)
+    r.trace(3)
+    assert r.sample == 5 and torch.equal(r.framebuffer(), whole)
+
+
 def test_the_step_cap_stops_loop_calls_and_is_counted(random_grid16):
     """Every tracking loop call stops after max_steps iterations with its
     state as it stands; the plain version counts those calls. The 8192 cap
@@ -148,7 +162,21 @@ def test_the_wrapper_refuses_a_config_of_another_variant(random_grid16):
     scene, params, cfg = r._scene_tables(), r._trace_params(), r._config()
     with pytest.raises(ValueError, match="variant"):
         oracle.trace_pass(scene, params, cfg._replace(use_tf=False), torch.zeros(RES, RES, 4), 1)
-    pf, pi = oracle.build_params(scene, params, cfg, RES, RES, 5)
-    assert pf[oracle.OF_WEIGHT] == np.float32(1) / np.float32(5)
+    pf, pi = oracle.build_params(scene, params, cfg, RES, RES, 5, 3)
+    assert pi[oracle.OI_FIRST_SAMPLE] == 5 and pi[oracle.OI_N_PASSES] == 3
+    assert tracer.pass_weight(5) == np.float32(1) / np.float32(5)
     assert pi[oracle.OI_IMP_LEVELS] == 10 and pi[oracle.OI_IMP_DIM] == 512
     assert pi[oracle.OI_TF_SIZE] == scene.tf.lut.shape[0] and pi[oracle.OI_EMI_N_SLOTS] == 0
+
+
+def test_schedule_variants_edit_the_shipped_source():
+    """python -m volren_tpu_torch.oracle_variants builds patched copies of
+    csrc/oracle.cu: each variant's edits find their targets in the shipped
+    source exactly once and change it (the shipped one changes nothing)."""
+    from volren_tpu_torch import oracle_variants
+
+    with open(oracle.SOURCE) as f:
+        shipped = f.read()
+    for name, edits in oracle_variants.VARIANTS.items():
+        src = oracle_variants.variant_source(edits)
+        assert (src == shipped) == (name == "shipped"), name

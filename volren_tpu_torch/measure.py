@@ -30,13 +30,17 @@ Prints:
    sample and the dispatch's events, beside the render kernel's
    CUDA-event ms on the same dispatch and its work bound from those
    events;
-7. the oracle engine (csrc/oracle.cu, ``engine = "oracle"``) with DDA
-   tracking on the same three paths: spp/s, the median of 3 x trace(16)
-   after a warm-up, and the kernel's CUDA-event ms of each of one
-   trace(16)'s passes, with the tracking loop calls its 8192-iteration cap
-   stopped, and the pass's work bound (``oracle_bound``) from the plain
-   version's counts on every 16th pixel in x and y, scaled to the image
-   (the plain version at full width would take minutes).
+7. the oracle engine (csrc/oracle.cu, ``engine = "oracle"``): with DDA
+   tracking on the same three paths at 1024x1024, trace(16), and every
+   <USE_DDA, USE_TF, HAS_EMI> instantiation at 256x256, trace(4) (the
+   global-majorant ones are --no-dda's): spp/s, the median of 3 traces
+   after a warm-up; the kernel's CUDA-event ms of the trace's launches
+   from zero, per launch and per pass, with the tracking loop calls its
+   8192-iteration cap stopped; the same passes through the kernel's STATS
+   instantiation (``oracle.trace_stats``: SIMT efficiency of the bounce
+   loop and of a tracking-loop iteration, the blocks' durations and the
+   tail, the plain version's counts), and the work bound
+   (``oracle_bound``) and its share from those counts.
    ``--oracle-only`` runs this section alone.
 
 Every line carries the card's name and power limit as nvidia-smi gives
@@ -58,7 +62,6 @@ import numpy as np
 import torch
 
 from .cli import FAU_LUT
-from .ops import tracer
 from .ops.kernels import megakernel, oracle
 from .ops.kernels.pack import build_env_pool, build_params
 from .renderer import DISPATCH_SPP, Renderer
@@ -160,13 +163,14 @@ ORACLE_OPS = {"paths": 520, "bounce_iters": 500, "iter": 130, "iter_tf": 230,
 
 
 def oracle_bound(scene, n_pix: int, stats: dict):
-    """The least time the card could take for one oracle pass, as
+    """The least time the card could take for one oracle launch, as
     ``kernel_bound`` works it out: max(bytes / peak bytes/s, float32
     operations / peak float32/s). Bytes: every table the kernel reads,
     once, and the (n_pix, 4) float32 framebuffer read and written once.
-    Operations: the loop iterations, tests, bounces and paths that the
-    plain version counted on the same inputs (``stats`` of one pass) times
-    ORACLE_OPS. Returns (ms, "bytes" | "operations", bytes, operations)."""
+    Operations: the loop iterations, tests, bounces and paths counted on
+    the same inputs (``stats``: the plain version's, or the STATS
+    instantiation's, of the launch's passes) times ORACLE_OPS. Returns
+    (ms, "bytes" | "operations", bytes, operations)."""
     g, env = scene.density, scene.env
     tables = [g.atlas, g.slot, g.lo, g.hi, g.mip_maj, env.envmap, *env.imp_mips]
     if scene.tf is not None:
@@ -188,47 +192,54 @@ def oracle_bound(scene, n_pix: int, stats: dict):
             n_bytes, ops)
 
 
-ORACLE_SPP = 16      # section 7's trace(16)
-ORACLE_STRIDE = 16   # section 7's pixel subsample for the bound
+ORACLE_SPP = 16      # section 7's trace(16) at 1024x1024
+ORACLE_RES_SMALL, ORACLE_SPP_SMALL = 256, 4   # and its trace(4) of every variant at 256x256
+ORACLE_VARIANTS = [(dda, tf, emi) for dda in (True, False) for tf in (False, True)
+                   for emi in (False, True)]
 
 
-def oracle_metric(r: Renderer, label: str, card: str, reps: int = 3) -> dict:
-    """Section 7 for one committed renderer: its oracle engine's spp/s over
-    ``reps`` x trace(ORACLE_SPP) after a warm-up, and the kernel's
-    CUDA-event ms per pass of one more trace, with the loop calls that the
-    cap stopped. Returns the numbers."""
-    r.engine = "oracle"
-    r.render(ORACLE_SPP)
+def oracle_metric(r: Renderer, label: str, card: str, spp: int = ORACLE_SPP,
+                  reps: int = 3) -> dict:
+    """Section 7 for one committed renderer with the oracle engine set: its
+    spp/s over ``reps`` x trace(spp) after a warm-up; the kernel's
+    CUDA-event ms of trace_passes(spp) from zero (the launches a trace(spp)
+    makes), median of 3; the same passes through the STATS instantiation
+    (the same framebuffer): its counters, and the work bound from them
+    (``oracle_bound``, exact for these passes). Returns the numbers."""
+    r.render(spp)
     walls = []
     for _ in range(reps):
         r.reset()
-        walls.append(_wall(lambda: r.trace(ORACLE_SPP)))
-    rates = [ORACLE_SPP / w for w in walls]
+        walls.append(_wall(lambda: r.trace(spp)))
     scene, tp, cfg = r._scene_tables(), r._trace_params(), r._config()
+    zero = torch.zeros_like(r.framebuffer())
     capped = torch.zeros(1, dtype=torch.int32, device=r.device)
-    fb, ms = torch.zeros_like(r.framebuffer()), []
-    for s in range(1, ORACLE_SPP + 1):
-        t, fb = _event_ms(lambda: oracle.trace_pass(scene, tp, cfg, fb, s, capped=capped))
-        ms.append(t)
+    before = oracle.trace_pass.launches
+    fb = oracle.trace_passes(scene, tp, cfg, zero, 1, spp, capped=capped)
+    launches = oracle.trace_pass.launches - before
+    ms = sorted(_event_ms(lambda: oracle.trace_passes(scene, tp, cfg, zero, 1, spp))[0]
+                for _ in range(3))
+    got, st = oracle.trace_stats(scene, tp, cfg, zero, 1, spp)
+    if not torch.equal(got, fb):
+        raise AssertionError(f"{label}: the STATS instantiation's framebuffer differs")
     w, h = r._width, r._height
-    ys, xs = torch.meshgrid(torch.arange(0, h, ORACLE_STRIDE, dtype=torch.int32),
-                            torch.arange(0, w, ORACLE_STRIDE, dtype=torch.int32), indexing="ij")
-    xy = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1).to(r.device)
-    stats = {}
-    tracer.trace_sample(scene, tp, cfg, xy, (w, h), 1, stats)
-    scale = w * h / xy.shape[0]
-    bound_ms, bound_by, _, n_ops = oracle_bound(scene, w * h,
-                                                {k: n * scale for k, n in stats.items()})
-    out = {"spp_s": ORACLE_SPP / statistics.median(walls), "rates": rates, "pass_ms": ms,
-           "capped": int(capped), "mean": r.framebuffer().mean((0, 1)).tolist(),
-           "bound_ms": bound_ms, "bound_by": bound_by}
-    print(f"oracle spp/s, {label} {w}x{h}, {r.bounces} bounces, {reps} x "
-          f"trace({ORACLE_SPP}): median {out['spp_s']!r}, all {rates!r}; kernel ms per pass "
-          f"median {statistics.median(ms)!r}, all {ms!r}; bound {bound_ms!r} ms by {bound_by} "
-          f"({n_ops!r} f32 operations, from the plain version's counts on 1 in "
-          f"{ORACLE_STRIDE * ORACLE_STRIDE} pixels {stats}); loop calls capped at "
-          f"{cfg.max_steps}: {out['capped']}; framebuffer mean {out['mean']!r}; engine "
-          f"{r.last_engine} [{card}]", flush=True)
+    bound_ms, bound_by, _, n_ops = oracle_bound(scene, w * h, st)
+    out = {"spp_s": spp / statistics.median(walls), "rates": [spp / x for x in walls],
+           "launch_ms": ms[1] / launches, "pass_ms": ms[1] / spp,
+           "launches": launches, "capped": int(capped), "bound_ms": bound_ms,
+           "bound_by": bound_by, "share": bound_ms / ms[1], "stats": st,
+           "mean": r.framebuffer().mean((0, 1)).tolist()}
+    counts = {k: v for k, v in st.items() if isinstance(v, int)}
+    print(f"oracle, {label} {w}x{h}, {r.bounces} bounces, {reps} x trace({spp}): spp/s median "
+          f"{out['spp_s']!r}, all {out['rates']!r}; trace_passes(1, {spp}) from zero: "
+          f"{launches} launch(es), kernel ms {ms!r} (CUDA events), {out['launch_ms']!r} ms a "
+          f"launch, {out['pass_ms']!r} ms a pass; bound {bound_ms!r} ms by {bound_by} "
+          f"({n_ops!r} f32 operations from the STATS counts), share {out['share']!r}; SIMT "
+          f"efficiency bounce loop {st['simt_bounce']!r}, tracking loop {st['simt_track']!r}; "
+          f"{st['blocks']} blocks, block ms min/median/max {st['block_ms']!r}, span "
+          f"{st['span_ms']!r} ms, tail {st['tail_ms']!r} ms; counts "
+          f"{counts}; loop calls capped at {cfg.max_steps}: {out['capped']}; framebuffer mean "
+          f"{out['mean']!r}; engine {r.last_engine} [{card}]", flush=True)
     return out
 
 
@@ -428,8 +439,17 @@ def main(argv=None) -> int:
 def oracle_section(renderer, card: str):
     print(f"ptxas oracle <USE_DDA,USE_TF,HAS_EMI>: {oracle.resource_usage(oracle.build())}",
           flush=True)
-    for path in ("plain", "tf", "emission"):
-        oracle_metric(renderer(RES, path=path), f"cloud512 {path}", card)
+    paths = {(False, False): "plain", (True, False): "tf", (False, True): "emission",
+             (True, True): "tf+emission"}
+    runs = [(RES, (True, tf, emi), ORACLE_SPP) for tf, emi in list(paths)[:3]]
+    runs += [(ORACLE_RES_SMALL, v, ORACLE_SPP_SMALL) for v in ORACLE_VARIANTS]
+    for res, (dda, tf, emi), spp in runs:
+        r = renderer(res, path=paths[(tf, emi)])
+        r.engine = "oracle"
+        r._use_dda = dda
+        oracle_metric(r, f"cloud512 {paths[(tf, emi)]} <{int(dda)},{int(tf)},{int(emi)}>", card,
+                      spp)
+        del r
         torch.cuda.empty_cache()
 
 

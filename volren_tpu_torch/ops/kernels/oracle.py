@@ -1,16 +1,19 @@
-"""The oracle engine's pass: ``trace_pass`` launches the CUDA kernel
-(``volren_tpu_torch/csrc/oracle.cu``) on CUDA tensors and runs its plain
-torch version, ``volren_tpu_torch.ops.tracer.trace_pass``, on CPU tensors.
+"""The oracle engine's passes: ``trace_passes`` (and ``trace_pass``, one
+pass) launches the CUDA kernel (``volren_tpu_torch/csrc/oracle.cu``) on
+CUDA tensors and runs its plain torch version,
+``volren_tpu_torch.ops.tracer.trace_passes``, on CPU tensors.
 
-Both compute one progressive pass of volren_tpu.ops.tracer.trace_pass,
-the JAX package's GLSL-order path tracer: every pixel traces one path
-seeded from (pixel, sample), with delta / ratio tracking against the
+Both compute progressive passes of volren_tpu.ops.tracer.trace_pass, the
+JAX package's GLSL-order path tracer: every pixel traces one path per
+pass seeded from (pixel, sample), with delta / ratio tracking against the
 global majorant or DDA tracking over the majorant pyramid
 (``TraceConfig.use_dda``), NEE through the hierarchical environment warp,
-and the running-mean update of the framebuffer. The kernel is one thread
-per pixel and repeats the plain version's arithmetic operation for
-operation, so on the card the two framebuffers are bitwise equal. Its
-eight instantiations are <USE_DDA, USE_TF, HAS_EMI>.
+and the running-mean update of the framebuffer, pass after pass. The
+kernel traces all of a call's passes in one launch, (pixel, pass) items on
+a warp's lanes folded in pass order, and repeats the plain version's
+arithmetic operation for operation, so on the card the two framebuffers
+are bitwise equal. Its eight instantiations are <USE_DDA, USE_TF,
+HAS_EMI>; ``trace_stats`` runs their STATS twins.
 """
 
 from __future__ import annotations
@@ -51,13 +54,12 @@ OF_ENV_INV = 85         # 9
 OF_ENV_STRENGTH = 94
 OF_TF_LEFT = 95
 OF_TF_WIDTH = 96
-OF_WEIGHT = 97          # 1 / current_sample
 OF_SIZE = 100
 
 # pi (OI_SIZE,) int32 slots
 OI_WIDTH = 0
 OI_HEIGHT = 1
-OI_SAMPLE = 2           # current_sample, 1-based
+OI_FIRST_SAMPLE = 2     # the launch's first sample, 1-based
 OI_BOUNCES = 3
 OI_SEED = 4             # uint32 bit pattern
 OI_SHOW_ENV = 5
@@ -73,12 +75,15 @@ OI_TF_SIZE = 30         # LUT bins; 0 = no TF
 OI_EMI_N_BRICKS = 31    # 3
 OI_EMI_N_SLOTS = 34     # 0 = no emission
 OI_N_SLOTS = 35
+OI_N_PASSES = 36        # passes of the launch: samples first .. first + n - 1
 OI_SIZE = 40
 
 
 def build_params(scene: SceneTables, params: TraceParams, cfg: TraceConfig, width: int,
-                 height: int, current_sample: int):
-    """(pf, pi) host arrays for one pass."""
+                 height: int, first_sample: int, n_passes: int = 1):
+    """(pf, pi) host arrays for a launch of ``n_passes`` passes from sample
+    ``first_sample`` on. The kernel computes each pass's weight, 1 /
+    sample in float32 (``tracer.pass_weight``)."""
     f32 = np.float32
     pf = np.zeros(OF_SIZE, f32)
     pf[OF_CAM_POS:OF_CAM_POS + 3] = params.cam_pos
@@ -99,10 +104,10 @@ def build_params(scene: SceneTables, params: TraceParams, cfg: TraceConfig, widt
     pf[OF_ENV_XFORM:OF_ENV_XFORM + 9] = np.asarray(env.transform, f32).reshape(-1)
     pf[OF_ENV_INV:OF_ENV_INV + 9] = np.asarray(env.inv_transform, f32).reshape(-1)
     pf[OF_ENV_STRENGTH] = env.strength
-    pf[OF_WEIGHT] = _tracer.pass_weight(current_sample)
     pi = np.zeros(OI_SIZE, np.int32)
     pi[OI_WIDTH], pi[OI_HEIGHT] = width, height
-    pi[OI_SAMPLE] = current_sample
+    pi[OI_FIRST_SAMPLE] = first_sample
+    pi[OI_N_PASSES] = n_passes
     pi[OI_BOUNCES] = params.bounces
     pi[OI_SEED] = np.array(params.seed, np.uint32).view(np.int32)
     pi[OI_SHOW_ENV] = 1 if int(params.show_environment) > 0 else 0
@@ -150,23 +155,25 @@ def build(flags: list[str] = NVCC_FLAGS, source: str = SOURCE) -> str:
 
 
 def _variant_name(kernel: str) -> str:
-    flags = re.search(r"ILb([01])ELb([01])ELb([01])E", kernel)
+    flags = re.search(r"ILb([01])ELb([01])ELb([01])ELb([01])E", kernel)
     if not flags:
         return kernel
-    return f"<{flags.group(1)},{flags.group(2)},{flags.group(3)}>"
+    return (f"<{flags.group(1)},{flags.group(2)},{flags.group(3)}>"
+            + (" stats" if flags.group(4) == "1" else ""))
 
 
 def resource_usage(lib_path: str) -> str:
     """ptxas's register, stack and spill lines for the library at
     ``lib_path``, one entry per instantiation, named by its <USE_DDA,
-    USE_TF, HAS_EMI> template arguments."""
+    USE_TF, HAS_EMI> template arguments ("stats" for the STATS ones)."""
     return "; ".join(_build.resource_usage(lib_path, _variant_name))
 
 
 def load(lib_path: str) -> ctypes.CDLL:
     """Load a built library and declare its C entry point."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.load(lib_path, {"volren_oracle_pass": [p, p, i] + [p] * 16})
+    return _build.load(lib_path, {"volren_oracle_trace": [p, p, i] + [p] * 19,
+                                  "volren_oracle_blocks": [i] * 7})
 
 
 def _lib():
@@ -212,8 +219,9 @@ def _imp_table(env) -> torch.Tensor:
 
 
 def _launch_cuda(scene: SceneTables, params: TraceParams, cfg: TraceConfig,
-                 framebuffer: torch.Tensor, current_sample: int,
-                 capped: torch.Tensor | None = None) -> torch.Tensor:
+                 framebuffer: torch.Tensor, first_sample: int, n_passes: int,
+                 capped: torch.Tensor | None = None, stats: torch.Tensor | None = None,
+                 btimes: torch.Tensor | None = None) -> torch.Tensor:
     use_dda, use_tf, has_emi = _variant(scene, cfg)
     h, w = int(framebuffer.shape[0]), int(framebuffer.shape[1])
     _check(framebuffer, "framebuffer", torch.float32, (h, w, 4))
@@ -234,16 +242,22 @@ def _launch_cuda(scene: SceneTables, params: TraceParams, cfg: TraceConfig,
         ptrs[1:] = [t.data_ptr() for t in (e.atlas, e.slot, e.lo, e.hi)]
     if capped is not None:
         _check(capped, "capped", torch.int32, (1,))
-    pf, pi = build_params(scene, params, cfg, w, h, current_sample)
+    pf, pi = build_params(scene, params, cfg, w, h, first_sample, n_passes)
     out = torch.empty_like(framebuffer)
+    # the persistent blocks' group counter, 0 at the launch
+    next_group = torch.zeros(1, dtype=torch.int32, device=framebuffer.device)
     stream = torch.cuda.current_stream(framebuffer.device).cuda_stream
-    err = _lib().volren_oracle_pass(
+    err = _lib().volren_oracle_trace(
         pf.ctypes.data, pi.ctypes.data, int(use_dda), g.atlas.data_ptr(), g.slot.data_ptr(),
         g.lo.data_ptr(), g.hi.data_ptr(), g.mip_maj.data_ptr(), env.envmap.data_ptr(),
         imp.data_ptr(), *ptrs, framebuffer.data_ptr(), out.data_ptr(),
-        0 if capped is None else capped.data_ptr(), stream)
+        0 if capped is None else capped.data_ptr(), next_group.data_ptr(),
+        0 if stats is None else stats.data_ptr(), 0 if btimes is None else btimes.data_ptr(),
+        stream)
     if err != 0:
         raise RuntimeError(f"oracle launch failed: CUDA error {err}")
+    if stats is not None:
+        return out
     trace_pass.launches += 1
     variant = (use_dda, use_tf, has_emi)
     trace_pass.launches_by_variant[variant] = trace_pass.launches_by_variant.get(variant, 0) + 1
@@ -254,13 +268,7 @@ def trace_pass(scene: SceneTables, params: TraceParams, cfg: TraceConfig,
                framebuffer: torch.Tensor, current_sample: int,
                capped: torch.Tensor | None = None) -> torch.Tensor:
     """One progressive pass over the (H, W, 4) float32 ``framebuffer``
-    (sample ``current_sample``, 1-based); returns the updated running mean
-    as a new tensor. CUDA tensors launch the CUDA kernel's variant for the
-    pass (and add one to ``trace_pass.launches`` and to
-    ``trace_pass.launches_by_variant[(use_dda, use_tf, has_emi)]``); an
-    int32 ``capped`` tensor of one element on the card gains the tracking
-    loop calls that ``cfg.max_steps`` stopped. CPU tensors run the plain
-    version."""
+    (sample ``current_sample``, 1-based): ``trace_passes`` of one pass."""
     return trace_passes(scene, params, cfg, framebuffer, current_sample, 1, capped=capped)
 
 
@@ -271,22 +279,83 @@ trace_pass.launches_by_variant = {}
 def trace_passes(scene: SceneTables, params: TraceParams, cfg: TraceConfig,
                  framebuffer: torch.Tensor, first_sample: int, n_passes: int,
                  stats: dict | None = None, capped: torch.Tensor | None = None) -> torch.Tensor:
-    """``n_passes`` passes from sample ``first_sample`` on: one kernel
-    launch per pass on CUDA tensors; on CPU tensors the plain version,
-    several passes' lanes at once (``tracer.trace_passes``), with
-    ``stats`` counting its loop iterations and capped loop calls. The
-    same framebuffer either way as ``n_passes`` calls of ``trace_pass``
-    (``capped`` as there)."""
-    first_sample = int(first_sample)
+    """``n_passes`` progressive passes over the (H, W, 4) float32
+    ``framebuffer``, samples ``first_sample`` (1-based) on, each folded into
+    the running mean in turn; returns it as a new tensor. CUDA tensors
+    launch the CUDA kernel's variant once for all the passes (and add one
+    to ``trace_pass.launches`` and to
+    ``trace_pass.launches_by_variant[(use_dda, use_tf, has_emi)]``); an
+    int32 ``capped`` tensor of one element on the card gains the tracking
+    loop calls that ``cfg.max_steps`` stopped. CPU tensors run the plain
+    version, several passes' lanes at once (``tracer.trace_passes``), with
+    ``stats`` counting its loop iterations and capped loop calls
+    (``trace_stats`` counts the same on the card). The same framebuffer
+    either way as ``n_passes`` calls of ``trace_pass``."""
+    first_sample, n_passes = int(first_sample), int(n_passes)
+    if first_sample < 1 or n_passes < 0:
+        raise ValueError(f"passes {n_passes} from sample {first_sample}: samples are 1-based")
     if framebuffer.is_cuda:
         if stats is not None:
-            raise ValueError("stats are counted by the plain version only")
-        for k in range(n_passes):
-            framebuffer = _launch_cuda(scene, params, cfg, framebuffer, first_sample + k, capped)
-        return framebuffer
+            raise ValueError("stats are counted by the plain version; trace_stats on the card")
+        if n_passes == 0:
+            return framebuffer.clone()
+        return _launch_cuda(scene, params, cfg, framebuffer, first_sample, n_passes, capped)
     if framebuffer.device.type != "cpu":
         raise ValueError(f"unsupported device {framebuffer.device}")
     _variant(scene, cfg)
     h, w = int(framebuffer.shape[0]), int(framebuffer.shape[1])
     return _tracer.trace_passes(scene, params, cfg, framebuffer, first_sample, n_passes, w, h,
                                 stats)
+
+
+# the STATS instantiation's counters, in csrc/oracle.cu's order
+STATS = ("paths", "bounce_iters", "sample_volume", "transmittance", "sample_volume_tests",
+         "transmittance_tests", "emission", "capped", "bounce_issues", "track_issues")
+
+
+def trace_stats(scene: SceneTables, params: TraceParams, cfg: TraceConfig,
+                framebuffer: torch.Tensor, first_sample: int,
+                n_passes: int) -> tuple[torch.Tensor, dict]:
+    """``trace_passes`` of ``n_passes`` >= 1 through the kernel's STATS
+    instantiation: the same framebuffer from one launch (never launched by
+    a render path, not counted in ``trace_pass.launches``). Returns the
+    framebuffer and the counters: what the plain version's ``stats``
+    counts, under its names (``paths``, ``bounce_iters``, the tracking
+    loops' ``*_iters`` and, with DDA, ``*_dda_tests``, ``emission``,
+    ``capped``); ``simt_bounce`` and ``simt_track``, the lanes over 32 x
+    the warp-level issues of the bounce loop's body and of a tracking-loop
+    iteration; and from each block's (start, end) on the card's
+    %globaltimer: ``blocks``, ``block_ms`` (min, median, max duration),
+    ``span_ms`` (first start to last end) and ``tail_ms`` (from the moment
+    a block's place on an SM goes idle for good -- the last block's start,
+    or the first block's end if that is later -- to the last end)."""
+    if not framebuffer.is_cuda:
+        raise ValueError("trace_stats runs the CUDA kernel: the framebuffer must be on the card")
+    dev = framebuffer.device
+    h, w = int(framebuffer.shape[0]), int(framebuffer.shape[1])
+    use_dda, use_tf, has_emi = _variant(scene, cfg)
+    n_blocks = _lib().volren_oracle_blocks(w, h, int(n_passes), int(use_dda), int(use_tf),
+                                           int(has_emi), 1)
+    counters = torch.zeros(len(STATS), dtype=torch.int64, device=dev)
+    btimes = torch.zeros(n_blocks, 2, dtype=torch.int64, device=dev)
+    framebuffer = _launch_cuda(scene, params, cfg, framebuffer, int(first_sample), int(n_passes),
+                               stats=counters, btimes=btimes)
+    bt = btimes.cpu().numpy()
+    bt = bt[bt[:, 1] > 0]            # blocks with a live warp
+    dur = (bt[:, 1] - bt[:, 0]) / 1e6
+    c = dict(zip(STATS, counters.tolist()))
+    dda = "_dda" if cfg.use_dda else ""
+    st = {"paths": c["paths"], "bounce_iters": c["bounce_iters"],
+          f"sample_volume{dda}_iters": c["sample_volume"],
+          f"transmittance{dda}_iters": c["transmittance"], "emission": c["emission"],
+          "capped": c["capped"]}
+    if cfg.use_dda:
+        st["sample_volume_dda_tests"] = c["sample_volume_tests"]
+        st["transmittance_dda_tests"] = c["transmittance_tests"]
+    st["simt_bounce"] = c["bounce_iters"] / max(32 * c["bounce_issues"], 1)
+    st["simt_track"] = (c["sample_volume"] + c["transmittance"]) / max(32 * c["track_issues"], 1)
+    st.update(blocks=int(len(bt)),
+              block_ms=(float(dur.min()), float(np.median(dur)), float(dur.max())),
+              span_ms=float(bt[:, 1].max() - bt[:, 0].min()) / 1e6,
+              tail_ms=float(bt[:, 1].max() - max(bt[:, 0].max(), bt[:, 1].min())) / 1e6)
+    return framebuffer, st

@@ -83,6 +83,21 @@ class Context:
         return start.elapsed_time(end) / reps
 
 
+def interleaved_ms(ctx: Context, fns: dict, rounds: int = 101, reps: int = 20) -> dict:
+    """Each of ``fns`` (name -> callable) timed in turns: ``rounds``
+    rounds of ``ctx.time_ms(fn, reps)`` per fn, in alternating order (A B,
+    then B A). Returns name -> {"median", "p10", "p90", "min", "max"} of
+    the rounds' ms per call: the median and its spread."""
+    times: dict = {name: [] for name in fns}
+    order = list(fns)
+    for i in range(rounds):
+        for name in (order if i % 2 == 0 else order[::-1]):
+            times[name].append(ctx.time_ms(fns[name], reps))
+    return {name: {"median": float(np.median(t)), "p10": float(np.percentile(t, 10)),
+                   "p90": float(np.percentile(t, 90)), "min": float(min(t)),
+                   "max": float(max(t))} for name, t in times.items()}
+
+
 def marginal(ctx: Context, run: Callable[[int], object], lo: int, hi: int, reps: int = 5):
     """(ms at ``lo`` iterations, ms at ``hi``, ms per extra iteration) of
     ``run(iterations)``: the probes' marginal between two counts, which

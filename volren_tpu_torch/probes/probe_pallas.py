@@ -4,6 +4,8 @@ float table, and a loop of launches.
 
 P0 one launch of x * 2 (affine_loop, one step): the device's time per
    back-to-back launch, and (host_ms_per_call) with the host's enqueueing;
+   (vs_library) the median and spread of 101 rounds taken in turns with
+   PyTorch's x * 2;
 P1 marginal ms per in-kernel step, 256 vs 4096 steps of x = x * 1.0000001
    + 1e-6 on (256, 512);
 P2 the same with the trip count read from device memory by the kernel;
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import probes as K
-from ._common import Context, marginal, require
+from ._common import Context, interleaved_ms, marginal, require
 
 PROBE, KEY = "pallas", "stage"
 SHAPE = (256, 512)
@@ -34,7 +36,10 @@ def p0(ctx: Context):
     require(float(got[0, 0]) == 6.0, "x * 2 is wrong")
     ms = ctx.time_ms(lambda: K.affine_loop(x, 1, a=2.0, b=0.0), reps=200)
     host_ms = ctx.time_ms(lambda: K.affine_loop(x, 1, a=2.0, b=0.0), reps=200, hide_host=False)
-    return {"ms_per_call": ms, "host_ms_per_call": host_ms}
+    # the kernel against PyTorch's own x * 2, in turns
+    turns = interleaved_ms(ctx, {"kernel": lambda: K.affine_loop(x, 1, a=2.0, b=0.0),
+                                 "x * 2": lambda: x * 2.0})
+    return {"ms_per_call": ms, "host_ms_per_call": host_ms, "vs_library": turns}
 
 
 def p1(ctx: Context):

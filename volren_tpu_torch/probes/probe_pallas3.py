@@ -6,7 +6,8 @@ W1/W6 per lane of an (R, 128) block, T[i, lcg % 128] summed over iters, R
 W2    the same on an (8, 16384) wide row;
 W3    axis-0 gather T[idx[i, j], j] at (8, 128) and (32, 128) (gather);
 W4    transposes (128, 1024), (1024, 128), (8, 1024) (index_copy, tiled
-      through shared memory);
+      through shared memory); the first also in turns with PyTorch's
+      .t().contiguous() (median and spread of 101 rounds);
 W7    T[r, c] for 1024 lanes with r and c from the LCG, from (3584, 128)
       (lcg_gather_sum, "rc"; the TPU's one-hot MXU row fetch and select
       are one load here).
@@ -18,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..ops.kernels import probes as K
-from ._common import Context, lcg_np, marginal, relerr, require, seeds_np, total
+from ._common import (Context, interleaved_ms, lcg_np, marginal, relerr, require, seeds_np,
+                      total)
 
 PROBE, KEY = "pallas3", "stage"
 ATLAS_R = 3584
@@ -80,6 +82,10 @@ def w4(ctx: Context):
                 f"{a}x{b} wrong")
         res[f"{a}x{b}"] = "ok"
         res[f"{a}x{b}_ms"] = ctx.time_ms(lambda: K.index_copy(t, "transpose"), reps=100)
+        if (a, b) == W4_SHAPES[0]:   # against PyTorch's own transpose, in turns
+            res[f"{a}x{b}_vs_library"] = interleaved_ms(
+                ctx, {"kernel": lambda: K.index_copy(t, "transpose"),
+                      ".t().contiguous()": lambda: t.t().contiguous()})
     return res
 
 

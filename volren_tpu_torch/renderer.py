@@ -12,8 +12,9 @@ choice follows ``device`` and is recorded in ``last_engine``.
 
 ``engine = "oracle"`` traces with the oracle engine instead
 (volren_tpu.ops.tracer, the GLSL-order tracer): one progressive pass per
-sample, each one launch of ``csrc/oracle.cu`` on a CUDA device
-(``ops/kernels/oracle.py``) or its plain torch version on the CPU. It is
+sample, up to DISPATCH_SPP of them in one launch of ``csrc/oracle.cu`` on a
+CUDA device (``ops/kernels/oracle.py``), or its plain torch version on the
+CPU. It is
 the only engine with the global-majorant estimators, delta and ratio
 tracking: ``_use_dda = False`` selects them, and the megakernel engine,
 DDA-only, refuses to trace with it.
@@ -253,16 +254,22 @@ class Renderer:
         (renderer.cpp:78-145): with the megakernel, in dispatches of at
         most DISPATCH_SPP, the tables (and a TF majorant table) set up once
         per trace; with the oracle, one pass per sample
-        (volren_tpu/renderer.py:700-711)."""
+        (volren_tpu/renderer.py:700-711), in launches of at most
+        DISPATCH_SPP passes."""
         if not self._density_grids:
             self.commit()
         spp = int(spp)
         if self._engine == ORACLE:
-            with torch.profiler.record_function("volren_tpu_torch.oracle"):
-                self._fb = oracle.trace_passes(self._scene_tables(), self._trace_params(),
-                                               self._config(), self._fb, self.sample + 1, spp)
-            self.last_engine = "cuda_oracle" if self.device.type == "cuda" else "torch_oracle"
-            self.sample += spp
+            scene, params, cfg = self._scene_tables(), self._trace_params(), self._config()
+            while spp > 0:
+                n = min(DISPATCH_SPP, spp)
+                with torch.profiler.record_function("volren_tpu_torch.oracle"):
+                    self._fb = oracle.trace_passes(scene, params, cfg, self._fb, self.sample + 1,
+                                                   n)
+                self.last_engine = ("cuda_oracle" if self.device.type == "cuda"
+                                    else "torch_oracle")
+                self.sample += n
+                spp -= n
             return
         if not self._use_dda:
             raise NotImplementedError("the megakernel engine is DDA-only; use engine='oracle' "
