@@ -80,7 +80,9 @@ of which raises on failure (exit code non-zero, no result line):
    bounces, the path's launch of 16 passes from zero again: bitwise the
    render's framebuffer, timed, through the STATS instantiation (the same
    framebuffer, 0 capped loop calls, the counts for the bound), and
-   bitwise the plain version's 16 passes on 1 pixel in 64; (3) the other
+   bitwise the plain version's 16 passes on 1 pixel in 64, picked to reach
+   every position of a group tile (the launch's groups of 64 items, from
+   the STATS counts); (3) the other
    seven instantiations on user paths at 256x256, 4 spp each through
    Renderer (--no-dda's delta and ratio tracking with and without --fau
    and emission, the DDA oracle with --fau, with emission and with both),
@@ -90,7 +92,7 @@ of which raises on failure (exit code non-zero, no result line):
    emission weighting (volren_tpu/ops/tracking.py:12-19), which counts
    less emission -- and each renderer's launch held as in (2), against
    the plain version on 1 pixel in 4 for DDA and 1 in 256 for delta
-   tracking (its plain loops run long). The kernels line's oracle entries
+   tracking (its plain loops run long; groups of 32 items). The kernels line's oracle entries
    come from (2) and (3): ms of the path's launch (CUDA events) and ms a
    pass, its bound from the STATS counts and the share, the launches of
    the path's run, and the plain version's host-clock ms.
@@ -161,6 +163,12 @@ ORACLE_LAUNCHES = (1, 2, 5, 33)            # 10.1: passes of the launches, one a
 ORACLE_RES_SMALL, ORACLE_SPP_SMALL = 256, 4
 # the plain version's pixels: 1 in ORACLE_STRIDE_* squared (10.2, 10.3 DDA, 10.3 delta)
 ORACLE_STRIDE_MAIN, ORACLE_STRIDE_DDA, ORACLE_STRIDE_DELTA = 8, 2, 16
+# the widest group tile (8 x 4 pixels): the picked pixels reach every
+# position of a tile, so every lane that folds a pixel is checked
+ORACLE_TILE_SPAN = 8
+# a group's items on the launches held to the plain version (10.2: the
+# launch keeps 8 groups a resident warp; 10.3: it does not)
+ORACLE_ITEMS_MAIN, ORACLE_ITEMS_SMALL = 64, 32
 ORACLE_REPLACES = "volren_tpu/ops/tracer.py:154 (trace_pass; XLA, no pallas_call)"
 ORACLE_VARIANTS = [(dda, tf, emi) for dda in (True, False) for tf in (False, True)
                    for emi in (False, True)]
@@ -470,6 +478,15 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
     return tf_emission
 
 
+def _spread(n, stride):
+    """Every ``stride``-th of ``n`` coordinates, each shifted within its
+    stride so that the picks reach every residue mod ORACLE_TILE_SPAN."""
+    import numpy as np
+
+    k = np.arange(n // stride)
+    return k * stride + (k // max(1, ORACLE_TILE_SPAN // stride)) % stride
+
+
 def _path_name(tf, emi):
     return {(False, False): "plain", (True, False): "tf", (False, True): "emission",
             (True, True): "tf+emission"}[(tf, emi)]
@@ -479,6 +496,7 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
     """Phase 10 (see the module's docstring). ``scenes``: phase 3's
     (name, dense) pairs; ``path_means``: phase 5's megakernel image mean
     (rgb) of the plain path. Returns the kernels line's oracle entries."""
+    import numpy as np
     import torch
 
     from volren_tpu_torch import cli
@@ -505,14 +523,15 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
     def rgb_mean(fb):
         return float(fb[..., :3].mean())
 
-    def hold(name, r, v, spp, stride):
+    def hold(name, r, v, spp, stride, items):
         """The path's launch of ``spp`` passes from zero on its committed
         renderer (the launch its render made: bitwise its framebuffer),
-        against the plain version's passes on every ``stride``-th pixel in
-        x and y, bitwise; timed in CUDA events (the plain version on the
-        host clock); and through the STATS instantiation, which must trace
-        the same framebuffer. 0 capped loop calls in all three. The bound
-        from the STATS counts. Records the kernels line's numbers."""
+        against the plain version's passes on 1 in ``stride`` pixels in x
+        and y (``_spread``: every position of a group tile), bitwise; timed
+        in CUDA events (the plain version on the host clock); and through
+        the STATS instantiation, which must trace the same framebuffer in
+        groups of ``items`` items. 0 capped loop calls in all three. The
+        bound from the STATS counts. Records the kernels line's numbers."""
         scene, tp, cfg = r._scene_tables(), r._trace_params(), r._config()
         if (cfg.use_dda, cfg.use_tf, cfg.has_emission) != v:
             raise AssertionError(f"{name} {label(v)}: the renderer set up {cfg}")
@@ -525,9 +544,15 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
         if not (torch.equal(fb, r.framebuffer()) and torch.equal(got, fb)):
             raise AssertionError(f"{name} {label(v)}: the launch of {spp} passes, its STATS twin "
                                  f"and the render's framebuffer differ")
-        ys, xs = torch.meshgrid(torch.arange(0, h, stride, device=dev),
-                                torch.arange(0, w, stride, device=dev), indexing="ij")
-        ys, xs = ys.reshape(-1), xs.reshape(-1)
+        if st["paths"] != items * st["groups"]:
+            raise AssertionError(f"{name} {label(v)}: {st['paths']} items in {st['groups']} "
+                                 f"groups, not groups of {items}")
+        ys, xs = np.meshgrid(_spread(h, stride), _spread(w, stride), indexing="ij")
+        span = ORACLE_TILE_SPAN
+        if len(set(zip((ys % span).ravel(), (xs % span).ravel()))) != span * span:
+            raise AssertionError(f"{name}: the picked pixels miss a position of a group tile")
+        ys = torch.from_numpy(ys.reshape(-1)).to(dev)
+        xs = torch.from_numpy(xs.reshape(-1)).to(dev)
         xy = torch.stack([xs, ys], -1).to(torch.int32).repeat(spp, 1)
         samples = torch.arange(1, spp + 1, device=dev).repeat_interleave(len(ys))
         stats = {}
@@ -551,7 +576,8 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
         bound_ms, bound_by, n_bytes, n_ops = oracle_bound(scene, w * h, st)
         counts = {key: n for key, n in st.items() if isinstance(n, int)}
         print(f"oracle kernel vs plain [{name} {label(v)}, {w}x{h}, {tp.bounces} bounces, a "
-              f"launch of {spp} passes from zero, 1 in {stride * stride} pixel(s): {len(ys)}]: "
+              f"launch of {spp} passes from zero in groups of {items} items, 1 in "
+              f"{stride * stride} pixel(s) reaching every position of a tile: {len(ys)}]: "
               f"max abs {err!r}, bitwise identical pixels {same!r}; kernel {ms!r} ms a launch, "
               f"{ms / spp!r} ms a pass (CUDA events), plain {plain_ms!r} ms for its {len(xy)} "
               f"lanes (host clock); bound {bound_ms!r} ms by {bound_by} ({n_bytes} bytes, "
@@ -651,7 +677,7 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
         raise AssertionError(f"the oracle path's image mean {mean!r} is not within 5% of the "
                              f"megakernel's {ref!r}")
     # the path's launch, scene, sky and bounces against the plain version
-    hold("cloud512 oracle path", r, main_v, ORACLE_SPP, ORACLE_STRIDE_MAIN)
+    hold("cloud512 oracle path", r, main_v, ORACLE_SPP, ORACLE_STRIDE_MAIN, ORACLE_ITEMS_MAIN)
     del r, fb
     torch.cuda.empty_cache()
 
@@ -701,7 +727,7 @@ def oracle_phase(seed, sky_path, sky, gpu_line, cuda_ms, host_ms, scenes, path_m
         # half the pixels in x and y for DDA; delta tracking's long loops
         # keep its plain version to 1 pixel in 256
         hold(f"cloud512 {path}", r, v, ORACLE_SPP_SMALL,
-             ORACLE_STRIDE_DDA if v[0] else ORACLE_STRIDE_DELTA)
+             ORACLE_STRIDE_DDA if v[0] else ORACLE_STRIDE_DELTA, ORACLE_ITEMS_SMALL)
         del r, fb
         torch.cuda.empty_cache()
     print(f"phase 10 (the oracle engine) took {time.time() - t_phase!r} s", flush=True)

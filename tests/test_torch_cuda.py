@@ -484,6 +484,7 @@ def test_oracle_stats_instantiation_counts_the_plain_versions_units(use_dda, tf,
     for key, n in stats.items():
         assert st[key] == n, (key, st[key], n)
     assert st["paths"] == 3 * 37 * 23 and st["capped"] == stats.get("capped", 0)
+    assert st["groups"] == 10 * 6   # 4 x 4 pixel tiles of 3 passes: 32-item groups
     assert 0.0 < st["simt_bounce"] <= 1.0 and 0.0 < st["simt_track"] <= 1.0
     assert st["blocks"] >= 1 and 0.0 <= st["tail_ms"] <= st["span_ms"]
 

@@ -169,14 +169,11 @@ def test_the_wrapper_refuses_a_config_of_another_variant(random_grid16):
     assert pi[oracle.OI_TF_SIZE] == scene.tf.lut.shape[0] and pi[oracle.OI_EMI_N_SLOTS] == 0
 
 
-def test_schedule_variants_edit_the_shipped_source():
-    """python -m volren_tpu_torch.oracle_variants builds patched copies of
-    csrc/oracle.cu: each variant's edits find their targets in the shipped
-    source exactly once and change it (the shipped one changes nothing)."""
-    from volren_tpu_torch import oracle_variants
-
-    with open(oracle.SOURCE) as f:
-        shipped = f.read()
-    for name, edits in oracle_variants.VARIANTS.items():
-        src = oracle_variants.variant_source(edits)
-        assert (src == shipped) == (name == "shipped"), name
+def test_trace_stats_needs_a_pass(random_grid16):
+    """The STATS twin traces at least one pass: a launch of none would
+    leave its framebuffer unwritten and time no block."""
+    r = port_renderer(random_grid16, True, False, False)
+    scene, params, cfg = r._scene_tables(), r._trace_params(), r._config()
+    for n in (0, -1):
+        with pytest.raises(ValueError, match="at least one pass"):
+            oracle.trace_stats(scene, params, cfg, torch.zeros(RES, RES, 4), 1, n)

@@ -51,12 +51,11 @@
 // pixels. The warps of persistent blocks (as many as fit on the card) take
 // groups from one global counter, so no SM idles while groups remain, and
 // the n passes of a launch pay one launch and one tail instead of n. The
-// register bound keeps 8 blocks (32 warps) resident per SM. Each
-// block stages the importance pyramid's levels of 64 x 64 and coarser
-// (5,461 floats for a 512 x 512 pyramid) in shared memory once: six of the
-// warp's nine dependent reads per NEE leave L2 (measured within 2% of
-// reading them from L2: the tracking loops carry the time). No atomics
-// touch the image: after a group's items end, lane j folds pixel j's slots
+// register bound keeps 8 blocks (32 warps) resident per SM. The
+// importance pyramid is read from L2: a copy of its coarse levels in each
+// block's shared memory was measured slower at 1024 x 1024 and no faster
+// elsewhere on an H100 (PERF.md; the tracking loops carry the time). No
+// atomics touch the image: after a group's items end, lane j folds pixel j's slots
 // into the value it read from fb_in, in pass order, as the plain version
 // does, so the framebuffer is bitwise identical from run to run.
 
@@ -85,10 +84,6 @@ constexpr float PI_F = float(PI_D);
 constexpr float HALF_PI = float(0.5 * PI_D);
 constexpr float MIP_START = 3.0f, MIP_SPEED_UP = 0.25f, MIP_SPEED_DOWN = 2.0f;
 constexpr int MAX_IMP_LEVELS = 16;
-// the importance pyramid's levels of at most STAGE_DIM x STAGE_DIM are
-// staged in each block's shared memory: 64^2 + 32^2 + ... + 1^2 floats
-constexpr int STAGE_DIM = 64;
-constexpr int STAGE_MAX = (4 * STAGE_DIM * STAGE_DIM - 1) / 3;
 
 struct Params {
   float cam_pos[3], cam_m[9], cam_fov, bb_min[3], bb_max[3], majorant, inv_majorant;
@@ -99,7 +94,6 @@ struct Params {
   uint32_t seed;
   int env_h, env_w, imp_levels, imp_dim, tf_size;
   int imp_off[MAX_IMP_LEVELS];
-  int imp_stage, imp_staged;               // first staged level, staged floats
   int tile_w, tile_h, tiles_x, n_groups;   // the schedule's pixel groups
 };
 
@@ -129,9 +123,10 @@ struct Tables {
 // of sample_volume and of transmittance, emission taps, capped loop
 // calls), the warp-level issues of the bounce loop's body and of a
 // tracking-loop iteration (the lanes over 32 x the issues: their SIMT
-// efficiency), and each block's start and end on %globaltimer
+// efficiency), the groups the warps took (paths over groups: the items of
+// a group), and each block's start and end on %globaltimer
 enum { ST_PATHS = 0, ST_BOUNCE, ST_SV_ITERS, ST_TR_ITERS, ST_SV_TESTS, ST_TR_TESTS, ST_EMISSION,
-       ST_CAPPED, ST_BOUNCE_ISSUES, ST_TRACK_ISSUES, N_STATS };
+       ST_CAPPED, ST_BOUNCE_ISSUES, ST_TRACK_ISSUES, ST_GROUPS, N_STATS };
 
 __device__ __forceinline__ unsigned long long globaltimer() {
   unsigned long long t;
@@ -262,42 +257,32 @@ __device__ __forceinline__ void lookup_environment(const Params& P, const Tables
   texture_env(P, T, u, v, out);
 }
 
-// one level of the hierarchical warp: from cell (px, py) of the level
-// above into one of the four cells of `level` (dim x dim)
-__device__ __forceinline__ void warp_level(const float* level, int dim, int& px, int& py,
-                                           float& p0, float& p1) {
-  px = px * 2;
-  py = py * 2;
-  const int idx = py * dim + px;
-  const float w0 = level[idx], w1 = level[idx + 1];
-  const float w2 = level[idx + dim], w3 = level[idx + dim + 1];
-  const float q0 = w0 + w2;
-  const float q1 = w1 + w3;
-  const float d = q0 / vmax(q0 + q1, 1e-8f);
-  const bool go_right = p0 >= d;
-  const float new_px = go_right ? (p0 - d) / (1.0f - d) : p0 / d;
-  px = px + (go_right ? 1 : 0);
-  const float e = go_right ? w1 / vmax(q1, 1e-20f) : w0 / vmax(q0, 1e-20f);
-  const bool go_up = p1 >= e;
-  const float new_py = go_up ? (p1 - e) / (1.0f - e) : p1 / e;
-  py = py + (go_up ? 1 : 0);
-  p0 = new_px;
-  p1 = new_py;
-}
-
 // the hierarchical warp (sample_environment): Le, pdf, w_i for uniforms
-// (p0, p1). The levels from imp_stage on (64 x 64 and coarser) are read
-// from the block's copy in shared memory `s_imp`, the finer ones from
-// global memory: the same values.
-__device__ __forceinline__ float sample_environment(const Params& P, const Tables& T,
-                                                    const float* s_imp, float p0, float p1,
-                                                    float le[3], float w_i[3]) {
+// (p0, p1)
+__device__ __forceinline__ float sample_environment(const Params& P, const Tables& T, float p0,
+                                                    float p1, float le[3], float w_i[3]) {
   int px = 0, py = 0;
-  const int base = P.imp_off[P.imp_stage];
-  for (int m = P.imp_levels - 2; m >= P.imp_stage; --m)
-    warp_level(s_imp + (P.imp_off[m] - base), P.imp_dim >> m, px, py, p0, p1);
-  for (int m = P.imp_stage - 1; m >= 0; --m)
-    warp_level(T.imp + P.imp_off[m], P.imp_dim >> m, px, py, p0, p1);
+  for (int m = P.imp_levels - 2; m >= 0; --m) {
+    const float* level = T.imp + P.imp_off[m];
+    const int dim = P.imp_dim >> m;
+    px = px * 2;
+    py = py * 2;
+    const int idx = py * dim + px;
+    const float w0 = level[idx], w1 = level[idx + 1];
+    const float w2 = level[idx + dim], w3 = level[idx + dim + 1];
+    const float q0 = w0 + w2;
+    const float q1 = w1 + w3;
+    const float d = q0 / vmax(q0 + q1, 1e-8f);
+    const bool go_right = p0 >= d;
+    const float new_px = go_right ? (p0 - d) / (1.0f - d) : p0 / d;
+    px = px + (go_right ? 1 : 0);
+    const float e = go_right ? w1 / vmax(q1, 1e-20f) : w0 / vmax(q0, 1e-20f);
+    const bool go_up = p1 >= e;
+    const float new_py = go_up ? (p1 - e) / (1.0f - e) : p1 / e;
+    py = py + (go_up ? 1 : 0);
+    p0 = new_px;
+    p1 = new_py;
+  }
   const float inv_dim = float(1.0 / double(P.imp_dim));
   const float uv_x = (float(px) + p0) * inv_dim;
   const float uv_y = (float(py) + p1) * inv_dim;
@@ -308,7 +293,8 @@ __device__ __forceinline__ float sample_environment(const Params& P, const Table
   matvec<3>(P.env_m, w_local, w_i);
   texture_env(P, T, uv_x, uv_y, le);
   const int idx = py * P.imp_dim + px;
-  const float pdf = (P.imp_stage == 0 ? s_imp[idx] : T.imp[idx]) / s_imp[P.imp_staged - 1];
+  const float avg_w = T.imp[P.imp_off[P.imp_levels - 1]];
+  const float pdf = T.imp[idx] / avg_w;
   return pdf * INV_4PI;
 }
 
@@ -643,8 +629,8 @@ __device__ __forceinline__ void start_path(const Params& P, Path& s, int x, int 
 // One iteration of trace_path's bounce loop: the volume sample, then for a
 // hit NEE, termination and the scatter. Returns whether the path ended.
 template <bool USE_DDA, bool USE_TF, bool HAS_EMI, bool STATS>
-__device__ __forceinline__ bool bounce(const Params& P, const Tables& T, const float* s_imp,
-                                       Path& s, Counters& cnt) {
+__device__ __forceinline__ bool bounce(const Params& P, const Tables& T, Path& s,
+                                       Counters& cnt) {
   const float g = P.phase_g;
   bool hit;
   float t;
@@ -658,7 +644,7 @@ __device__ __forceinline__ bool bounce(const Params& P, const Tables& T, const f
   const float e0 = rng(s.seed, true);
   const float e1 = rng(s.seed, true);
   float le_env[3], w_i[3];
-  const float pdf_env = sample_environment(P, T, s_imp, e0, e1, le_env, w_i);
+  const float pdf_env = sample_environment(P, T, e0, e1, le_env, w_i);
   const bool nee = pdf_env > 0.0f;
   const float cos_nee = -s.dir[0] * w_i[0] + -s.dir[1] * w_i[1] + -s.dir[2] * w_i[2];
   const float f_p = hg_phase(cos_nee, g);
@@ -695,11 +681,11 @@ __device__ __forceinline__ bool bounce(const Params& P, const Tables& T, const f
 
 // the ended path's free-path environment term (common.glsl:645-649) and
 // its sanitized rgba
-__device__ __forceinline__ float4 finish_path(const Params& P, const Tables& T,
-                                              const float* s_imp, const Path& s) {
+__device__ __forceinline__ float4 finish_path(const Params& P, const Tables& T, const Path& s) {
   float env_le[3], L[3];
   lookup_environment(P, T, s.dir, env_le);
-  const float pdf = luma(env_le) / s_imp[P.imp_staged - 1] * INV_4PI;
+  const float avg_w = T.imp[P.imp_off[P.imp_levels - 1]];
+  const float pdf = luma(env_le) / avg_w * INV_4PI;
   const float mis = s.n_paths > 0 ? power_heuristic(s.last_f_p, pdf) : 1.0f;
   const bool add = s.free_path && P.show_env > 0;
   for (int k = 0; k < 3; ++k) L[k] = s.L[k] + (add ? s.th[k] * mis * env_le[k] : 0.0f);
@@ -711,10 +697,10 @@ __device__ __forceinline__ float4 finish_path(const Params& P, const Tables& T,
 
 constexpr int WARPS = 4;                  // warps per block
 constexpr int THREADS = 32 * WARPS;
-// resident blocks per SM the registers must allow: 8 (64 registers), the
-// most the staged pyramid's shared memory allows too; ptxas spills, and
-// still 8 beat fewer at 1024x1024 in every path (measured on an H100 by
-// python -m volren_tpu_torch.oracle_variants)
+// resident blocks per SM the registers must allow: 8 (64 registers, the
+// whole register file); ptxas spills, and still 8 beat fewer at 1024x1024
+// in every path (measured on an H100 with patched copies of this file,
+// PERF.md)
 constexpr int MIN_BLOCKS = 8;
 constexpr int SLOTS = 64;                 // a warp's (pixel, pass) result slots: one round
 constexpr unsigned FULL = 0xffffffffu;
@@ -728,7 +714,7 @@ constexpr unsigned FULL = 0xffffffffu;
 // pixel j's slots into the value it read from fb_in, in pass order, as
 // tracer.trace_passes does: f = f + (rgba_k - f) * (1 / sample_k).
 template <bool USE_DDA, bool USE_TF, bool HAS_EMI, bool STATS>
-__device__ __forceinline__ void trace_group(const Params& P, const Tables& T, const float* s_imp,
+__device__ __forceinline__ void trace_group(const Params& P, const Tables& T,
                                             const float* __restrict__ fb_in,
                                             float* __restrict__ fb_out, int group, float4* slot,
                                             Counters& cnt) {
@@ -762,8 +748,8 @@ __device__ __forceinline__ void trace_group(const Params& P, const Tables& T, co
         cnt.issue(ST_BOUNCE_ISSUES);
         cnt.v[ST_BOUNCE] += 1;
       }
-      if (bounce<USE_DDA, USE_TF, HAS_EMI, STATS>(P, T, s_imp, s, cnt)) {
-        slot[item] = finish_path(P, T, s_imp, s);
+      if (bounce<USE_DDA, USE_TF, HAS_EMI, STATS>(P, T, s, cnt)) {
+        slot[item] = finish_path(P, T, s);
         item = -1;
       }
     }
@@ -782,8 +768,7 @@ __device__ __forceinline__ void trace_group(const Params& P, const Tables& T, co
   if (mine) reinterpret_cast<float4*>(fb_out)[pix] = f;
 }
 
-// Persistent blocks: each stages the importance pyramid's coarse levels
-// once, then its warps take groups from the one global counter
+// Persistent blocks: their warps take groups from the one global counter
 // `next_group` (zeroed by the caller before each launch).
 template <bool USE_DDA, bool USE_TF, bool HAS_EMI, bool STATS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
@@ -791,19 +776,16 @@ oracle_trace(const __grid_constant__ Params P, const __grid_constant__ Tables T,
              const float* __restrict__ fb_in, float* __restrict__ fb_out,
              int* __restrict__ next_group, unsigned long long* __restrict__ stats,
              unsigned long long* __restrict__ btimes) {
-  __shared__ float s_imp[STAGE_MAX];
   __shared__ float4 slots[WARPS][SLOTS];
   if (STATS && threadIdx.x == 0) btimes[2 * blockIdx.x] = globaltimer();
-  const float* staged = T.imp + P.imp_off[P.imp_stage];
-  for (int k = threadIdx.x; k < P.imp_staged; k += THREADS) s_imp[k] = staged[k];
-  __syncthreads();
   Counters cnt;
   for (;;) {
     int group = 0;
     if ((threadIdx.x & 31) == 0) group = atomicAdd(next_group, 1);
     group = __shfl_sync(FULL, group, 0);
     if (group >= P.n_groups) break;
-    trace_group<USE_DDA, USE_TF, HAS_EMI, STATS>(P, T, s_imp, fb_in, fb_out, group,
+    if (STATS && (threadIdx.x & 31) == 0) cnt.v[ST_GROUPS] += 1;
+    trace_group<USE_DDA, USE_TF, HAS_EMI, STATS>(P, T, fb_in, fb_out, group,
                                                  slots[threadIdx.x >> 5], cnt);
   }
   if (STATS) cnt.flush(stats, btimes);
@@ -979,13 +961,10 @@ extern "C" int volren_oracle_trace(const float* pf, const int* pi, int use_dda, 
       P.first_sample < 1 || P.n_passes < 0)
     return int(cudaErrorInvalidValue);
   int off = 0;
-  P.imp_stage = P.imp_levels - 1;
   for (int m = 0; m < P.imp_levels; ++m) {
     P.imp_off[m] = off;
     off += (P.imp_dim >> m) * (P.imp_dim >> m);
-    if (P.imp_dim >> m <= STAGE_DIM && m < P.imp_stage) P.imp_stage = m;
   }
-  P.imp_staged = off - P.imp_off[P.imp_stage];
   Tables T;
   read_grid(T.dens, atlas, slot, lo, hi, mip, pi + OI_N_BRICKS);
   for (int k = 0; k < 12; ++k) T.dens.mip_dims[k] = pi[OI_MIP_DIMS + k];

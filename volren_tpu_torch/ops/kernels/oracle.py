@@ -310,7 +310,7 @@ def trace_passes(scene: SceneTables, params: TraceParams, cfg: TraceConfig,
 
 # the STATS instantiation's counters, in csrc/oracle.cu's order
 STATS = ("paths", "bounce_iters", "sample_volume", "transmittance", "sample_volume_tests",
-         "transmittance_tests", "emission", "capped", "bounce_issues", "track_issues")
+         "transmittance_tests", "emission", "capped", "bounce_issues", "track_issues", "groups")
 
 
 def trace_stats(scene: SceneTables, params: TraceParams, cfg: TraceConfig,
@@ -324,11 +324,14 @@ def trace_stats(scene: SceneTables, params: TraceParams, cfg: TraceConfig,
     loops' ``*_iters`` and, with DDA, ``*_dda_tests``, ``emission``,
     ``capped``); ``simt_bounce`` and ``simt_track``, the lanes over 32 x
     the warp-level issues of the bounce loop's body and of a tracking-loop
-    iteration; and from each block's (start, end) on the card's
-    %globaltimer: ``blocks``, ``block_ms`` (min, median, max duration),
+    iteration; ``groups``, the groups the warps took (``paths`` over
+    ``groups``: the items of a group); and from each block's (start, end)
+    on the card's %globaltimer: ``blocks``, ``block_ms`` (min, median, max duration),
     ``span_ms`` (first start to last end) and ``tail_ms`` (from the moment
     a block's place on an SM goes idle for good -- the last block's start,
     or the first block's end if that is later -- to the last end)."""
+    if int(n_passes) < 1:
+        raise ValueError(f"trace_stats traces at least one pass, not {n_passes}")
     if not framebuffer.is_cuda:
         raise ValueError("trace_stats runs the CUDA kernel: the framebuffer must be on the card")
     dev = framebuffer.device
@@ -348,7 +351,7 @@ def trace_stats(scene: SceneTables, params: TraceParams, cfg: TraceConfig,
     st = {"paths": c["paths"], "bounce_iters": c["bounce_iters"],
           f"sample_volume{dda}_iters": c["sample_volume"],
           f"transmittance{dda}_iters": c["transmittance"], "emission": c["emission"],
-          "capped": c["capped"]}
+          "capped": c["capped"], "groups": c["groups"]}
     if cfg.use_dda:
         st["sample_volume_dda_tests"] = c["sample_volume_tests"]
         st["transmittance_dda_tests"] = c["transmittance_tests"]
