@@ -41,7 +41,10 @@ of which raises on failure (exit code non-zero, no result line):
    call sites they replace (volren_tpu_torch.probes.sites), one call at the
    probe's shapes held against its plain version on the same CUDA tensors
    (bitwise; row_scan allclose at rtol 1e-5), timed beside its bound, its
-   plain version and the one PyTorch call that computes the same, if any;
+   plain version and the one PyTorch call that computes the same, if any
+   (P0 and W4 in turns with that call, 101 rounds, median and p10-p90);
+   the transpose of an 8192 x 8192 f32 array held bitwise to t.t() and
+   timed in turns with .t().contiguous() beside its bound by bytes;
    then the entry point python -m volren_tpu_torch.probes, run in-process
    one site's stages at a time, every stage ok and the site's kernel
    launched.
@@ -170,6 +173,7 @@ ORACLE_TILE_SPAN = 8
 # launch keeps 8 groups a resident warp; 10.3: it does not)
 ORACLE_ITEMS_MAIN, ORACLE_ITEMS_SMALL = 64, 32
 ORACLE_REPLACES = "volren_tpu/ops/tracer.py:154 (trace_pass; XLA, no pallas_call)"
+PROBES_IN_TURNS = ("probe_P0", "probe_W4")  # phase 8: timed in turns with their PyTorch call
 ORACLE_VARIANTS = [(dda, tf, emi) for dda in (True, False) for tf in (False, True)
                    for emi in (False, True)]
 VARIANT = {"plain": (False, False), "tf": (True, False), "emission": (False, True),
@@ -1025,10 +1029,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     from volren_tpu_torch import cli
     from volren_tpu_torch import probes as probe_entry
-    from volren_tpu_torch.measure import kernel_bound, path_renderer
+    from volren_tpu_torch.measure import PEAK_BYTES_S, kernel_bound, path_renderer
     from volren_tpu_torch.ops.kernels import megakernel, oracle
     from volren_tpu_torch.ops.kernels import probes as probe_kernels
-    from volren_tpu_torch.probes._common import Context
+    from volren_tpu_torch.probes import probe_pallas3
+    from volren_tpu_torch.probes._common import Context, interleaved_ms
     from volren_tpu_torch.probes.sites import SITES
     from volren_tpu_torch.renderer import DISPATCH_SPP
     from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params
@@ -1300,9 +1305,17 @@ def main(argv=None) -> int:
         got = case.kernel()
         per_call = probe_launches() - before
         err = compare_probe(site.name, got, case.plain(), case.exact)
-        ms = ctx.time_ms(case.kernel, reps_for(case.kernel, per_call))
         plain_ms, _ = host_ms(case.plain)
-        library_ms = ctx.time_ms(case.library, reps_for(case.library)) if case.library else None
+        if site.name in PROBES_IN_TURNS:
+            turns = interleaved_ms(ctx, {"kernel": case.kernel, "library": case.library})
+            ms, library_ms = turns["kernel"]["median"], turns["library"]["median"]
+            print(f"{site.name} in turns with its PyTorch call, 101 rounds, ms median (p10, p90): "
+                  + ", ".join(f"{k} {v['median']!r} ({v['p10']!r}, {v['p90']!r})"
+                              for k, v in turns.items()) + f" on {gpu_line}", flush=True)
+        else:
+            ms = ctx.time_ms(case.kernel, reps_for(case.kernel, per_call))
+            library_ms = (ctx.time_ms(case.library, reps_for(case.library)) if case.library
+                          else None)
         bound_ms, bound_by = case.bound()
         print(f"{site.name} ({site.family}, {site.replaces}): kernel vs plain max abs {err!r} "
               f"({'bitwise' if case.exact else 'rtol 1e-5'}); kernel {ms!r} ms, plain "
@@ -1311,6 +1324,18 @@ def main(argv=None) -> int:
         record[site.name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
         del case
+    # the transpose where its bytes, not its launch, set the time
+    big = torch.rand(probe_pallas3.BIG, probe_pallas3.BIG, device=dev)
+    if not torch.equal(probe_kernels.index_copy(big, "transpose"), big.t()):
+        raise AssertionError("the transpose of a 8192 x 8192 array disagrees with t.t()")
+    turns = probe_pallas3.transpose_vs_library(ctx, big, rounds=21)
+    big_bound = 2 * big.numel() * 4 / PEAK_BYTES_S * 1e3
+    print(f"transpose {probe_pallas3.BIG}x{probe_pallas3.BIG} f32, bitwise t.t(), in turns, 21 "
+          f"rounds, ms median (p10, p90): " + ", ".join(
+              f"{k} {v['median']!r} ({v['p10']!r}, {v['p90']!r})" for k, v in turns.items())
+          + f"; bound {big_bound!r} ms by bytes, kernel's share "
+          f"{big_bound / turns['kernel']['median']!r} on {gpu_line}", flush=True)
+    del big
     torch.cuda.empty_cache()
 
     # ---- 8. the probes' entry point, one site's stages at a time

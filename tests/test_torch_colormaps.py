@@ -11,11 +11,15 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from volren_tpu.scene.transferfunc import TransferFunction as JTransferFunction
 from volren_tpu.utils import colormaps as jcm
 from volren_tpu_torch.scene.transferfunc import TransferFunction
 from volren_tpu_torch.utils import colormaps as tcm
+
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
 
 NAMES = sorted(set(tcm._MPL_NAMES) | {"parula", "github"})
 

@@ -305,7 +305,7 @@ def _probe_cases(dev):
     n_dev = t(np.array([37], np.int32))
     flat = t(np.arange(16384, dtype=np.float32) * 0.5)
     pos = t(rng.random((8, 128)).astype(np.float32))
-    return {
+    cases = {
         "affine_loop": (lambda f: f(x, 100, 1.0000001, 1e-6), K.affine_loop, K.affine_loop_plain),
         "affine_loop_dev": (lambda f: f(x, 0, 1.0000001, 1e-6, n_dev), K.affine_loop,
                             K.affine_loop_plain),
@@ -343,13 +343,48 @@ def _probe_cases(dev):
         "iota_plus": (lambda f: f(x, "iota_plus", 3584), K.index_copy, K.index_copy_plain),
         "tea8": (lambda f: f(u, v), K.tea8, K.tea8_plain),
     }
+    # the transpose's 16-byte path at W4's shapes, its word-by-word path on
+    # ragged shapes and on a column slice (a pitch of 1029 words, 12 bytes in)
+    for h, w in TRANSPOSE_SHAPES:
+        for kind in ("f32", "i32"):
+            a = t(rng.random((h, w)).astype(np.float32) if kind == "f32" else
+                  rng.integers(-2 ** 31, 2 ** 31, (h, w)).astype(np.int32))
+            cases[f"transpose_{h}x{w}_{kind}"] = (lambda f, a=a: f(a, "transpose"),
+                                                  K.index_copy, K.index_copy_plain)
+    wide = t(rng.random((37, 1029)).astype(np.float32))
+    cases["transpose_column_slice"] = (lambda f: f(wide[:, 3:1026], "transpose"), K.index_copy,
+                                       K.index_copy_plain)
+    # the affine loop's short kernel (1-4 steps), its loop kernel (100 steps,
+    # a device trip count, an unaligned x) on sizes around a whole quad
+    for n in AFFINE_SIZES:
+        xn = t(rng.random(n).astype(np.float32) * 4.0 - 2.0)
+        for steps in AFFINE_STEPS:
+            cases[f"affine_{steps}_{n}"] = (
+                lambda f, xn=xn, steps=steps: f(xn, steps, 1.0000001, 1e-6), K.affine_loop,
+                K.affine_loop_plain)
+        cases[f"affine_dev_{n}"] = (lambda f, xn=xn: f(xn, 0, 1.0000001, 1e-6, n_dev),
+                                    K.affine_loop, K.affine_loop_plain)
+    cases["affine_x2_8x128"] = (lambda f: f(pos, 1, 2.0, 0.0), K.affine_loop,
+                                K.affine_loop_plain)
+    cases["affine_unaligned"] = (lambda f: f(flat[1:], 3, 1.0000001, 1e-6), K.affine_loop,
+                                 K.affine_loop_plain)
+    return cases
 
 
+TRANSPOSE_SHAPES = ((128, 1024), (1024, 128), (8, 1024), (1, 1), (37, 1029), (33, 31),
+                    (1029, 37))
+AFFINE_SIZES = (1, 1023, 1024, 1025)
+AFFINE_STEPS = (1, 2, 3, 4, 100)
 PROBE_CASES = ("affine_loop", "affine_loop_dev", "gather_rc_f32", "gather_rc_i32",
                "gather_1d_mod", "gather_rows", "gather_cols", "lcg_row", "lcg_rc_i32",
                "lcg_flat", "carry30", "march", "rounds_staged", "rounds_staged_n8",
                "rounds_direct", "rounds_stage", "rounds_ids", "rounds_stale", "transpose",
-               "tile_rows", "roll_cols", "broadcast_row0", "iota_plus", "tea8")
+               "tile_rows", "roll_cols", "broadcast_row0", "iota_plus", "tea8",
+               *(f"transpose_{h}x{w}_{kind}" for h, w in TRANSPOSE_SHAPES
+                 for kind in ("f32", "i32")),
+               "transpose_column_slice",
+               *(f"affine_{steps}_{n}" for n in AFFINE_SIZES for steps in AFFINE_STEPS),
+               *(f"affine_dev_{n}" for n in AFFINE_SIZES), "affine_x2_8x128", "affine_unaligned")
 
 
 @pytest.mark.parametrize("case", PROBE_CASES)

@@ -22,6 +22,9 @@ import torch
 from volren_tpu.models import denoiser as jden
 from volren_tpu_torch.models import denoiser as tden
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 FEATURES = (8, 12, 16)
 TOL = 1e-5
 BF16_LOG_TOL = 0.01

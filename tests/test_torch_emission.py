@@ -15,11 +15,15 @@ kernel runs only on the card: tests/test_torch_cuda.py.
 
 import numpy as np
 import pytest
+import torch
 from torch_reference import SPP, jax_renderer, mean_rel, reference_case, rmse
 
 from volren_tpu.voldata import DenseGrid as JDenseGrid
 from volren_tpu_torch.ops.kernels import megakernel
 from volren_tpu_torch.ops.kernels import pack as tpack
+
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

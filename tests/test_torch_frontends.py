@@ -36,6 +36,9 @@ from volren_tpu_torch.viewer import ViewerServer
 from volren_tpu_torch.voldata import DenseGrid, Volume
 from volren_tpu_torch.voldata.vdb import write_vdb_grids
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 LUT = [(0.9, 0.2, 0.1, 0.0), (0.2, 0.9, 0.6, 0.7), (1.0, 1.0, 1.0, 1.0)]
 
 

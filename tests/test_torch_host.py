@@ -5,6 +5,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from volren_tpu.scene import environment as jenv
 from volren_tpu.utils import hdr as jhdr
@@ -16,6 +17,9 @@ from volren_tpu_torch.utils.image import save_ldr
 from volren_tpu_torch.voldata import brick as tbrick
 from volren_tpu_torch.voldata import brick_io as tbrick_io
 from volren_tpu_torch.voldata import DenseGrid, Volume, to_brick_grid
+
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLOUD = os.path.join(REPO, ".scene_cache", "cloud512.brick")

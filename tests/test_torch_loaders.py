@@ -9,6 +9,7 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
 
 from volren_tpu.voldata import blosc as jblosc
 from volren_tpu.voldata import dicom as jdicom
@@ -19,6 +20,9 @@ from volren_tpu.voldata.volume import load_grid as jload_grid
 from volren_tpu_torch.voldata import DenseGrid, Volume, blosc, dicom, load_grid, nanovdb
 from volren_tpu_torch.voldata import vdb_reader as tvdb
 from volren_tpu_torch.voldata.brick_io import write_dense
+
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
 
 READERS = (jvdb.read_vdb, tvdb.read_vdb)
 

@@ -19,6 +19,9 @@ from torch_reference import SPP, jax_renderer, mean_rel, reference_case, rmse
 from volren_tpu_torch.ops.kernels import megakernel
 from volren_tpu_torch.ops.kernels.pack import PI_SPP, PI_SPP_BASE
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def case(random_grid16):

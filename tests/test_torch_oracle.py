@@ -25,6 +25,9 @@ from volren_tpu_torch.renderer import Renderer
 from volren_tpu_torch.scene.environment import Environment
 from volren_tpu_torch.voldata import DenseGrid, Volume
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 VARIANTS = {"plain": (False, False), "tf": (True, False), "emission": (False, True),
             "tf+emission": (True, True)}
 

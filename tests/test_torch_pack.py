@@ -14,6 +14,9 @@ from volren_tpu_torch.ops.kernels import pack as tpack
 from volren_tpu_torch.scene.environment import Environment, procedural_sky
 from volren_tpu_torch.voldata.brick import build_brick_grid
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def grids():

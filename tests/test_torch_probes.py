@@ -33,7 +33,11 @@ from jax.experimental.pallas import tpu as pltpu
 from volren_tpu_torch import probes as port_probes
 from volren_tpu_torch.ops.kernels import probes as K
 from volren_tpu_torch.probes import probe_dmagather as port_dmagather
+from volren_tpu_torch.probes import variants
 from volren_tpu_torch.probes.sites import SITES
+
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
 
 TOTAL_BAR = 1e-6
 
@@ -272,6 +276,85 @@ def test_w4_transpose_matches_pallas(probe):
     for (a, b), want in zip(((128, 1024), (1024, 128), (8, 1024)), pulled):
         t = np.arange(a * b, dtype=np.float32).reshape(a, b)
         assert np.array_equal(K.index_copy(_t(t), "transpose").numpy(), want)
+
+
+
+TRANSPOSE_SHAPES = ((128, 1024), (1024, 128), (8, 1024), (8, 128), (96, 160), (1, 1),
+                    (37, 1029), (33, 31), (1029, 37))
+
+
+@pytest.mark.parametrize("h,w", TRANSPOSE_SHAPES)
+def test_transpose_plan_moves_every_word_once(h, w):
+    """The transpose kernel's grid (transpose_plan) and its index arithmetic
+    (csrc/probes.cu: transpose_kernel, written out here for every thread):
+    its 4-word segments read every word of the array once and write every
+    word of the output once, and on the 16-byte path a segment is wholly
+    inside or wholly outside."""
+    vec, tr, gx, gy = K.transpose_plan(h, w, w, 0)
+    assert vec == (h % 4 == 0 and w % 4 == 0) and tr == (8 if h <= 8 else 32)
+    bx, by = np.meshgrid(np.arange(gx), np.arange(gy), indexing="ij")
+    t = np.arange(64)[None, :, None]
+    i = np.arange(tr * K.T_COLS // 4 // 64)[None, None, :]
+    c0, r0 = bx.reshape(-1, 1, 1) * K.T_COLS, by.reshape(-1, 1, 1) * tr
+    row, col = np.broadcast_arrays(r0 + t // 8 + 8 * i, c0 + 4 * (t % 8))
+    k = t + 64 * i
+    orow, ocol = np.broadcast_arrays(c0 + k // (tr // 4), r0 + 4 * (k % (tr // 4)))
+    for (a, q), (n_a, n_q) in (((row, col), (h, w)), ((orow, ocol), (w, h))):
+        live = (a < n_a) & (q < n_q)
+        words = np.zeros((n_a, -(-n_q // 4) * 4), np.int64)
+        np.add.at(words, (a[live], q[live]), 1)
+        for e in (1, 2, 3):
+            np.add.at(words, (a[live], q[live] + e), 1)
+        assert (words[:, :n_q] == 1).all()
+        if vec:
+            assert (q[live] + 4 <= n_q).all()
+
+
+def test_transpose_plan_fits_the_tile_to_the_shape_and_checks_alignment():
+    # W4's shapes: 128 blocks (one wave on 132 SMs), and (8, 1024) 32 blocks
+    # of 8-row tiles; 8192^2: 65536 blocks
+    assert K.transpose_plan(128, 1024, 1024, 0) == (True, 32, 32, 4)
+    assert K.transpose_plan(1024, 128, 128, 0) == (True, 32, 4, 32)
+    assert K.transpose_plan(8, 1024, 1024, 0) == (True, 8, 32, 1)
+    assert K.transpose_plan(8192, 8192, 8192, 0) == (True, 32, 256, 256)
+    assert K.transpose_plan(32 * K.MAX_GRID_Y, 4, 4, 0) == (True, 32, 1, K.MAX_GRID_Y)
+    with pytest.raises(ValueError):                              # past the grid's 2nd axis
+        K.transpose_plan(32 * K.MAX_GRID_Y + 1, 4, 4, 0)
+    assert K.transpose_plan(128, 1024, 1024, 4)[0] is False      # x not 16-byte aligned
+    assert K.transpose_plan(128, 1024, 1030, 0)[0] is False      # a pitch of 1030 words
+    assert K.transpose_plan(128, 1022, 1024, 0)[0] is False      # ragged columns
+
+
+def test_transpose_takes_a_column_slice():
+    x = _t(np.arange(37 * 1029, dtype=np.float32).reshape(37, 1029))
+    sl = x[:, 3:1026]
+    assert np.array_equal(K.index_copy(sl, "transpose").numpy(), sl.numpy().T)
+
+
+
+@pytest.mark.parametrize("name", sorted(variants.PATCHES))
+def test_variants_edit_the_shipped_kernels_once(name):
+    """The design comparison (python -m volren_tpu_torch.probes.variants)
+    builds its alternatives by editing csrc/probes.cu: each edit still
+    finds its text, and only the transpose kernel, or only the short
+    loop's launch, changes."""
+    src = open(K.SOURCE).read()
+    patched = variants.patched_source(name)
+    first, last = (("int probe_affine_loop(", "int probe_gather(") if name.startswith("short")
+                   else ("template <int TR, bool VEC>", "// ---- tea8"))
+    head, tail = src.split(first, 1)
+    assert patched != src
+    assert patched.startswith(head) and patched.endswith(tail.split(last, 1)[1])
+
+
+@pytest.mark.parametrize("iters,x_ptr,out_ptr,dev_count,short", [
+    (1, 0, 0, False, True), (4, 256, 4096, False, True),        # P0: the short kernel
+    (0, 0, 0, False, False), (5, 0, 0, False, False),           # no steps, or a loop
+    (64, 0, 0, False, False), (4096, 0, 0, False, False),       # P4, P1: one chain a thread
+    (1, 0, 0, True, False),                                     # P2: a device trip count
+    (1, 4, 0, False, False), (1, 0, 8, False, False)])          # not 16-byte aligned
+def test_affine_short_path_is_the_host_known_short_loop(iters, x_ptr, out_ptr, dev_count, short):
+    assert K.affine_short(iters, x_ptr, out_ptr, dev_count) is short
 
 
 # ---------------------------------------------------------------- tea8, row_scan

@@ -22,6 +22,9 @@ from volren_tpu_torch.renderer import DISPATCH_SPP, Renderer
 from volren_tpu_torch.scene.transferfunc import TransferFunction
 from volren_tpu_torch.voldata import DenseGrid, Volume, build_brick_grid, write_brick
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 LUT = [(0.9, 0.2, 0.1, 0.0), (0.2, 0.9, 0.6, 0.7), (1.0, 1.0, 1.0, 1.0)]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "volren_tpu_torch")

@@ -8,6 +8,9 @@ import torch
 from volren_tpu.ops import rng as jrng
 from volren_tpu_torch.ops import rng as trng
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 N = 1 << 18
 
 

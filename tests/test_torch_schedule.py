@@ -18,6 +18,9 @@ from volren_tpu_torch.renderer import Renderer
 from volren_tpu_torch.scene.environment import Environment
 from volren_tpu_torch.voldata import DenseGrid, Volume
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 RES, SPP, BUDGET = 16, 2, 12
 
 

@@ -31,6 +31,9 @@ from volren_tpu_torch.scripts import (colmap_model, compare_rmse, datagen_colmap
 from volren_tpu_torch.utils.hdr import write_hdr
 from volren_tpu_torch.utils.image import read_png, write_png
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPTS = os.path.join(REPO, "scripts")
 

@@ -30,6 +30,9 @@ from volren_tpu_torch.parallel import dryrun, sharding
 from volren_tpu_torch.renderer import Renderer
 from volren_tpu_torch.scene.environment import Environment, procedural_sky
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 VARIANTS = [(False, False), (True, False), (False, True), (True, True)]
 VARIANT_IDS = ["plain", "tf", "emission", "tf+emission"]
 

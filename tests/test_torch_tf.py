@@ -15,11 +15,15 @@ the card: tests/test_torch_cuda.py.
 
 import numpy as np
 import pytest
+import torch
 from torch_reference import SPP, jax_renderer, mean_rel, reference_case, rmse
 
 from volren_tpu.scene.transferfunc import TransferFunction as JTransferFunction
 from volren_tpu_torch.ops.kernels import megakernel
 from volren_tpu_torch.ops.kernels import pack as tpack
+
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
 
 # the LUT of tests/test_pallas.py::test_tf_kernel_matches_chunked
 LUT = [(0.9, 0.2, 0.1, 0.0), (0.2, 0.9, 0.6, 0.7), (1.0, 1.0, 1.0, 1.0)]

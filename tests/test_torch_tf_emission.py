@@ -16,12 +16,16 @@ tests/test_torch_cuda.py.
 
 import numpy as np
 import pytest
+import torch
 from torch_reference import SPP, jax_renderer, mean_rel, reference_case, rmse
 
 from volren_tpu.scene.transferfunc import TransferFunction as JTransferFunction
 from volren_tpu.voldata import DenseGrid as JDenseGrid
 from volren_tpu_torch.cli import FAU_LUT
 from volren_tpu_torch.ops.kernels import megakernel
+
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

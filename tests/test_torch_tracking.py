@@ -44,6 +44,9 @@ from volren_tpu_torch.scene.environment import Environment
 from volren_tpu_torch.scene.transferfunc import TransferFunction
 from volren_tpu_torch.voldata import build_brick_grid
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 VARIANTS = {"plain": (False, False), "tf": (True, False), "emission": (False, True),
             "tf+emission": (True, True)}
 

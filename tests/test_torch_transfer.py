@@ -14,6 +14,9 @@ from volren_tpu_torch.ops import scene as tscene
 from volren_tpu_torch.ops import transfer as ttransfer
 from volren_tpu_torch.scene.transferfunc import TransferFunction
 
+# one intra-op thread: these tensors are small, and the test workers share the cores
+torch.set_num_threads(1)
+
 
 def _lut(seed=5, n=8):
     return np.random.default_rng(seed).random((n, 4)).astype(np.float32)

@@ -16,7 +16,7 @@
 //   lcg_gather_sum     W1, W2, W5/W7, W6, X1, X2, V1-V5/V8
 //   carry_loop         X3 (30 carried values), Q6 (the march-like body)
 //   row_gather_rounds  dmagather 1-4 (staged rows vs direct words)
-//   index_copy         Q3, W4 (transpose tiled through shared memory)
+//   index_copy         Q3, W4 (the transpose: 16-byte segments through a shared tile)
 //   tea8               Q5
 //   row_scan           probe_pallas5's cumsum
 //
@@ -53,6 +53,11 @@ __device__ __forceinline__ int pymod(int a, int m) {
 int blocks(long long n) { return int((n + THREADS - 1) / THREADS); }
 
 // ---- affine_loop: out = x after `iters` steps of v = fma(v, a, b)
+//
+// The loop kernel keeps P1, P2 and P4's question (probes/probe_pallas.py
+// :133, :178, :341): one element a thread, one dependent chain of `iters`
+// steps, the count from the host or read on the device. Their time per step
+// is the answer; a thread never carries two chains.
 __global__ void affine_loop_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
                                    int iters, const int* __restrict__ iters_dev, float a,
                                    float b) {
@@ -62,6 +67,42 @@ __global__ void affine_loop_kernel(const float* __restrict__ x, float* __restric
   float v = x[i];
   for (int k = 0; k < m; ++k) v = __fmaf_rn(v, a, b);
   out[i] = v;
+}
+
+// The short loop, P0 (probes/probe_pallas.py:105, x * 2.0 on an (8, 128)
+// f32 block): at most SHORT_STEPS steps, the count a template argument. A
+// 4 KiB call is bound by its launch and one round trip to memory (the bytes,
+// 8 KiB at 3.35 TB/s, take 2.4 ns), so the kernel issues as few memory
+// instructions as it can: 4 elements a thread in one 16-byte load and one
+// 16-byte store (x and out 16-byte aligned: the wrapper checks), the n % 4
+// elements past the last whole quad one a thread, and no read of a trip
+// count. The grid has one thread for each quad and for each tail element,
+// in 256-thread blocks: one block at P0's shape, no slower than 128- or
+// 64-thread blocks or than the loop kernel's 4 blocks of one element a
+// thread (python -m volren_tpu_torch.probes.variants). At the launch floor
+// the difference is a few ns either way.
+constexpr int SHORT_STEPS = 4;
+
+template <int STEPS>
+__global__ void affine_short_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
+                                    float a, float b) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x, n4 = n >> 2;
+  if (i < n4) {
+    float4 v = reinterpret_cast<const float4*>(x)[i];
+#pragma unroll
+    for (int k = 0; k < STEPS; ++k) {
+      v.x = __fmaf_rn(v.x, a, b);
+      v.y = __fmaf_rn(v.y, a, b);
+      v.z = __fmaf_rn(v.z, a, b);
+      v.w = __fmaf_rn(v.w, a, b);
+    }
+    reinterpret_cast<float4*>(out)[i] = v;
+  } else if (int e = 4 * n4 + (i - n4); e < n) {
+    float v = x[e];
+#pragma unroll
+    for (int k = 0; k < STEPS; ++k) v = __fmaf_rn(v, a, b);
+    out[e] = v;
+  }
 }
 
 // ---- gather: out[i, j] = T[r, c] over an (H, W) output; r is i
@@ -264,10 +305,9 @@ cudaError_t launch_rounds(const int* base, const uint32_t* tab, int rows, int us
 
 // ---- index_copy: out (OH, OW) from x (H, W). TILE_ROWS: x[i % H, j];
 // ROLL_COLS: x[i, (j - param) mod W]; BROADCAST_ROW: x[param, j];
-// IOTA_PLUS: float(i) + x[0, 0] (f32). TRANSPOSE has its own tiled kernel.
+// IOTA_PLUS: float(i) + x[0, 0] (f32). TRANSPOSE has its own kernel below.
 constexpr int IC_TRANSPOSE = 0, IC_TILE_ROWS = 1, IC_ROLL_COLS = 2, IC_BROADCAST_ROW = 3,
               IC_IOTA_PLUS = 4;
-constexpr int TILE = 32;
 
 __global__ void index_copy_kernel(const uint32_t* __restrict__ x, int H, int W, int mode,
                                   int param, uint32_t* __restrict__ out, int OH, int OW) {
@@ -287,20 +327,83 @@ __global__ void index_copy_kernel(const uint32_t* __restrict__ x, int H, int W, 
   out[k] = v;
 }
 
-// out (W, H) = x (H, W) transposed through a 32 x 33 shared tile (the
-// pad column keeps the tile's column reads off one bank)
-__global__ void transpose_kernel(const uint32_t* __restrict__ x, int H, int W,
-                                 uint32_t* __restrict__ out) {
-  __shared__ uint32_t tile[TILE][TILE + 1];
-  int c0 = blockIdx.x * TILE, r0 = blockIdx.y * TILE;
-  for (int dy = threadIdx.y; dy < TILE; dy += blockDim.y) {
-    int r = r0 + dy, c = c0 + threadIdx.x;
-    if (r < H && c < W) tile[dy][threadIdx.x] = x[(long long)r * W + c];
+// ---- transpose, W4 (probes/probe_pallas3.py:271, o_ref[:] = t_ref[:].T at
+// (128, 1024), (1024, 128) and (8, 1024) f32) and Q3's (8, 128): out (W, H)
+// = x (H, W), x's rows `ld` words apart.
+//
+// What bounds it: bytes, each word read once and written once, 8 H W bytes
+// at 3.35 TB/s: 0.313 us at W4's 1 MiB, 0.160 ms at 8192 x 8192. Below a
+// few MiB the call is bound by its launch and one round trip to memory
+// instead, so the design issues few, wide memory instructions. A block of
+// 64 threads moves a TR x 32-word tile through shared memory: each thread
+// issues all its loads of 16-byte segments of input rows (a warp reads 4
+// rows x 128 contiguous bytes) before any store, the block meets at one
+// barrier, and each thread gathers 4 words of a tile column into a 16-byte
+// segment of an output row (a warp writes 4 rows x 128 bytes at TR = 32,
+// 16 rows x 32 bytes at TR = 8). The tile's rows are padded to 33 words, so
+// a warp's 4-byte shared stores and its column reads at TR = 32 each hit 32
+// banks. The wrapper (ops/kernels/probes.py: transpose_plan) takes TR = 8
+// for arrays of at most 8 rows, so (8, 1024) runs 32 blocks with every
+// thread busy, and TR = 32 otherwise: W4's other two shapes run 128 blocks,
+// one wave on 132 SMs. The grid is gx tiles across by gy tiles down, one
+// tile a block: a loop over bands (which would lift the 65535-band limit)
+// cost about 0.1 us at W4's two larger shapes, so the wrapper refuses more
+// than 65535 bands. A 4 x 4 block of words kept in each thread's registers
+// (no shared memory, no barrier) ran from 2% faster to 4% slower at (128,
+// 1024) and (1024, 128), varying with the card, and 3-8% slower at (8,
+// 1024) and 3% at 8192^2 (python -m volren_tpu_torch.probes.variants).
+//
+// VEC (H, W and ld multiples of 4, x 16-byte aligned; out is a fresh
+// allocation) takes the 16-byte path: a segment is then wholly inside the
+// array or wholly outside. Otherwise each segment moves word by word with
+// bound checks, exact for every shape and pitch.
+constexpr int T_THREADS = 64, T_COLS = 32;
+
+template <int TR, bool VEC>
+__global__ void __launch_bounds__(T_THREADS)
+    transpose_kernel(const uint32_t* __restrict__ x, int H, int W, long long ld,
+                     uint32_t* __restrict__ out) {
+  constexpr int N = TR * T_COLS / 4 / T_THREADS;  // 16-byte segments a thread
+  __shared__ uint32_t tile[TR][T_COLS + 1];
+  const int t = threadIdx.x, c0 = blockIdx.x * T_COLS, r0 = blockIdx.y * TR;
+  uint4 v[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int row = r0 + t / 8 + 8 * i, col = c0 + 4 * (t % 8);
+    const uint32_t* src = x + row * ld + col;
+    if (VEC) {
+      if (row < H && col < W) v[i] = *reinterpret_cast<const uint4*>(src);
+    } else if (row < H) {
+      if (col < W) v[i].x = src[0];
+      if (col + 1 < W) v[i].y = src[1];
+      if (col + 2 < W) v[i].z = src[2];
+      if (col + 3 < W) v[i].w = src[3];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    uint32_t* d = &tile[t / 8 + 8 * i][4 * (t % 8)];
+    d[0] = v[i].x;
+    d[1] = v[i].y;
+    d[2] = v[i].z;
+    d[3] = v[i].w;
   }
   __syncthreads();
-  for (int dy = threadIdx.y; dy < TILE; dy += blockDim.y) {
-    int r = c0 + dy, c = r0 + threadIdx.x;  // out row r = x column
-    if (r < W && c < H) out[(long long)r * H + c] = tile[threadIdx.x][dy];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int k = t + T_THREADS * i, p = k % (TR / 4), c = k / (TR / 4);
+    const int orow = c0 + c, ocol = r0 + 4 * p;
+    if (orow >= W) continue;
+    uint32_t* dst = out + (long long)orow * H + ocol;
+    if (VEC) {
+      if (ocol < H)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(tile[4 * p][c], tile[4 * p + 1][c],
+                                                    tile[4 * p + 2][c], tile[4 * p + 3][c]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (ocol + e < H) dst[e] = tile[4 * p + e][c];
+    }
   }
 }
 
@@ -354,9 +457,23 @@ __global__ void row_scan_kernel(const float* __restrict__ x, float* __restrict__
 
 extern "C" {
 
+// short != 0: the short kernel, 1 <= iters <= SHORT_STEPS from the host, x
+// and out 16-byte aligned (the wrapper's affine_short decides)
 int probe_affine_loop(const float* x, float* out, int n, int iters, const int* iters_dev,
-                      float a, float b, cudaStream_t stream) {
-  affine_loop_kernel<<<blocks(n), THREADS, 0, stream>>>(x, out, n, iters, iters_dev, a, b);
+                      float a, float b, int short_loop, cudaStream_t stream) {
+  if (!short_loop) {
+    affine_loop_kernel<<<blocks(n), THREADS, 0, stream>>>(x, out, n, iters, iters_dev, a, b);
+    return cudaGetLastError();
+  }
+  const int grid = blocks(n / 4 + n % 4);
+  switch (iters) {
+    case 1: affine_short_kernel<1><<<grid, THREADS, 0, stream>>>(x, out, n, a, b); break;
+    case 2: affine_short_kernel<2><<<grid, THREADS, 0, stream>>>(x, out, n, a, b); break;
+    case 3: affine_short_kernel<3><<<grid, THREADS, 0, stream>>>(x, out, n, a, b); break;
+    case SHORT_STEPS:
+      affine_short_kernel<SHORT_STEPS><<<grid, THREADS, 0, stream>>>(x, out, n, a, b); break;
+    default: return int(cudaErrorInvalidValue);
+  }
   return cudaGetLastError();
 }
 
@@ -410,13 +527,26 @@ int probe_row_gather_rounds(int mode, const int* base, const uint32_t* tab, int 
 
 int probe_index_copy(const uint32_t* x, int H, int W, int mode, int param, uint32_t* out,
                      int OH, int OW, cudaStream_t stream) {
-  if (mode == IC_TRANSPOSE) {
-    dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE);
-    transpose_kernel<<<grid, dim3(TILE, 8), 0, stream>>>(x, H, W, out);
-  } else {
-    index_copy_kernel<<<blocks((long long)OH * OW), THREADS, 0, stream>>>(x, H, W, mode, param,
-                                                                           out, OH, OW);
-  }
+  if (mode == IC_TRANSPOSE) return int(cudaErrorInvalidValue);  // probe_transpose
+  index_copy_kernel<<<blocks((long long)OH * OW), THREADS, 0, stream>>>(x, H, W, mode, param,
+                                                                         out, OH, OW);
+  return cudaGetLastError();
+}
+
+// the plan (vec, tile_rows, gx, gy) is the wrapper's transpose_plan
+int probe_transpose(const uint32_t* x, int H, int W, long long ld, int vec, int tile_rows,
+                    int gx, int gy, uint32_t* out, cudaStream_t stream) {
+  const dim3 grid(gx, gy);
+  if (tile_rows == 8 && vec)
+    transpose_kernel<8, true><<<grid, T_THREADS, 0, stream>>>(x, H, W, ld, out);
+  else if (tile_rows == 8)
+    transpose_kernel<8, false><<<grid, T_THREADS, 0, stream>>>(x, H, W, ld, out);
+  else if (tile_rows == 32 && vec)
+    transpose_kernel<32, true><<<grid, T_THREADS, 0, stream>>>(x, H, W, ld, out);
+  else if (tile_rows == 32)
+    transpose_kernel<32, false><<<grid, T_THREADS, 0, stream>>>(x, H, W, ld, out);
+  else
+    return int(cudaErrorInvalidValue);
   return cudaGetLastError();
 }
 

@@ -91,13 +91,14 @@ def _lib() -> ctypes.CDLL:
         if _LIB is None:
             p, n, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
             _LIB = _build.load(build(), {
-                "probe_affine_loop": [p, p, n, n, p, f, f, p],
+                "probe_affine_loop": [p, p, n, n, p, f, f, n, p],
                 "probe_gather": [p, n, p, n, n, p, n, p, n, n, p],
                 "probe_lcg_gather_sum": [p, n, n, n, n, u, u, n, n, n, p, p],
                 "probe_carry30": [p, n, n, u, n, n, n, f, f, p, p],
                 "probe_march": [p, n, n, p, p, n, f, f, f, f, p, p],
                 "probe_row_gather_rounds": [n, p, p, n, n, n, n, p, p],
                 "probe_index_copy": [p, n, n, n, n, p, n, n, p],
+                "probe_transpose": [p, n, n, ctypes.c_longlong, n, n, n, n, p, p],
                 "probe_tea8": [p, p, p, p, n, p],
                 "probe_row_scan": [p, p, n, n, p],
             })
@@ -200,6 +201,19 @@ def affine_loop_plain(x, iters, a, b, iters_dev=None):
     return v.clone()
 
 
+SHORT_STEPS = 4   # csrc/probes.cu: the short kernel's longest loop
+
+
+def affine_short(iters: int, x_ptr: int, out_ptr: int, dev_count: bool) -> bool:
+    """Whether a call takes the short kernel (4 elements a thread, 16-byte
+    accesses, the step count a template argument): a trip count from the
+    host of 1 to SHORT_STEPS, x and out 16-byte aligned. Every other call
+    runs the loop kernel, one element and one dependent chain a thread,
+    which P1, P2 and P4 time."""
+    return (not dev_count and 1 <= iters <= SHORT_STEPS and x_ptr % 16 == 0
+            and out_ptr % 16 == 0)
+
+
 def affine_loop(x: torch.Tensor, iters: int = 0, a=1.0, b=0.0,
                 iters_dev: torch.Tensor | None = None) -> torch.Tensor:
     """``iters`` (or ``iters_dev[0]``, read inside the kernel) steps of
@@ -210,9 +224,10 @@ def affine_loop(x: torch.Tensor, iters: int = 0, a=1.0, b=0.0,
     if iters_dev is not None:
         _check(iters_dev, "iters_dev", (i32,), (1,))
     out = torch.empty_like(x)
+    short = affine_short(int(iters), x.data_ptr(), out.data_ptr(), iters_dev is not None)
     _launch("probe_affine_loop", x.data_ptr(), out.data_ptr(), x.numel(), int(iters),
             iters_dev.data_ptr() if iters_dev is not None else None,
-            float(np.float32(a)), float(np.float32(b)), device=x.device)
+            float(np.float32(a)), float(np.float32(b)), int(short), device=x.device)
     affine_loop.launches += 1
     return out
 
@@ -519,11 +534,50 @@ def index_copy_plain(x, op, arg=0):
     return torch.arange(arg, dtype=i32, device=x.device).to(f32)[:, None].expand(arg, w) + x[0, 0]
 
 
+T_COLS = 32        # csrc/probes.cu: a transpose tile's columns (words); 64 threads a block
+MAX_GRID_Y = 65535  # CUDA's limit on a grid's second axis
+
+
+def transpose_plan(h: int, w: int, ld: int, ptr: int):
+    """(vec, tile_rows, gx, gy) of the transpose kernel for an (h, w) array
+    of 32-bit words whose rows lie ``ld`` words apart from address ``ptr``.
+    vec: the 16-byte path (h, w and ld multiples of 4, ptr 16-byte aligned).
+    A block moves a tile_rows x T_COLS tile: 8 rows for an array of at most
+    8 rows (every thread busy), else 32. The grid is gx tiles across by gy
+    down, one tile a block; more than MAX_GRID_Y tiles down raise."""
+    vec = h % 4 == 0 and w % 4 == 0 and ld % 4 == 0 and ptr % 16 == 0
+    tile_rows = 8 if h <= 8 else 32
+    gy = -(-h // tile_rows)
+    if gy > MAX_GRID_Y:
+        raise ValueError(f"the transpose takes at most {MAX_GRID_Y * tile_rows} rows")
+    return vec, tile_rows, -(-w // T_COLS), gy
+
+
+def _transpose(x: torch.Tensor) -> torch.Tensor:
+    h, w = x.shape
+    ld = x.stride(0) if h > 1 else w
+    if x.dtype not in (f32, i32) or (w > 1 and x.stride(1) != 1) or ld < w:
+        raise ValueError("the transpose takes a float32 or int32 array of unit column "
+                         "stride whose rows do not overlap")
+    if h * w >= 2 ** 31 - 256:
+        raise ValueError("the kernel indexes rows and columns with 32-bit integers")
+    out = torch.empty(w, h, dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    vec, tile_rows, gx, gy = transpose_plan(h, w, ld, x.data_ptr())
+    _launch("probe_transpose", x.data_ptr(), h, w, ld, int(vec), tile_rows, gx, gy,
+            out.data_ptr(), device=x.device)
+    index_copy.launches += 1
+    return out
+
+
 def index_copy(x: torch.Tensor, op: str, arg: int = 0) -> torch.Tensor:
     """Data movement of a 2-D float32 / int32 array: "transpose"; "tile_rows"
     (``arg`` copies stacked on axis 0, as pltpu.repeat); "roll_cols" (by
     ``arg``, as jnp.roll on axis 1); "broadcast_row0" (row 0 to ``arg``
-    rows); "iota_plus" (float32 row number + x[0, 0], ``arg`` rows)."""
+    rows); "iota_plus" (float32 row number + x[0, 0], ``arg`` rows). The
+    transpose also takes an array whose rows are strided (a column slice);
+    the other ops take contiguous arrays."""
     if op not in INDEX_COPY_OPS:
         raise ValueError(f"op must be one of {sorted(INDEX_COPY_OPS)}")
     if x.dim() != 2:
@@ -532,6 +586,8 @@ def index_copy(x: torch.Tensor, op: str, arg: int = 0) -> torch.Tensor:
         raise ValueError("iota_plus adds to a float32 array")
     if not _on_card(x):
         return index_copy_plain(x, op, arg)
+    if op == "transpose":
+        return _transpose(x)
     _check(x, "x", (f32, i32))
     oh, ow = _index_copy_shape(x, op, arg)
     if oh * ow >= 2 ** 31:

@@ -5,9 +5,11 @@ W1/W6 per lane of an (R, 128) block, T[i, lcg % 128] summed over iters, R
       3584 and 9344 f32, 3584 i32 (lcg_gather_sum, "row");
 W2    the same on an (8, 16384) wide row;
 W3    axis-0 gather T[idx[i, j], j] at (8, 128) and (32, 128) (gather);
-W4    transposes (128, 1024), (1024, 128), (8, 1024) (index_copy, tiled
-      through shared memory); the first also in turns with PyTorch's
-      .t().contiguous() (median and spread of 101 rounds);
+W4    transposes (128, 1024), (1024, 128), (8, 1024) (index_copy, 16-byte
+      segments through a shared tile); the first also in turns with PyTorch's
+      .t().contiguous() (median and spread of 101 rounds); on the card also
+      (8192, 8192), held bitwise to t.t() and timed in turns with it (21
+      rounds), with the bytes' bound and the kernel's share of it;
 W7    T[r, c] for 1024 lanes with r and c from the LCG, from (3584, 128)
       (lcg_gather_sum, "rc"; the TPU's one-hot MXU row fetch and select
       are one load here).
@@ -17,7 +19,9 @@ Totals are checked at 3 iterations against the probe's numpy LCG oracle.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..measure import PEAK_BYTES_S
 from ..ops.kernels import probes as K
 from ._common import (Context, interleaved_ms, lcg_np, marginal, relerr, require, seeds_np,
                       total)
@@ -71,6 +75,14 @@ def w3(ctx: Context):
 
 
 W4_SHAPES = ((128, 1024), (1024, 128), (8, 1024))
+BIG = 8192   # on the card, a transpose of 256 MiB: the bytes set its time, not the launch
+
+
+def transpose_vs_library(ctx: Context, t: torch.Tensor, rounds: int = 101) -> dict:
+    """The transpose kernel and PyTorch's ``.t().contiguous()`` on ``t``,
+    in turns (interleaved_ms): median and spread of each."""
+    return interleaved_ms(ctx, {"kernel": lambda: K.index_copy(t, "transpose"),
+                                ".t().contiguous()": lambda: t.t().contiguous()}, rounds)
 
 
 def w4(ctx: Context):
@@ -83,9 +95,15 @@ def w4(ctx: Context):
         res[f"{a}x{b}"] = "ok"
         res[f"{a}x{b}_ms"] = ctx.time_ms(lambda: K.index_copy(t, "transpose"), reps=100)
         if (a, b) == W4_SHAPES[0]:   # against PyTorch's own transpose, in turns
-            res[f"{a}x{b}_vs_library"] = interleaved_ms(
-                ctx, {"kernel": lambda: K.index_copy(t, "transpose"),
-                      ".t().contiguous()": lambda: t.t().contiguous()})
+            res[f"{a}x{b}_vs_library"] = transpose_vs_library(ctx, t)
+    if ctx.on_card:
+        t = torch.rand(BIG, BIG, device=ctx.device)
+        require(torch.equal(K.index_copy(t, "transpose"), t.t()), f"{BIG}x{BIG} wrong")
+        turns = transpose_vs_library(ctx, t, rounds=21)
+        bound_ms = 2 * t.numel() * 4 / PEAK_BYTES_S * 1e3
+        res[f"{BIG}x{BIG}_vs_library"] = turns
+        res[f"{BIG}x{BIG}_bound_ms"] = bound_ms
+        res[f"{BIG}x{BIG}_share_of_bound"] = bound_ms / turns["kernel"]["median"]
     return res
 
 
