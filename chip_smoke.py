@@ -42,7 +42,10 @@ of which raises on failure (exit code non-zero, no result line):
    probe's shapes held against its plain version on the same CUDA tensors
    (bitwise; row_scan allclose at rtol 1e-5), timed beside its bound, its
    plain version and the one PyTorch call that computes the same, if any
-   (P0 and W4 in turns with that call, 101 rounds, median and p10-p90);
+   (each site that has one in turns with that call, median and p10-p90:
+   P0 and W4 101 rounds, the gathers P3a, P3c, P3d, Q1, Q2, Q4, W3 and the
+   cumsum 31); lcg_gather_sum's loads in flight a lane (from the built
+   library) and the staged rounds' design, each with ptxas's registers;
    the transpose of an 8192 x 8192 f32 array held bitwise to t.t() and
    timed in turns with .t().contiguous() beside its bound by bytes;
    then the entry point python -m volren_tpu_torch.probes, run in-process
@@ -173,7 +176,9 @@ ORACLE_TILE_SPAN = 8
 # launch keeps 8 groups a resident warp; 10.3: it does not)
 ORACLE_ITEMS_MAIN, ORACLE_ITEMS_SMALL = 64, 32
 ORACLE_REPLACES = "volren_tpu/ops/tracer.py:154 (trace_pass; XLA, no pallas_call)"
-PROBES_IN_TURNS = ("probe_P0", "probe_W4")  # phase 8: timed in turns with their PyTorch call
+# phase 8: the sites timed in turns with their PyTorch call, and the rounds
+PROBES_IN_TURNS = {"probe_P0": 101, "probe_W4": 101, **{
+    f"probe_{name}": 31 for name in ("P3a", "P3c", "P3d", "Q1", "Q2", "Q4", "W3", "cumsum")}}
 ORACLE_VARIANTS = [(dda, tf, emi) for dda in (True, False) for tf in (False, True)
                    for emi in (False, True)]
 VARIANT = {"plain": (False, False), "tf": (True, False), "emission": (False, True),
@@ -1299,6 +1304,19 @@ def main(argv=None) -> int:
                                      f"(max abs {err!r}, {'bitwise' if exact else 'rtol 1e-5'})")
         return err
 
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def registers(*kernels):
+        return [u for u in probe_kernels.resource_usage(probe_lib)
+                if u.startswith(kernels) and "registers" in u]
+
+    print(f"lcg_gather_sum: {probe_kernels.LCG_UNROLL} loads in flight a lane, exact multiply-high division, "
+          f"{probe_kernels.lcg_threads(1024, n_sms)}-thread blocks at 1024 lanes on {n_sms} SMs; "
+          f"ptxas {registers('lcg_gather_sum')}", flush=True)
+    print(f"row_gather_rounds stage/staged: 16-byte cp.async, each warp copying its own lanes' "
+          f"rows for n > {probe_kernels.BLOCK_COPY_MAX} (no block barrier in the loop), the "
+          f"whole block between three block barriers for n <= {probe_kernels.BLOCK_COPY_MAX}; "
+          f"ptxas {registers('row_gather_rounds<2,', 'row_gather_rounds<3,')}", flush=True)
     for site in SITES:
         case = site.make(ctx)
         before = probe_launches()
@@ -1307,9 +1325,11 @@ def main(argv=None) -> int:
         err = compare_probe(site.name, got, case.plain(), case.exact)
         plain_ms, _ = host_ms(case.plain)
         if site.name in PROBES_IN_TURNS:
-            turns = interleaved_ms(ctx, {"kernel": case.kernel, "library": case.library})
+            n_turns = PROBES_IN_TURNS[site.name]
+            turns = interleaved_ms(ctx, {"kernel": case.kernel, "library": case.library}, n_turns)
             ms, library_ms = turns["kernel"]["median"], turns["library"]["median"]
-            print(f"{site.name} in turns with its PyTorch call, 101 rounds, ms median (p10, p90): "
+            print(f"{site.name} in turns with its PyTorch call, {n_turns} rounds, ms median "
+                  f"(p10, p90): "
                   + ", ".join(f"{k} {v['median']!r} ({v['p10']!r}, {v['p90']!r})"
                               for k, v in turns.items()) + f" on {gpu_line}", flush=True)
         else:

@@ -401,6 +401,80 @@ def test_probe_kernel_matches_plain_version(case):
         assert got.is_cuda and torch.equal(got, want), float((got.double() - want.double()).abs().max())
 
 
+ROUND_MODES = ("ids", "direct", "stage", "staged", "stale")
+ROUND_LANES = (0, 1, 8, 31, 32, 33, 127, 128)
+ROUND_COUNTS = (0, 1, 2, 3, 300)
+
+
+@pytest.mark.parametrize("use_mask", [False, True], ids=["mod_rows", "mask"])
+@pytest.mark.parametrize("mode", ROUND_MODES)
+def test_probe_row_gather_rounds_matches_plain_version(mode, use_mask):
+    """Every mode, at lane counts around a warp's edges and round counts
+    around the per-warp mbarriers' first phases, both index forms (65537
+    rows: % rows is no power of two), bitwise."""
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    rng = np.random.default_rng(13)
+    tab = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, (65537, 128)).astype(np.int32)).to(dev)
+    base = torch.from_numpy(rng.integers(0, 65537, (128,)).astype(np.int32)).to(dev)
+    for n in ROUND_LANES:
+        for rounds in ROUND_COUNTS:
+            before = K.row_gather_rounds.launches
+            got = K.row_gather_rounds(base, tab, mode, rounds, n, use_mask)
+            assert K.row_gather_rounds.launches == before + 1
+            want = K.row_gather_rounds_plain(base, tab, mode, rounds, n, use_mask)
+            assert got.is_cuda and torch.equal(got, want), (n, rounds)
+
+
+def test_probe_staged_rounds_refuse_a_misaligned_table():
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    flat = torch.zeros(65536 * 128 + 4, dtype=torch.int32, device=dev)
+    offset = flat[1:65536 * 128 + 1].view(65536, 128)
+    base = torch.zeros(128, dtype=torch.int32, device=dev)
+    before = K.row_gather_rounds.launches
+    for mode in ("stage", "staged"):
+        with pytest.raises(ValueError):
+            K.row_gather_rounds(base, offset, mode, 3)
+    assert K.row_gather_rounds.launches == before
+
+
+def _lcg_iters():
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    return (0, 1, K.LCG_UNROLL - 1, K.LCG_UNROLL, K.LCG_UNROLL + 1, 64)
+
+
+LCG_LANES = ((1, 1), (3, 37), (8, 16384))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "i32"])
+@pytest.mark.parametrize("mode", ["row", "rc", "flat"])
+def test_probe_lcg_gather_sum_matches_plain_version(mode, dtype):
+    """Every mode and table type, at iteration counts around the loads in
+    flight (LCG_UNROLL) and its remainder loop, on ragged lane blocks (one
+    lane, 3 x 37, 8 x 16384: the block-size plan's edges) and tables of
+    100 (no power of two) and 128 columns, bitwise."""
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    rng = np.random.default_rng(17)
+    for h, w in LCG_LANES:
+        for cols in (100, 128):
+            rows = h if mode == "row" else 74
+            tn = (rng.integers(-2 ** 20, 2 ** 20, (rows, cols)).astype(np.int32) if dtype == "i32"
+                  else rng.random((rows, cols)).astype(np.float32))
+            t = torch.from_numpy(tn).to(dev)
+            for iters in _lcg_iters():
+                before = K.lcg_gather_sum.launches
+                got = K.lcg_gather_sum(t, mode, (h, w), iters, 42)
+                assert K.lcg_gather_sum.launches == before + 1
+                want = K.lcg_gather_sum_plain(t, mode, (h, w), iters, 42, 7919)
+                assert got.is_cuda and torch.equal(got, want), ((h, w), cols, iters)
+
+
 def test_probe_row_scan_matches_cumsum():
     from volren_tpu_torch.ops.kernels import probes as K
 

@@ -497,6 +497,55 @@ def test_v_gather_formulations_match_pallas(probe, monkeypatch, variant, r):
     assert np.array_equal(acc.numpy(), _np_lane_acc(tn, "flat", (8, 128), 3, 42))
 
 
+# the divisors lcg_gather_sum's sites and stages pass (C of "row" and "rc",
+# R of "rc", R * C of "flat" at each V stage's R of 1, 74 and 896) and edges
+LCG_DIVISORS = (128, 16384, 3584, 9344, 74, 896 * 128, 1 * 128, 74 * 128,
+                1, 2, 3, 7, 2 ** 23 - 1, 2 ** 23, 2 ** 24 - 1)
+
+
+@pytest.mark.parametrize("d", LCG_DIVISORS)
+def test_div_plan_divides_every_24_bit_numerator_exactly(d):
+    """The kernel's x % d (csrc/probes.cu: mod24) for every numerator it
+    can see, x < 2^24, replayed with the wrapper's (m, sh): q = umulhi(x
+    << 8, m) >> sh is x // d exactly when x - q d lies in [0, d)."""
+    m, sh = K.div_plan(d)
+    assert 0 < m < 2 ** 32 and 0 <= sh < 32
+    for lo in range(0, 1 << 24, 1 << 22):
+        x = torch.arange(lo, lo + (1 << 22), dtype=torch.int64)
+        r = (x << 8).mul_(m).bitwise_right_shift_(32 + sh).mul_(-d).add_(x)
+        low, high = torch.aminmax(r)
+        assert int(low) >= 0 and int(high) < d, (d, lo)
+
+
+def test_div_plan_refuses_what_the_kernel_cannot_divide_by():
+    for d in (0, -3, 2 ** 31):
+        with pytest.raises(ValueError):
+            K.div_plan(d)
+
+
+@pytest.mark.parametrize("lanes,threads", [
+    (1024, 32), (1, 32), (3 * 37, 32),               # V, X1/X2, W5/W7: 32 blocks, not 4
+    (131 * 256, 32), (131 * 256 + 1, 256),           # the first size that fills 132 SMs
+    (8 * 16384, 256), (3584 * 128, 256)])            # W2, W1/W6
+def test_lcg_threads_spreads_small_lane_blocks_over_the_sms(lanes, threads):
+    assert K.lcg_threads(lanes, 132) == threads
+
+
+def test_schedule_constants_are_the_kernels():
+    src = open(K.SOURCE).read()
+    assert f"constexpr int LCG_UNROLL = {K.LCG_UNROLL};" in src
+    assert f"constexpr int BLOCK_COPY_MAX = {K.BLOCK_COPY_MAX};" in src
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_124row_gather_rounds_kernelILi3EEEvPKiPKjiiiiPj", "row_gather_rounds<3>"),
+    ("_ZN12_GLOBAL__N_121lcg_gather_sum_kernelILb1ELi2EEEvPKjiNS_7DivisorES3_jjiiiPf",
+     "lcg_gather_sum<1,2>"),
+    ("_ZN12_GLOBAL__N_111tea8_kernelEPKjS1_PjS2_i", "tea8")])
+def test_kernel_names_carry_every_template_argument(mangled, name):
+    assert K._kernel_name(mangled) == name
+
+
 # ---------------------------------------------------------------- carry_loop
 
 def test_x3_carry30_matches_pallas(probe, monkeypatch):
@@ -644,6 +693,44 @@ def test_stale_rounds_pick_the_zero_filled_buffer(dma_table):
     assert not _port_rounds(dma_table, "stale", 5, use_mask=True).any()
     want = port_dmagather.ref_checksum(idx, tab, 128, 5, True, "stale")
     assert not want.any()
+
+
+def test_staged_rounds_refuse_a_table_their_copies_cannot_take(dma_table):
+    """stage and staged copy each 512-byte row in 16-byte pieces from
+    16-byte aligned addresses: the wrapper refuses an offset view (4 bytes
+    off) and a row pitch of 1024 bytes on every device, and never falls
+    back; the modes that copy nothing still take them."""
+    tab, idx = dma_table
+    flat = _t(tab).reshape(-1)
+    offset = torch.cat([flat[:4], flat])[1:flat.numel() + 1].view(-1, 128)
+    assert offset.data_ptr() % 16 == 4 and offset.is_contiguous()
+    wide = torch.zeros(1024, 256, dtype=torch.int32)[:, :128]
+    for bad in (offset, wide):
+        for mode in ("stage", "staged"):
+            with pytest.raises(ValueError):
+                K.row_gather_rounds(_t(idx), bad, mode, 2, 128, bad is offset)
+        with pytest.raises(ValueError):
+            K.check_staged_table(bad)
+    want = K.row_gather_rounds(_t(idx), _t(tab), "direct", 2, 128, True)
+    assert torch.equal(K.row_gather_rounds(_t(idx), offset, "direct", 2, 128, True),
+                       K.row_gather_rounds_plain(_t(idx), offset, "direct", 2, 128, True))
+    assert want.shape == (128,)
+    K.check_staged_table(_t(tab))
+
+
+@pytest.mark.parametrize("mode,rounds,words", [
+    ("staged", 7, 7 * 128), ("direct", 7, 7 * 128),       # the words the checksum reads
+    ("staged", 70000, 256 * 128), ("direct", 70000, 256 * 128),   # at most the table
+    ("stage", 7, 0), ("ids", 7, 0), ("stale", 7, 0)])     # no table word
+def test_row_sites_bound_counts_the_words_the_checksum_reads(mode, rounds, words):
+    """A row site's bound counts the table words its checksum reads, at
+    most the table, and the base ids in and the sums out: the rows the
+    staged modes copy are not words the function needs."""
+    from volren_tpu_torch.probes._common import Context
+    from volren_tpu_torch.probes.sites import _rounds
+
+    ctx = Context(torch.device("cpu"), rows=256)
+    assert _rounds(ctx, mode, True, rounds).n_bytes == 4 * words + 2 * 128 * 4
 
 
 # ---------------------------------------------------------------- wrappers, entry point

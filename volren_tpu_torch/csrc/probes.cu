@@ -28,10 +28,16 @@
 // asks for one with __fmaf_rn and the plain version emulates it exactly.
 // A gather moves 32-bit words, so one kernel serves f32 and i32 tables.
 //
-// What bounds them: every family but the large gathers and the transpose is
-// latency-bound by construction (a dependent chain per thread: a loop step,
-// an LCG step feeding a load, a round of row copies). Their bound by bytes
-// or operations is far below their time; the time itself is the answer.
+// What bounds them: three families are dependent chains by construction,
+// and their time per step is the answer: affine_loop (each step reads the
+// last), carry30's 30 values (each chained through the one before) and
+// march (the cell a step reads comes from pos[0]). row_gather_rounds waits
+// for a round's copies to land and be picked before the next round copies
+// into the same rows, so it is latency-bound by the probe's rule, not by
+// its data. lcg_gather_sum's loads do not depend on each other (each index
+// comes from the LCG alone); only its sum is a chain, kept in order, so it
+// is bound by issue and by the loads it keeps in flight. Their bound by
+// bytes or operations is far below their time.
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError().
 
@@ -123,35 +129,93 @@ __global__ void gather_kernel(const uint32_t* __restrict__ T, int C,
 
 // ---- lcg_gather_sum: per lane (i, j) of an (H, W) block, seed
 // s = seed + i * row_mul + j; `iters` times: advance the LCG and add one
-// table word (as f32) to the lane's accumulator. mode 0 ("row"): T[i, (s >>
-// 8) % C]; mode 1 ("rc"): r = (s >> 8) % R, advance, c = (s >> 8) % C,
-// T[r, c]; mode 2 ("flat"): T.flat[((s >> 8) & 0x7FFFFF) % (R * C)]
+// table word (as f32) to the lane's accumulator. LCG_ROW: T[i, (s >> 8) %
+// C]; LCG_RC: r = (s >> 8) % R, advance, c = (s >> 8) % C, T[r, c];
+// LCG_FLAT: T.flat[((s >> 8) & 0x7FFFFF) % (R * C)].
+//
+// What bounds it: issue and latency, not bytes. The loads do not depend on
+// each other, only the sum does, so a lane computes its next LCG_UNROLL
+// indices (a cheap integer chain), issues their loads together and then
+// adds the words in their original order with __fadd_rn: bitwise the
+// plain version's one-at-a-time sum, with LCG_UNROLL loads in flight. Each
+// modulo by C, R or R * C is an exact division by a multiply-high with a
+// magic number and shift from the wrapper (ops/kernels/probes.py: div_plan;
+// the numerators are below 2^24): a few instructions, where a runtime `%`
+// is a software division sequence. The wrapper picks the block size
+// (lcg_threads): 256 threads where that still gives every SM a block, one
+// warp below that, so that 1,024 lanes spread over 32 SMs.
+constexpr int LCG_ROW = 0, LCG_RC = 1, LCG_FLAT = 2;
+constexpr int LCG_UNROLL = 16;
+
+// x % d for 0 <= x < 2^24: q = x / d = umulhi(x << 8, m) >> sh
+struct Divisor {
+  uint32_t d, m, sh;
+};
+
+__device__ __forceinline__ uint32_t mod24(uint32_t x, Divisor v) {
+  return x - v.d * (__umulhi(x << 8, v.m) >> v.sh);
+}
+
+// one step of a lane's walk: advance s, return the flat index of its word
+template <int MODE>
+__device__ __forceinline__ int lcg_index(uint32_t& s, int row0, int C, Divisor dc, Divisor dr) {
+  s = lcg(s);
+  if (MODE == LCG_ROW) return row0 + int(mod24(s >> 8, dc));
+  if (MODE == LCG_FLAT) return int(mod24((s >> 8) & 0x7FFFFFu, dc));
+  const int r = int(mod24(s >> 8, dr));
+  s = lcg(s);
+  return r * C + int(mod24(s >> 8, dc));
+}
+
 template <bool IS_INT>
-__global__ void lcg_gather_sum_kernel(const uint32_t* __restrict__ T, int R, int C, int mode,
-                                      uint32_t seed, uint32_t row_mul, int H, int W, int iters,
-                                      float* __restrict__ acc_out) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ float word_value(uint32_t w) {
+  return IS_INT ? __int2float_rn(int(w)) : __uint_as_float(w);
+}
+
+// dc divides by C (LCG_ROW, LCG_RC) or R * C (LCG_FLAT), dr by R (LCG_RC)
+template <bool IS_INT, int MODE>
+__global__ void lcg_gather_sum_kernel(const uint32_t* __restrict__ T, int C, Divisor dc,
+                                      Divisor dr, uint32_t seed, uint32_t row_mul, int H, int W,
+                                      int iters, float* __restrict__ acc_out) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= H * W) return;
-  int i = k / W, j = k % W;
+  const int i = k / W, j = k % W, row0 = i * C;
   uint32_t s = seed + uint32_t(i) * row_mul + uint32_t(j);
   float acc = 0.0f;
-  for (int it = 0; it < iters; ++it) {
-    s = lcg(s);
-    int idx;
-    if (mode == 0) {
-      idx = i * C + int(s >> 8) % C;
-    } else if (mode == 1) {
-      int r = int(s >> 8) % R;
-      s = lcg(s);
-      idx = r * C + int(s >> 8) % C;
-    } else {
-      idx = int((s >> 8) & 0x7FFFFFu) % (R * C);
-    }
-    uint32_t w = T[idx];
-    float v = IS_INT ? __int2float_rn(int(w)) : __uint_as_float(w);
-    acc = __fadd_rn(acc, v);
+  int it = 0;
+  for (; it + LCG_UNROLL <= iters; it += LCG_UNROLL) {
+    uint32_t w[LCG_UNROLL];
+#pragma unroll
+    for (int u = 0; u < LCG_UNROLL; ++u) w[u] = T[lcg_index<MODE>(s, row0, C, dc, dr)];
+#pragma unroll
+    for (int u = 0; u < LCG_UNROLL; ++u) acc = __fadd_rn(acc, word_value<IS_INT>(w[u]));
   }
+  for (; it < iters; ++it)
+    acc = __fadd_rn(acc, word_value<IS_INT>(T[lcg_index<MODE>(s, row0, C, dc, dr)]));
   acc_out[k] = acc;
+}
+
+template <bool IS_INT>
+cudaError_t launch_lcg(int mode, const uint32_t* T, int C, Divisor dc, Divisor dr, uint32_t seed,
+                       uint32_t row_mul, int H, int W, int iters, int threads, float* acc,
+                       cudaStream_t stream) {
+  const int grid = int(((long long)H * W + threads - 1) / threads);
+  switch (mode) {
+    case LCG_ROW:
+      lcg_gather_sum_kernel<IS_INT, LCG_ROW><<<grid, threads, 0, stream>>>(
+          T, C, dc, dr, seed, row_mul, H, W, iters, acc);
+      break;
+    case LCG_RC:
+      lcg_gather_sum_kernel<IS_INT, LCG_RC><<<grid, threads, 0, stream>>>(
+          T, C, dc, dr, seed, row_mul, H, W, iters, acc);
+      break;
+    case LCG_FLAT:
+      lcg_gather_sum_kernel<IS_INT, LCG_FLAT><<<grid, threads, 0, stream>>>(
+          T, C, dc, dr, seed, row_mul, H, W, iters, acc);
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 // ---- carry_loop, X3: 30 values carried per lane through `iters` steps;
@@ -230,28 +294,54 @@ __global__ void march_kernel(const float* __restrict__ T, int R, int W,
 // row is ids = (base[j] + 7919 k) % rows (or & 0xFFFF); lanes j < n add
 // tab[ids, ids & 127] to a wrapping u32 checksum. MODE_IDS adds ids (no
 // load); MODE_DIRECT loads the word; MODE_STAGE copies the n demanded
-// 512-byte rows into shared memory with cp.async and adds ids; MODE_STAGED
-// copies them and picks each lane's word from shared memory; MODE_STALE
-// picks from the zero-filled landing buffer without copying.
+// 512-byte rows into shared memory and adds ids; MODE_STAGED copies them and
+// picks each lane's word from shared memory; MODE_STALE picks from the
+// zero-filled landing buffer without copying.
+//
+// The staged modes keep the probe's question (probes/probe_dmagather*.py:
+// one block, whole rows copied into fast memory each round, a round's
+// copies landed and picked before the next round's are issued into the
+// same rows) and cut what surrounds the copy. A warp instruction of 16-byte
+// cp.async moves one row, and the copy's rate grows with the warps that
+// issue it (H100 80GB HBM3: about 17 GB/s from one warp, 65 GB/s from
+// four). So the copy schedule follows n:
+//  - n > BLOCK_COPY_MAX (BY_WARP): each warp copies its own lanes' rows (a
+//    row's id by shuffle), waits for its own copies and meets at
+//    __syncwarp, as lane j picks only from row j: no block barrier in the
+//    loop, and a warp's wait overlaps the others' copies;
+//  - n <= BLOCK_COPY_MAX: the rows sit in few warps, so the whole block
+//    copies them, the row ids exchanged through shared memory between
+//    three block barriers a round. Nothing reads a row before its copy
+//    lands, so the landing buffer is not zero-filled.
+// The launch picks the instantiation, so that neither schedule pays for a
+// branch on n in the loop.
 constexpr int LANES = 128;
 constexpr int MODE_IDS = 0, MODE_DIRECT = 1, MODE_STAGE = 2, MODE_STAGED = 3, MODE_STALE = 4;
 constexpr int LAND_BYTES = LANES * LANES * 4;
+constexpr int BLOCK_COPY_MAX = 64;
 
+// no "memory" clobber: the compiler may batch the loads of row ids around
+// the copies; the wait and the barriers order the copies against the picks
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   unsigned dst = unsigned(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
 
-template <int MODE>
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int MODE, bool BY_WARP>
 __global__ void __launch_bounds__(LANES)
     row_gather_rounds_kernel(const int* __restrict__ base, const uint32_t* __restrict__ tab,
                              int rows, int use_mask, int n, int rounds,
                              uint32_t* __restrict__ out) {
   extern __shared__ __align__(16) uint32_t land[];
   __shared__ int ids_s[LANES];
-  const int j = threadIdx.x;
-  constexpr bool USES_LAND = MODE == MODE_STAGE || MODE == MODE_STAGED || MODE == MODE_STALE;
-  if (USES_LAND) {
+  const int j = threadIdx.x, w0 = j & ~31, lane = j & 31;
+  uint32_t* const row = land + j * LANES;
+  if (MODE == MODE_STALE) {
     for (int q = j; q < LANES * LANES; q += LANES) land[q] = 0u;
     __syncthreads();
   }
@@ -265,41 +355,56 @@ __global__ void __launch_bounds__(LANES)
     } else if (MODE == MODE_DIRECT) {
       if (j < n) acc += tab[(long long)ids * LANES + (ids & 127)];
     } else if (MODE == MODE_STALE) {
-      acc += land[j * LANES + (ids & 127)];
+      acc += row[ids & 127];
     } else {
-      ids_s[j] = ids;
-      __syncthreads();
-      // 32 chunks of 16 bytes per row: a warp copies one whole row
-      for (int q = j; q < n * 32; q += LANES) {
-        int row = q >> 5, part = (q & 31) * 4;
-        cp_async16(&land[row * LANES + part], tab + (long long)ids_s[row] * LANES + part);
+      if (BY_WARP) {
+        for (int r = 0; r < 32 && w0 + r < n; ++r) {
+          const int id = __shfl_sync(0xFFFFFFFFu, ids, r);
+          cp_async16(&land[(w0 + r) * LANES + 4 * lane], tab + (long long)id * LANES + 4 * lane);
+        }
+        cp_async_wait_all();
+        __syncwarp();
+      } else {
+        ids_s[j] = ids;
+        __syncthreads();
+        for (int q = j; q < n * 32; q += LANES) {  // a warp instruction copies one row
+          const int r = q >> 5, part = (q & 31) * 4;
+          cp_async16(&land[r * LANES + part], tab + (long long)ids_s[r] * LANES + part);
+        }
+        cp_async_wait_all();
+        __syncthreads();
       }
-      asm volatile("cp.async.commit_group;\n" ::);
-      asm volatile("cp.async.wait_all;\n" ::);
-      __syncthreads();
       if (MODE == MODE_STAGE) {
         acc += uint32_t(ids);
       } else if (j < n) {
-        acc += land[j * LANES + (ids & 127)];
+        acc += row[ids & 127];
       }
-      __syncthreads();  // the next round overwrites ids_s and land
+      if (BY_WARP)  // the next round overwrites the rows (and the block's ids)
+        __syncwarp();
+      else
+        __syncthreads();
     }
   }
   out[j] = acc;
 }
 
-template <int MODE>
+template <int MODE, bool BY_WARP = false>
 cudaError_t launch_rounds(const int* base, const uint32_t* tab, int rows, int use_mask, int n,
                           int rounds, uint32_t* out, cudaStream_t stream) {
-  constexpr bool USES_LAND = MODE == MODE_STAGE || MODE == MODE_STAGED || MODE == MODE_STALE;
+  constexpr bool COPIES = MODE == MODE_STAGE || MODE == MODE_STAGED;
+  if constexpr (COPIES && !BY_WARP) {
+    if (n > BLOCK_COPY_MAX)
+      return launch_rounds<MODE, true>(base, tab, rows, use_mask, n, rounds, out, stream);
+  }
+  constexpr bool USES_LAND = COPIES || MODE == MODE_STALE;
   int smem = USES_LAND ? LAND_BYTES : 0;
   if (USES_LAND) {
-    cudaError_t err = cudaFuncSetAttribute(row_gather_rounds_kernel<MODE>,
+    cudaError_t err = cudaFuncSetAttribute(row_gather_rounds_kernel<MODE, BY_WARP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  row_gather_rounds_kernel<MODE><<<1, LANES, smem, stream>>>(base, tab, rows, use_mask, n,
-                                                              rounds, out);
+  row_gather_rounds_kernel<MODE, BY_WARP><<<1, LANES, smem, stream>>>(base, tab, rows, use_mask,
+                                                                       n, rounds, out);
   return cudaGetLastError();
 }
 
@@ -485,16 +590,18 @@ int probe_gather(const uint32_t* T, int C, const int* r_idx, int r_mode, int r_m
   return cudaGetLastError();
 }
 
-int probe_lcg_gather_sum(const uint32_t* T, int is_int, int R, int C, int mode, unsigned seed,
-                         unsigned row_mul, int H, int W, int iters, float* acc,
-                         cudaStream_t stream) {
-  if (is_int)
-    lcg_gather_sum_kernel<true><<<blocks(H * W), THREADS, 0, stream>>>(T, R, C, mode, seed,
-                                                                       row_mul, H, W, iters, acc);
-  else
-    lcg_gather_sum_kernel<false><<<blocks(H * W), THREADS, 0, stream>>>(T, R, C, mode, seed,
-                                                                        row_mul, H, W, iters, acc);
-  return cudaGetLastError();
+// (d, m, sh) of dc and dr, and the block size, are the wrapper's div_plan
+// and lcg_threads
+int probe_lcg_gather_sum(const uint32_t* T, int is_int, int mode, int C, unsigned dc_d,
+                         unsigned dc_m, unsigned dc_sh, unsigned dr_d, unsigned dr_m,
+                         unsigned dr_sh, unsigned seed, unsigned row_mul, int H, int W,
+                         int iters, int threads, float* acc, cudaStream_t stream) {
+  const Divisor dc{dc_d, dc_m, dc_sh}, dr{dr_d, dr_m, dr_sh};
+  if (threads < 32 || threads > 1024 || threads % 32) return int(cudaErrorInvalidValue);
+  return int(is_int ? launch_lcg<true>(mode, T, C, dc, dr, seed, row_mul, H, W, iters, threads,
+                                       acc, stream)
+                    : launch_lcg<false>(mode, T, C, dc, dr, seed, row_mul, H, W, iters, threads,
+                                        acc, stream));
 }
 
 int probe_carry30(const float* T, int R, int C, unsigned seed, int iters, int n_lanes, int W,

@@ -13,11 +13,13 @@ families:
   from the host or read on the device;
 - ``gather``: ``T[r, c]`` with r and c each an index array, the output's
   row / column number, or (a 1-D table) ``T[r % mod]``;
-- ``lcg_gather_sum``: per lane, ``iters`` LCG-indexed table words summed;
+- ``lcg_gather_sum``: per lane, ``iters`` LCG-indexed table words summed
+  (exact multiply-high division, ``LCG_UNROLL`` loads in flight a lane);
 - ``carry30`` and ``march`` (the ``carry_loop`` family): X3's 30 carried
   values and Q6's march-like body;
 - ``row_gather_rounds``: the dmagather checksum, rows staged in shared
-  memory or words loaded directly;
+  memory (16-byte cp.async, each warp copying its own lanes' rows, or the
+  whole block a few rows) or words loaded directly;
 - ``index_copy``: transpose, row tiling, column roll, row broadcast, iota;
 - ``tea8``: 8 TEA rounds; ``row_scan``: cumsum along rows.
 
@@ -41,6 +43,7 @@ from . import build as _build
 SOURCE = os.path.join(_build.CSRC, "probes.cu")
 f32, i32, i64 = torch.float32, torch.int32, torch.int64
 LANES = 128                 # row_gather_rounds: one block of 128 lanes, 512-byte rows
+BLOCK_COPY_MAX = 64         # csrc/probes.cu: up to this n the whole block copies the rows
 ROUND_STEP = 7919           # the dmagather index stride per round
 ROW_GATHER_MODES = {"ids": 0, "direct": 1, "stage": 2, "staged": 3, "stale": 4}
 LCG_MODES = {"row": 0, "rc": 1, "flat": 2}
@@ -65,9 +68,10 @@ def build(flags: list[str] = _build.NVCC_FLAGS) -> str:
 
 
 def _kernel_name(mangled: str) -> str:
-    """The kernel's name without "_kernel", with its template argument:
+    """The kernel's name without "_kernel", with its template arguments:
     "_ZN<n><anonymous namespace><n>row_gather_rounds_kernelILi3EE..." ->
-    "row_gather_rounds<3>"."""
+    "row_gather_rounds<3>", "...lcg_gather_sum_kernelILb1ELi2EE..." ->
+    "lcg_gather_sum<1,2>"."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -76,8 +80,10 @@ def _kernel_name(mangled: str) -> str:
     if not n:
         return mangled
     name = rest[n.end():n.end() + int(n.group())].removesuffix("_kernel")
-    arg = re.match(r"IL[ib](\d+)E", rest[n.end() + int(n.group()):])
-    return f"{name}<{arg.group(1)}>" if arg else name
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest[n.end() + int(n.group()):])
+    if not args:
+        return name
+    return f"{name}<{','.join(re.findall(r'L[ib](\d+)E', args.group(1)))}>"
 
 
 def resource_usage(lib_path: str) -> list[str]:
@@ -93,7 +99,8 @@ def _lib() -> ctypes.CDLL:
             _LIB = _build.load(build(), {
                 "probe_affine_loop": [p, p, n, n, p, f, f, n, p],
                 "probe_gather": [p, n, p, n, n, p, n, p, n, n, p],
-                "probe_lcg_gather_sum": [p, n, n, n, n, u, u, n, n, n, p, p],
+                "probe_lcg_gather_sum": [p, n, n, n, u, u, u, u, u, u, u, u, n, n, n, n,
+                                         p, p],
                 "probe_carry30": [p, n, n, u, n, n, n, f, f, p, p],
                 "probe_march": [p, n, n, p, p, n, f, f, f, f, p, p],
                 "probe_row_gather_rounds": [n, p, p, n, n, n, n, p, p],
@@ -338,6 +345,33 @@ def lcg_gather_sum_plain(table, mode, lanes, iters, seed, row_mul):
     return acc
 
 
+LCG_UNROLL = 16           # csrc/probes.cu: the loads a lane of lcg_gather_sum keeps in flight
+
+
+def div_plan(d: int) -> tuple[int, int]:
+    """(m, sh) of the kernel's exact division by ``d`` >= 1 for numerators
+    0 <= x < 2^24: x // d == ((x << 8) * m >> 32) >> sh, the high word of a
+    32-bit product (__umulhi) shifted. With sh = ceil(log2 d) and m =
+    ceil(2^(24 + sh) / d) = (2^(24 + sh) + e) / d, 0 <= e < d <= 2^sh:
+    x m / 2^(24 + sh) = x // d + (x % d + x e / 2^(24 + sh)) / d, and
+    x e / 2^(24 + sh) < 1, so the fraction stays below 1. m <= 2^25."""
+    if not 1 <= d < 2 ** 31:
+        raise ValueError(f"a divisor must lie in [1, 2^31), got {d}")
+    sh = (d - 1).bit_length()
+    return -(-(1 << (24 + sh)) // d), sh
+
+
+def lcg_threads(n_lanes: int, n_sms: int) -> int:
+    """lcg_gather_sum's block size: 256 threads where that still gives each
+    of the card's ``n_sms`` SMs a block, else one warp (1,024 lanes: 32
+    blocks on 32 SMs rather than 4 blocks on 4)."""
+    return 256 if -(-n_lanes // 256) >= n_sms else 32
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def lcg_gather_sum(table: torch.Tensor, mode: str, lanes, iters: int, seed: int,
                    row_mul: int = 7919) -> torch.Tensor:
     """Per-lane sums over ``iters`` LCG steps of words of the (R, C) float32
@@ -354,10 +388,15 @@ def lcg_gather_sum(table: torch.Tensor, mode: str, lanes, iters: int, seed: int,
     if not _on_card(table):
         return lcg_gather_sum_plain(table, mode, lanes, iters, seed, row_mul)
     _check(table, "table", (f32, i32))
+    if h * w >= 2 ** 31 or table.numel() >= 2 ** 31:
+        raise ValueError("the kernel indexes lanes and the table with 32-bit integers")
     acc = torch.empty(h, w, dtype=f32, device=table.device)
     rows_t, cols_t = table.shape
-    _launch("probe_lcg_gather_sum", table.data_ptr(), int(table.dtype == i32), rows_t, cols_t,
-            LCG_MODES[mode], seed & MASK, row_mul & MASK, h, w, int(iters), acc.data_ptr(),
+    dc = cols_t if mode != "flat" else rows_t * cols_t
+    dr = rows_t if mode == "rc" else 1
+    _launch("probe_lcg_gather_sum", table.data_ptr(), int(table.dtype == i32), LCG_MODES[mode],
+            cols_t, dc, *div_plan(dc), dr, *div_plan(dr), seed & MASK, row_mul & MASK, h, w,
+            int(iters), lcg_threads(h * w, _sm_count(table.device)), acc.data_ptr(),
             device=table.device)
     lcg_gather_sum.launches += 1
     return acc
@@ -480,6 +519,19 @@ def row_gather_rounds_plain(base, tab, mode, rounds, n, use_mask, chunk=4096):
     return u32_bits(acc).to(i32)
 
 
+def check_staged_table(tab: torch.Tensor):
+    """Raise unless the staged modes' 16-byte copies can move ``tab``'s rows:
+    (rows, 128) 32-bit words whose rows lie 512 bytes apart, from a 16-byte
+    aligned address (cp.async's alignment). The staged modes take no other
+    table, on any device: the kernel never falls back to another copy."""
+    if (tab.dim() != 2 or tab.shape[1] != LANES or tab.element_size() != 4
+            or tab.stride(1) != 1 or (tab.shape[0] > 1 and tab.stride(0) != LANES)):
+        raise ValueError("the staged modes copy (rows, 128) 32-bit tables whose rows lie "
+                         "512 bytes apart")
+    if tab.data_ptr() % 16:
+        raise ValueError("the staged modes' 16-byte copies need a 16-byte aligned table")
+
+
 def row_gather_rounds(base: torch.Tensor, tab: torch.Tensor, mode: str, rounds: int,
                       n: int = LANES, use_mask: bool = False) -> torch.Tensor:
     """The dmagather checksum over ``rounds`` rounds: lane j's row in round
@@ -488,7 +540,8 @@ def row_gather_rounds(base: torch.Tensor, tab: torch.Tensor, mode: str, rounds: 
     "direct" loads the word; "staged" copies the n rows into shared memory
     and picks the word there; "stage" copies them and adds the row number;
     "ids" adds the row number with no load; "stale" picks from a landing
-    buffer that nothing wrote (zero-filled). Returns the (128,) int32 sums."""
+    buffer that nothing wrote (zero-filled). Returns the (128,) int32 sums.
+    "stage" and "staged" take only a table ``check_staged_table`` accepts."""
     if mode not in ROW_GATHER_MODES:
         raise ValueError(f"mode must be one of {sorted(ROW_GATHER_MODES)}")
     rows = tab.shape[0]
@@ -496,6 +549,8 @@ def row_gather_rounds(base: torch.Tensor, tab: torch.Tensor, mode: str, rounds: 
         raise ValueError("the & 0xFFFF index needs a table of at least 65536 rows")
     if ROUND_STEP * rounds + rows >= 2 ** 31 or not 0 <= n <= LANES:
         raise ValueError("too many rounds or lanes")
+    if mode in ("stage", "staged"):
+        check_staged_table(tab)
     if not _on_card(tab):
         return row_gather_rounds_plain(base, tab, mode, rounds, n, use_mask)
     _check(tab, "tab", (i32,), (rows, LANES))

@@ -185,8 +185,22 @@ def _cumsum(ctx):
 OPS_LCG = {"row": 7, "rc": 11, "flat": 6}
 
 
-def _lcg(ctx, table_np, mode, lanes, iters, seed):
-    t = ctx.t(table_np)
+# the five sites' (table, mode, lanes, iters, seed), at the probes' shapes
+LCG_SITES = {
+    "probe_W1_W6": (lambda: (np.arange(3584 * 128) % 977).reshape(3584, 128).astype(np.float32),
+                    "row", (3584, 128), 256, 1000),
+    "probe_W2": (lambda: (np.arange(8 * 16384) % 977).reshape(8, 16384).astype(np.float32),
+                 "row", (8, 16384), 32, 2000),
+    "probe_W5_W7": (lambda: np.random.default_rng(2).random((3584, 128)).astype(np.float32),
+                    "rc", (1, 1024), 64, 3000),
+    "probe_X1_X2": (lambda: probe_pallas4.mask_reduce_table(3584, np.int32), "rc", (8, 128), 64,
+                    11),
+    "probe_V": (lambda: probe_pallas5.flat_table(896), "flat", (8, 128), 1024, 11),
+}
+
+
+def _lcg(ctx, make_table, mode, lanes, iters, seed):
+    t = ctx.t(make_table())
     n = lanes[0] * lanes[1]
     ops = n * iters * (OPS_LCG[mode] + (t.dtype == torch.int32))
     return Case(lambda: K.lcg_gather_sum(t, mode, lanes, iters, seed),
@@ -242,26 +256,22 @@ SITES = (
     Site("probe_Q6", "probes/probe_pallas2.py:385", "march", "pallas2:Q6_compile_scale", _q6),
     Site("probe_W1_W6", "probes/probe_pallas3.py:141", "lcg_gather_sum",
          "pallas3:W1_axis1_3584_f32,pallas3:W1_axis1_9344_f32,pallas3:W6_axis1_3584_i32",
-         lambda c: _lcg(c, (np.arange(3584 * 128) % 977).reshape(3584, 128).astype(np.float32),
-                        "row", (3584, 128), 256, 1000)),
+         lambda c: _lcg(c, *LCG_SITES["probe_W1_W6"])),
     Site("probe_W2", "probes/probe_pallas3.py:201", "lcg_gather_sum", "pallas3:W2_wide_axis1",
-         lambda c: _lcg(c, (np.arange(8 * 16384) % 977).reshape(8, 16384).astype(np.float32),
-                        "row", (8, 16384), 32, 2000)),
+         lambda c: _lcg(c, *LCG_SITES["probe_W2"])),
     Site("probe_W3", "probes/probe_pallas3.py:240", "gather", "pallas3:W3_axis0_small", _w3),
     Site("probe_W4", "probes/probe_pallas3.py:271", "index_copy", "pallas3:W4_transpose_big",
          _w4),
     Site("probe_W5_W7", "probes/probe_pallas3.py:334", "lcg_gather_sum",
          "pallas3:W7_general_gather_v2",
-         lambda c: _lcg(c, np.random.default_rng(2).random((3584, 128)).astype(np.float32),
-                        "rc", (1, 1024), 64, 3000)),
+         lambda c: _lcg(c, *LCG_SITES["probe_W5_W7"])),
     Site("probe_X1_X2", "probes/probe_pallas4.py:155", "lcg_gather_sum",
          "pallas4:X1_maskreduce_3584_i32,pallas4:X2_maskreduce_74_f32",
-         lambda c: _lcg(c, probe_pallas4.mask_reduce_table(3584, np.int32), "rc", (8, 128), 64,
-                        11)),
+         lambda c: _lcg(c, *LCG_SITES["probe_X1_X2"])),
     Site("probe_X3", "probes/probe_pallas4.py:229", "carry30", "pallas4:X3_carry30_while", _x3),
     Site("probe_V", "probes/probe_pallas5.py:185", "lcg_gather_sum",
          ",".join(f"pallas5:{name}" for name, _ in probe_pallas5.STAGES[:-1]),
-         lambda c: _lcg(c, probe_pallas5.flat_table(896), "flat", (8, 128), 1024, 11)),
+         lambda c: _lcg(c, *LCG_SITES["probe_V"])),
     Site("probe_cumsum", "probes/probe_pallas5.py:243", "row_scan", "pallas5:cumsum_axis1",
          _cumsum),
     Site("probe_dmagather", "probes/probe_dmagather.py:116", "row_gather_rounds", "dmagather",
