@@ -44,8 +44,11 @@ of which raises on failure (exit code non-zero, no result line):
    plain version and the one PyTorch call that computes the same, if any
    (each site that has one in turns with that call, median and p10-p90:
    P0 and W4 101 rounds, the gathers P3a, P3c, P3d, Q1, Q2, Q4, W3 and the
-   cumsum 31); lcg_gather_sum's loads in flight a lane (from the built
-   library) and the staged rounds' design, each with ptxas's registers;
+   cumsum 31; the _scan_gather harness, one gather launch for both tables,
+   31 rounds against the pair t1[r, c], t2[r, c], its library_ms two calls);
+   the gather's plan and carry30's pipeline, lcg_gather_sum's loads in
+   flight a lane (from the built library) and the staged rounds' design,
+   each with ptxas's registers;
    the transpose of an 8192 x 8192 f32 array held bitwise to t.t() and
    timed in turns with .t().contiguous() beside its bound by bytes;
    then the entry point python -m volren_tpu_torch.probes, run in-process
@@ -177,7 +180,7 @@ ORACLE_TILE_SPAN = 8
 ORACLE_ITEMS_MAIN, ORACLE_ITEMS_SMALL = 64, 32
 ORACLE_REPLACES = "volren_tpu/ops/tracer.py:154 (trace_pass; XLA, no pallas_call)"
 # phase 8: the sites timed in turns with their PyTorch call, and the rounds
-PROBES_IN_TURNS = {"probe_P0": 101, "probe_W4": 101, **{
+PROBES_IN_TURNS = {"probe_P0": 101, "probe_W4": 101, "scan_gather_harness": 31, **{
     f"probe_{name}": 31 for name in ("P3a", "P3c", "P3d", "Q1", "Q2", "Q4", "W3", "cumsum")}}
 ORACLE_VARIANTS = [(dda, tf, emi) for dda in (True, False) for tf in (False, True)
                    for emi in (False, True)]
@@ -1317,6 +1320,15 @@ def main(argv=None) -> int:
           f"rows for n > {probe_kernels.BLOCK_COPY_MAX} (no block barrier in the loop), the "
           f"whole block between three block barriers for n <= {probe_kernels.BLOCK_COPY_MAX}; "
           f"ptxas {registers('row_gather_rounds<2,', 'row_gather_rounds<3,')}", flush=True)
+    print(f"gather: one word a thread in {probe_kernels.GATHER_THREADS}-thread blocks (4 in "
+          f"16-byte accesses for a gather within a row by a column index, Q2), the modes as "
+          f"template arguments, up to {probe_kernels.GATHER_TABLES} tables a launch; "
+          f"ptxas {registers('gather<')}", flush=True)
+    print(f"carry30: a lane's values over {probe_kernels.CARRY_PARTS} threads, a systolic "
+          f"pipeline over blocks of {probe_kernels.CARRY_U} steps, the words a block ahead, "
+          f"exact multiply-high division, "
+          f"{probe_kernels.lcg_threads(1024 * probe_kernels.CARRY_PARTS, n_sms)}-thread blocks at "
+          f"1024 lanes; ptxas {registers('carry30')}", flush=True)
     for site in SITES:
         case = site.make(ctx)
         before = probe_launches()
@@ -1328,7 +1340,9 @@ def main(argv=None) -> int:
             n_turns = PROBES_IN_TURNS[site.name]
             turns = interleaved_ms(ctx, {"kernel": case.kernel, "library": case.library}, n_turns)
             ms, library_ms = turns["kernel"]["median"], turns["library"]["median"]
-            print(f"{site.name} in turns with its PyTorch call, {n_turns} rounds, ms median "
+            calls = "its PyTorch call" if case.library_calls == 1 else \
+                f"its {case.library_calls} PyTorch calls"
+            print(f"{site.name} in turns with {calls}, {n_turns} rounds, ms median "
                   f"(p10, p90): "
                   + ", ".join(f"{k} {v['median']!r} ({v['p10']!r}, {v['p90']!r})"
                               for k, v in turns.items()) + f" on {gpu_line}", flush=True)
@@ -1343,6 +1357,8 @@ def main(argv=None) -> int:
               f"({case.n_bytes} bytes, {case.n_ops} operations) on {gpu_line}", flush=True)
         record[site.name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+        if case.library and case.library_calls != 1:
+            record[site.name]["library_calls"] = case.library_calls
         del case
     # the transpose where its bytes, not its launch, set the time
     big = torch.rand(probe_pallas3.BIG, probe_pallas3.BIG, device=dev)
@@ -1402,7 +1418,9 @@ def main(argv=None) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     # the oracle's: ms a pass of its launch, the bound's share, what plain_ms traced
-    extra = ("ms_per_pass", "passes_per_launch", "share", "plain_of")
+    # the harness's library_ms: two PyTorch calls (library_calls), as no one call gathers
+    # two tables
+    extra = ("ms_per_pass", "passes_per_launch", "share", "plain_of", "library_calls")
     print(gpu_line)
     print(json.dumps({"kernels": [{k: entry[k] for k in keys + extra if k in keys or k in entry}
                                   for entry in kernels]}))

@@ -475,6 +475,84 @@ def test_probe_lcg_gather_sum_matches_plain_version(mode, dtype):
                 assert got.is_cuda and torch.equal(got, want), ((h, w), cols, iters)
 
 
+# every (r_mode, c_mode) the gather kernel is instantiated for: a 1-D table
+# (rows of the output's shape), a 2-D table with rows only (of the output's
+# shape, or (H, 1): the row fetch), with cols only, or with both
+GATHER_MODES = {"1d": ("rows", None), "rows": ("rows", None), "row_fetch": ("row", None),
+                "cols": (None, "cols"), "rows_cols": ("rows", "cols"),
+                "row_cols": ("row", "cols")}
+GATHER_LAYOUTS = ("contiguous", "unaligned", "strided")
+
+
+@pytest.mark.parametrize("four", [False, True], ids=["planned", "four_words"])
+@pytest.mark.parametrize("has_mod", [False, True], ids=["", "mod"])
+@pytest.mark.parametrize("mode", list(GATHER_MODES))
+def test_probe_gather_instantiation_matches_plain_version(mode, has_mod, four, monkeypatch):
+    """Each <R_MODE, C_MODE, MOD, N> instantiation of the gather kernel, at
+    the wrapper's words a thread and at 4 wherever the arrays allow (the
+    design comparison's plan): ragged and whole widths (127, 128, 130),
+    index arrays contiguous, one column in (4 bytes off alignment) and rows
+    of a wider array, 1, 2 and 3 tables of f32 and i32 in one launch; with
+    has_mod, the modulo by 32 (MOD_MASK) and by 37 (MOD_PY), both with
+    Python's sign rule on negative rows; bitwise."""
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    if four:
+        monkeypatch.setattr(K, "gather_words",
+                            lambda r_mode, c_mode, vec_ok, w: 4 if vec_ok and w % 4 == 0 else 1)
+    rng = np.random.default_rng(19)
+    h, n_rows = 9, 64
+    one_d = mode == "1d"
+    for w in (127, 128, 130):
+        n_cols = -(-(w + 3) // 4) * 4
+        shape = (4096,) if one_d else (n_rows, n_cols)
+        tables = [torch.from_numpy(rng.random(shape).astype(np.float32)
+                                   if k != 1 else rng.integers(-2 ** 31, 2 ** 31, shape)
+                                   .astype(np.int32)).to(dev) for k in range(3)]
+        for layout in GATHER_LAYOUTS:
+            def index(lo, hi, width):
+                a = torch.from_numpy(rng.integers(lo, hi, (h, width + 7)).astype(np.int32)).to(dev)
+                return {"contiguous": a[:, :width].contiguous(), "unaligned": a[:, 1:width + 1],
+                        "strided": a[:, :width]}[layout]
+            for row_mod in ((32, 37) if has_mod else (0,)):
+                lo, hi = (-2000, 2000) if row_mod else (0, 4096 if one_d else n_rows)
+                arrays = {"rows": index(lo, hi, w), "row": index(lo, hi, 1),
+                          "cols": index(0, n_cols, w)}
+                rows, cols = (arrays[k] if k else None for k in GATHER_MODES[mode])
+                for n_tables in (1, 2, 3):
+                    arg = tables[0] if n_tables == 1 else tuple(tables[:n_tables])
+                    before = K.gather.launches
+                    got = K.gather(arg, rows, cols, row_mod)
+                    assert K.gather.launches == before + 1
+                    want = K.gather_plain(arg, rows, cols, row_mod)
+                    got, want = (got, want) if n_tables > 1 else ((got,), (want,))
+                    for a, b in zip(got, want):
+                        assert a.is_cuda and torch.equal(a, b), (w, layout, row_mod, n_tables)
+
+
+@pytest.mark.parametrize("lanes", [(3, 37), (8, 128)], ids=["3x37", "8x128"])
+def test_probe_carry30_matches_plain_version_at_ragged_steps(lanes):
+    """carry30's pipeline at step counts around its blocks of CARRY_U steps
+    and around X3's 512, on lanes whose threads fill no whole warp (3 x 37)
+    and on X3's, from tables with no power-of-two side (37 x 100) and X3's
+    (74 x 128), bitwise."""
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    rng = np.random.default_rng(23)
+    u = K.CARRY_U
+    steps = (0, 1, u - 1, u, u + 1, 511, 512, 513) if lanes == (3, 37) else (u + 1, 512)
+    for shape in ((37, 100), (74, 128)):
+        t = torch.from_numpy(rng.random(shape).astype(np.float32)).to(dev)
+        for iters in steps:
+            before = K.carry30.launches
+            got = K.carry30(t, 11, iters, lanes)
+            assert K.carry30.launches == before + 1
+            want = K.carry30_plain(t, 11, iters, lanes)
+            assert got.is_cuda and torch.equal(got, want), (shape, iters)
+
+
 def test_probe_row_scan_matches_cumsum():
     from volren_tpu_torch.ops.kernels import probes as K
 

@@ -225,7 +225,8 @@ def test_w3_axis0_small_matches_pallas(probe):
 
 def test_scan_gather_harness_matches_pallas():
     """The harness of tests/test_pallas.py:55 around kernel.py's
-    _scan_gather, on its shapes and seed."""
+    _scan_gather, on its shapes and seed: both tables in one gather call,
+    as the one pallas_call gathers them."""
     from volren_tpu.ops.pallas.kernel import _scan_gather
     from volren_tpu_torch.probes.scan_gather import ROWS, harness_inputs
 
@@ -244,8 +245,169 @@ def test_scan_gather_harness_matches_pallas():
         out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM), pl.BlockSpec(memory_space=pltpu.VMEM)),
         interpret=True,
     )(tf32, ti32, r, c)
-    assert np.array_equal(K.gather(_t(tf32), _t(r), _t(c)).numpy(), np.asarray(out[0]))
-    assert np.array_equal(K.gather(_t(ti32), _t(r), _t(c)).numpy(), np.asarray(out[1]))
+    got = K.gather((_t(tf32), _t(ti32)), _t(r), _t(c))
+    assert isinstance(got, tuple) and len(got) == 2
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    assert np.array_equal(got[0].numpy(), np.asarray(out[0]))
+    assert np.array_equal(got[1].numpy(), np.asarray(out[1]))
+
+
+def _flat_words(t):
+    """The whole storage under an int32 / float32 tensor, one word each, and
+    the tensor's offset in it: what the kernel's pointer arithmetic reads."""
+    n = t.untyped_storage().nbytes() // 4
+    return torch.as_strided(t, (n,), (1,), 0).numpy(), t.storage_offset()
+
+
+def _replay_gather(tables, rows, cols, row_mod, four_where_allowed=False):
+    """csrc/probes.cu's gather_kernel, written out for every thread of the
+    wrapper's plan (gather_words, gather_plan; or 4 words a thread wherever
+    the arrays allow): returns the outputs, the words a thread and, per
+    table, how often each output word was written. With 4 words a thread,
+    each 16-byte access is checked to lie inside its row at an address that
+    is a multiple of 16."""
+    tables, _ = K._tables(tables)
+    h, w, r_mode, c_mode = K._gather_plan(tables[0], rows, cols)
+    vec_ok = K.gather_vec_ok(rows, cols, r_mode, c_mode)
+    n = (4 if vec_ok and w % 4 == 0 else 1) if four_where_allowed else \
+        K.gather_words(r_mode, c_mode, vec_ok, w)
+    tx, ty, gx, gy = K.gather_plan(h, w, n)
+    assert tx * ty <= K.GATHER_THREADS and gx * ty >= h
+    n_cols = 1 if tables[0].dim() == 1 else tables[0].shape[1]
+    bx, by, y, x = (a.ravel() for a in np.meshgrid(np.arange(gx), np.arange(gy), np.arange(ty),
+                                                   np.arange(tx), indexing="ij"))
+    i, q = bx * ty + y, by * tx + x
+    i, q = i[i < h], q[i < h]
+    outs = [np.zeros((h, w), np.int64) for _ in tables]
+    writes = [np.zeros((h, w), np.int64) for _ in tables]
+    mask = row_mod - 1 if row_mod and row_mod & (row_mod - 1) == 0 else -1
+
+    def words(t, ld, j):   # load_words: one 16-byte load (n = 4) or one word
+        flat, off = _flat_words(t)
+        if n == 4:
+            assert ((t.data_ptr() + 4 * (i * ld + j)) % 16 == 0).all()
+        return [flat[off + i * ld + j + e] for e in range(n)]
+
+    while q.size:
+        live = q < w // n
+        i, q = i[live], q[live]
+        j = n * q
+        assert (j + n <= w).all()
+        if r_mode == 1:
+            r = words(rows, K.index_pitch(rows), j)
+        else:
+            r0 = i if r_mode == 0 else _flat_words(rows)[0][rows.storage_offset()
+                                                             + i * K.index_pitch(rows)]
+            r = [r0] * n
+        if row_mod:
+            r = [v & mask if mask >= 0 else v % row_mod for v in r]
+        c = words(cols, K.index_pitch(cols), j) if c_mode == 2 else \
+            [j + e if c_mode == 1 else 0 * j for e in range(n)]
+        for t, out, wr in zip(tables, outs, writes):
+            flat = t.reshape(-1).view(torch.int32).numpy()
+            for e in range(n):
+                np.add.at(wr, (i, j + e), 1)
+                out[i, j + e] = flat[r[e] * n_cols + c[e]]
+        q = q + gy * tx
+    return outs, n, writes
+
+
+def _gather_arrays(w, layout, seed=0):
+    """Tables (1-D and 2-D, f32 and i32) and index arrays for a (9, w)
+    output: contiguous, sliced one column in (4 bytes off 16-byte
+    alignment), or rows of a wider array (a pitch of w + 7 words)."""
+    rng = np.random.default_rng(seed)
+    h, n_rows, n_cols = 9, 40, -(-(w + 3) // 4) * 4
+    t2 = [_t(rng.random((n_rows, n_cols)).astype(np.float32)),
+          _t(rng.integers(-2 ** 31, 2 ** 31, (n_rows, n_cols)).astype(np.int32)),
+          _t(rng.random((n_rows, n_cols)).astype(np.float32))]
+    t1 = [_t(rng.random(4096).astype(np.float32)),
+          _t(rng.integers(-2 ** 31, 2 ** 31, 4096).astype(np.int32)),
+          _t(rng.random(4096).astype(np.float32))]
+
+    def index(lo, hi, width):
+        a = _t(rng.integers(lo, hi, (h, width + 7)).astype(np.int32))
+        return {"contiguous": a[:, :width].contiguous(), "unaligned": a[:, 1:width + 1],
+                "strided": a[:, :width]}[layout]
+
+    return t1, t2, {"r1": index(-2000, 2000, w), "rows": index(0, n_rows, w),
+                    "row": index(0, n_rows, 1), "cols": index(0, n_cols, w),
+                    "cols9": index(0, n_cols, w)[:, :w]}
+
+
+GATHER_CALLS = {   # (1-D table?, rows, cols, row_mod)
+    "1d": (True, "rows", None, 0), "1d_mod_mask": (True, "r1", None, 2048),
+    "1d_mod": (True, "r1", None, 37), "rows": (False, "rows", None, 0),
+    "row_fetch": (False, "row", None, 0), "cols": (False, None, "cols", 0),
+    "rows_cols": (False, "rows", "cols", 0), "row_cols": (False, "row", "cols", 0),
+    "rows_cols_mod": (False, "r1", "cols", 40)}
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "unaligned", "strided"])
+@pytest.mark.parametrize("w", [127, 128, 130])
+def test_gather_plan_writes_every_word_once(w, layout):
+    """The gather kernel's plan (gather_words, gather_plan, gather_vec_ok)
+    and its index arithmetic (csrc/probes.cu: gather_kernel, written out for
+    every thread), for every mode the wrapper launches, 1 to 3 tables in
+    one call, ragged widths and sliced index arrays, at the wrapper's words
+    a thread and at 4 wherever the arrays allow: every output word of every
+    table is written once, with the plain version's value; 4 words a
+    thread are taken exactly where the widths, pitches and addresses allow
+    them, and by the wrapper only for a gather within a row by cols."""
+    t1, t2, idx = _gather_arrays(w, layout)
+    for name, (one_d, rows, cols, row_mod) in GATHER_CALLS.items():
+        rows, cols = (idx[k] if k else None for k in (rows, cols))
+        for n_tables in (1, 2, 3):
+            tables = tuple((t1 if one_d else t2)[:n_tables])
+            for four in (False, True):
+                outs, n, writes = _replay_gather(tables, rows, cols, row_mod, four)
+                want = K.gather_plain(tables, rows, cols, row_mod)
+                for t, out, wr, wt in zip(tables, outs, writes, want):
+                    assert (wr == 1).all(), (name, n_tables, four)
+                    assert np.array_equal(out, wt.view(torch.int32).numpy()), (name, n_tables)
+                # rows of the output's shape and cols are read 4 words at a time
+                ow = outs[0].shape[1]
+                quads_read = cols is not None or (rows is not None and rows.shape[1] > 1)
+                aligned = layout == "contiguous" or (layout == "strided" and (w + 7) % 4 == 0)
+                allowed = ow % 4 == 0 and (aligned or not quads_read)
+                row_local = cols is not None and (rows is None or rows.shape[1] == 1)
+                assert n == (4 if allowed and (four or row_local) else 1), (name, four)
+
+
+def test_gather_plan_fits_the_block_to_the_output():
+    # 4 words a thread only for Q2's in-row shuffle (and rows (H, 1) with
+    # cols); every other site one word a thread
+    assert K.gather_words(0, 2, True, 128) == 4
+    assert K.gather_words(2, 2, True, 128) == 4
+    assert K.gather_words(0, 2, False, 128) == 1 and K.gather_words(0, 2, True, 130) == 1
+    assert all(K.gather_words(r, c, True, 128) == 1 for r, c in ((1, 0), (1, 1), (2, 1), (1, 2)))
+    # (8, 128): P3a-d, Q4, the harness, 4 blocks of 256; (32, 128): W3;
+    # Q1; Q2 at 4 words
+    assert K.gather_plan(8, 128, 1) == (32, 8, 1, 4)
+    assert K.gather_plan(32, 128, 1) == (32, 8, 4, 4)
+    assert K.gather_plan(16384, 128, 1) == (32, 8, 2048, 4)
+    assert K.gather_plan(3584, 128, 4) == (32, 8, 448, 1)
+    assert K.gather_plan(8, 130, 1) == (32, 8, 1, 5)
+    assert K.gather_plan(1000, 8, 4) == (2, 128, 8, 1)     # a warp spans 16 rows
+    assert K.gather_plan(3, 1, 1) == (1, 4, 1, 1)
+    # more column blocks than the grid's second axis takes: the kernel loops
+    assert K.gather_plan(1, 2 ** 30, 4) == (32, 1, 1, K.MAX_GRID_Y)
+
+
+def test_gather_takes_up_to_four_tables_of_one_shape():
+    rng = np.random.default_rng(5)
+    tabs = [_t(rng.random((6, 8)).astype(np.float32)) for _ in range(5)]
+    r = _t(rng.integers(0, 6, (3, 8)).astype(np.int32))
+    got = K.gather(tabs[:4], r)
+    assert isinstance(got, tuple) and len(got) == 4
+    assert all(torch.equal(g, K.gather(t, r)) for g, t in zip(got, tabs))
+    assert isinstance(K.gather(tabs[:1], r), tuple)
+    with pytest.raises(ValueError):
+        K.gather(tabs, r)
+    with pytest.raises(ValueError):
+        K.gather((tabs[0], tabs[1][:5]), r)
+    with pytest.raises(ValueError):
+        K.gather((), r)
 
 
 # ---------------------------------------------------------------- index_copy
@@ -535,13 +697,17 @@ def test_schedule_constants_are_the_kernels():
     src = open(K.SOURCE).read()
     assert f"constexpr int LCG_UNROLL = {K.LCG_UNROLL};" in src
     assert f"constexpr int BLOCK_COPY_MAX = {K.BLOCK_COPY_MAX};" in src
+    assert f"constexpr int CARRY_U = {K.CARRY_U};" in src
+    assert f"constexpr int CARRY_PARTS = {K.CARRY_PARTS};" in src
+    assert f"constexpr int GATHER_TABLES = {K.GATHER_TABLES};" in src
 
 
 @pytest.mark.parametrize("mangled,name", [
     ("_ZN12_GLOBAL__N_124row_gather_rounds_kernelILi3EEEvPKiPKjiiiiPj", "row_gather_rounds<3>"),
     ("_ZN12_GLOBAL__N_121lcg_gather_sum_kernelILb1ELi2EEEvPKjiNS_7DivisorES3_jjiiiPf",
      "lcg_gather_sum<1,2>"),
-    ("_ZN12_GLOBAL__N_111tea8_kernelEPKjS1_PjS2_i", "tea8")])
+    ("_ZN12_GLOBAL__N_111tea8_kernelEPKjS1_PjS2_i", "tea8"),
+    ("_ZN12_GLOBAL__N_113gather_kernelILi2ELi1ELb0ELb1EEEvNS_10GatherArgsE", "gather<2,1,0,1>")])
 def test_kernel_names_carry_every_template_argument(mangled, name):
     assert K._kernel_name(mangled) == name
 
@@ -585,6 +751,83 @@ def test_x3_carry30_matches_pallas(probe, monkeypatch):
         return total
 
     assert np.array_equal(acc.numpy(), np.asarray(body_lanes(jnp.asarray(tn))))
+
+
+def _mod24(x, d):
+    """csrc/probes.cu's mod24(x, Divisor) with the wrapper's div_plan."""
+    m, sh = K.div_plan(d)
+    return x - d * (((x << 8) & K.MASK) * m >> (32 + sh))
+
+
+def _replay_carry30(table, seed, iters, lanes, u, parts):
+    """csrc/probes.cu's carry30_kernel for every lane at once, in the
+    kernel's order: each lane's 30 values split over ``parts`` threads (the
+    last holding fewer); iters // u blocks of u steps, then the iters % u
+    steps past them as blocks of one step, each run as a systolic pipeline,
+    part q on block b - q in round b, each step's prev handed from part
+    q - 1 to part q after the round, part 0's words loaded a round ahead,
+    each word's row and column by mod24; then the values summed in order."""
+    rows_t, cols_t = table.shape
+    flat = table.reshape(-1)
+    keep, mix = torch.tensor(K.C_KEEP), torch.tensor(K.C_MIX)
+    s = K.lane_seeds(seed, lanes, 0, "cpu")
+    m_part = -(-K.N_CARRY // parts)
+    a = [torch.full(lanes, float(np.float32(0.01 * m))) for m in range(K.N_CARRY)]
+
+    def word():
+        nonlocal s
+        s = K.lcg32(s)
+        r = _mod24(s >> 8, rows_t)
+        s = K.lcg32(s)
+        return flat[r * cols_t + _mod24(s >> 8, cols_t)]
+
+    def pipeline(blocks, u):
+        w = [word() for _ in range(u)] if blocks > 0 else None
+        from_prev = [None] * parts
+        for b in range(blocks + parts - 1):
+            p = [list(w) if q == 0 and w else from_prev[q] for q in range(parts)]
+            if b + 1 < blocks:
+                w = [word() for _ in range(u)]
+            for q in range(parts):
+                if 0 <= b - q < blocks:
+                    for k in range(u):
+                        for m in range(q * m_part, min((q + 1) * m_part, K.N_CARRY)):
+                            a[m] = K.fma32(a[m], keep, p[q][k] * mix)
+                            p[q][k] = a[m]
+            from_prev = [None] + p[:-1]
+
+    pipeline(iters // u, u)
+    pipeline(iters % u, 1)
+    acc = a[0]
+    for v in a[1:]:
+        acc = acc + v
+    return acc
+
+
+@pytest.mark.parametrize("u,parts", [(1, 4), (2, 2), (3, 16), (K.CARRY_U, K.CARRY_PARTS)])
+def test_carry30_pipeline_is_the_plain_version(u, parts):
+    """The kernel's schedule (a lane's values over ``parts`` threads, a
+    systolic pipeline over blocks of u steps and then over the steps past
+    them, the words loaded a round ahead, exact division) on a table with
+    no power-of-two side: bitwise carry30_plain at step counts around the
+    block and the pipeline's depth."""
+    t = _t(np.random.default_rng(8).random((37, 100)).astype(np.float32))
+    for iters in sorted({0, 1, u - 1, u, u + 1, 2 * u + 1, 3 * u, 33}):
+        got = _replay_carry30(t, 11, iters, (3, 37), u, parts)
+        assert torch.equal(got, K.carry30_plain(t, 11, iters, (3, 37))), iters
+
+
+@pytest.mark.parametrize("d", [74, 128, 37, 100])
+def test_carry30_plans_divide_exactly_and_spread_the_lanes(d):
+    """carry30's launch: X3's (74, 128) table and the card tests' (37, 100)
+    divide every 24-bit numerator exactly (mod24 with div_plan), and X3's
+    1,024 lanes, 8,192 threads, run in 256 one-warp blocks."""
+    x = torch.arange(1 << 24, dtype=torch.int64)
+    r = _mod24(x, d)
+    assert torch.equal(r, x % d)
+    assert K.CARRY_PARTS == 8 and 32 % K.CARRY_PARTS == 0
+    assert K.lcg_threads(8 * 128 * K.CARRY_PARTS, 132) == 32
+    assert K.lcg_threads(3 * 37 * K.CARRY_PARTS, 132) == 32
 
 
 def test_q6_march_matches_the_kernel_body():

@@ -28,16 +28,17 @@
 // asks for one with __fmaf_rn and the plain version emulates it exactly.
 // A gather moves 32-bit words, so one kernel serves f32 and i32 tables.
 //
-// What bounds them: three families are dependent chains by construction,
+// What bounds them: two families are dependent chains by construction,
 // and their time per step is the answer: affine_loop (each step reads the
-// last), carry30's 30 values (each chained through the one before) and
-// march (the cell a step reads comes from pos[0]). row_gather_rounds waits
-// for a round's copies to land and be picked before the next round copies
-// into the same rows, so it is latency-bound by the probe's rule, not by
-// its data. lcg_gather_sum's loads do not depend on each other (each index
-// comes from the LCG alone); only its sum is a chain, kept in order, so it
-// is bound by issue and by the loads it keeps in flight. Their bound by
-// bytes or operations is far below their time.
+// last) and march (the cell a step reads comes from pos[0]). carry30's 30
+// values are a chain within a step but not from step to step, so its steps
+// run as a pipeline and it is bound by issue. row_gather_rounds
+// waits for a round's copies to land and be picked before the next round
+// copies into the same rows, so it is latency-bound by the probe's rule,
+// not by its data. lcg_gather_sum's loads do not depend on each other (each
+// index comes from the LCG alone); only its sum is a chain, kept in order,
+// so it is bound by issue and by the loads it keeps in flight. Their bound
+// by bytes or operations is far below their time.
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError().
 
@@ -111,20 +112,131 @@ __global__ void affine_short_kernel(const float* __restrict__ x, float* __restri
   }
 }
 
-// ---- gather: out[i, j] = T[r, c] over an (H, W) output; r is i
-// (r_mode 0), r_idx[i, j] (1) or r_idx[i] (2), taken modulo r_mod when
-// r_mod > 0; c is 0 (c_mode 0), j (1) or c_idx[i, j] (2)
-__global__ void gather_kernel(const uint32_t* __restrict__ T, int C,
-                              const int* __restrict__ r_idx, int r_mode, int r_mod,
-                              const int* __restrict__ c_idx, int c_mode,
-                              uint32_t* __restrict__ out, int H, int W) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= H * W) return;
-  int i = k / W, j = k % W;
-  int r = r_mode == 0 ? i : (r_mode == 1 ? r_idx[k] : r_idx[i]);
-  if (r_mod > 0) r = pymod(r, r_mod);
-  int c = c_mode == 0 ? 0 : (c_mode == 1 ? j : c_idx[k]);
-  out[k] = T[(long long)r * C + c];
+// ---- gather: out_t[i, j] = T_t[r, c] over an (H, W) output, for up to
+// GATHER_TABLES tables of one shape in one launch (the _scan_gather harness
+// gathers an f32 and an i32 table with the same (r, c)). r is i (R_ROW),
+// r_idx[i, j] (R_IDX) or r_idx[i, 0] (R_IDX_ROW), taken modulo `mod` with
+// Python's sign rule: a mask where mod is a power of two (MOD_MASK), else
+// pymod (MOD_PY); c is 0 (C_ZERO: a 1-D table), j (C_COL) or c_idx[i, j]
+// (C_IDX). An index array's rows lie r_ld / c_ld words apart.
+//
+// What bounds it: at the sites' (8, 128) outputs a launch and one
+// dependent round trip to L2 (the index, then the word; the bytes take 2-10
+// ns); at Q1's (16384, 128), L2 sectors: a warp reads 32 rows at random, so
+// each 4-byte word costs a 32-byte sector (67 MB for Q1's 8 MB table). So
+// the modes, the modulo's kind and N, the words a thread, are template
+// arguments (no run-time branch), the block is 2-D (a row's threads along
+// x, a warp at W = 128, rows along y, up to 256 threads), so no thread
+// divides, and one launch serves several tables. With N = 4 a thread owns 4
+// consecutive words of an output row, reads each index array with one
+// 16-byte load, issues its 4 table loads before it stores, and writes each
+// output with one 16-byte store. The wrapper (ops/kernels/probes.py:
+// gather_words) takes N = 4 only where a thread's words lie in one table
+// row picked through a column index (Q2, 15% faster than one word a
+// thread); where each word's row comes from an index array, and for P3d's
+// row fetch, one word a thread in 256-thread blocks is as fast or faster
+// (PERF.md). The grid's x axis walks row bands, its y axis column
+// blocks (a loop covers more than 65535 of them). N = 4 needs W and the
+// index arrays' pitches multiples of 4 and their pointers 16-byte aligned
+// (the outputs are fresh allocations).
+constexpr int GATHER_TABLES = 4;
+constexpr int R_ROW = 0, R_IDX = 1, R_IDX_ROW = 2;
+constexpr int C_ZERO = 0, C_COL = 1, C_IDX = 2;
+constexpr int MOD_NONE = 0, MOD_MASK = 1, MOD_PY = 2;
+
+struct GatherArgs {
+  const uint32_t* T[GATHER_TABLES];
+  uint32_t* out[GATHER_TABLES];
+  int n_tables, C, H, W;
+  const int* r_idx;
+  const int* c_idx;
+  long long r_ld, c_ld;
+  int mod;
+};
+
+template <int N>
+__device__ __forceinline__ void load_words(const int* p, int (&v)[N]) {
+  if constexpr (N == 4) {
+    const int4 q = *reinterpret_cast<const int4*>(p);
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int R_MODE, int C_MODE, int MOD, int N>
+__global__ void gather_kernel(const GatherArgs g) {
+  const int i = blockIdx.x * blockDim.y + threadIdx.y;
+  if (i >= g.H) return;
+  const int per_row = g.W / N;  // N = 4: W % 4 == 0
+  for (int q = blockIdx.y * blockDim.x + threadIdx.x; q < per_row; q += gridDim.y * blockDim.x) {
+    const int j = N * q;
+    int r[N], c[N];
+    if (R_MODE == R_IDX) {
+      load_words<N>(g.r_idx + i * g.r_ld + j, r);
+    } else {
+      const int r0 = R_MODE == R_ROW ? i : g.r_idx[i * g.r_ld];
+#pragma unroll
+      for (int e = 0; e < N; ++e) r[e] = r0;
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      if (MOD == MOD_MASK) r[e] &= g.mod - 1;
+      if (MOD == MOD_PY) r[e] = pymod(r[e], g.mod);
+    }
+    if (C_MODE == C_IDX) {
+      load_words<N>(g.c_idx + i * g.c_ld + j, c);
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e) c[e] = C_MODE == C_COL ? j + e : 0;
+    }
+    uint32_t v[GATHER_TABLES][N];
+#pragma unroll
+    for (int t = 0; t < GATHER_TABLES; ++t) {
+      if (t >= g.n_tables) break;
+#pragma unroll
+      for (int e = 0; e < N; ++e) v[t][e] = g.T[t][(long long)r[e] * g.C + c[e]];
+    }
+#pragma unroll
+    for (int t = 0; t < GATHER_TABLES; ++t) {
+      if (t >= g.n_tables) break;
+      uint32_t* o = g.out[t] + i * g.W + j;
+      if constexpr (N == 4)
+        *reinterpret_cast<uint4*>(o) = make_uint4(v[t][0], v[t][1], v[t][2], v[t][3]);
+      else
+        *o = v[t][0];
+    }
+  }
+}
+
+template <int R_MODE, int C_MODE, int MOD>
+cudaError_t launch_gather(const GatherArgs& g, int words, dim3 grid, dim3 block,
+                          cudaStream_t stream) {
+  if (words == 4)
+    gather_kernel<R_MODE, C_MODE, MOD, 4><<<grid, block, 0, stream>>>(g);
+  else if (words == 1)
+    gather_kernel<R_MODE, C_MODE, MOD, 1><<<grid, block, 0, stream>>>(g);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// the (r_mode, c_mode) pairs the wrapper asks for: a 1-D table (R_IDX,
+// C_ZERO); a 2-D table with a column index (any r_mode) or with rows only
+template <int MOD>
+cudaError_t launch_gather_modes(const GatherArgs& g, int r_mode, int c_mode, int words,
+                                dim3 grid, dim3 block, cudaStream_t stream) {
+  switch (r_mode * 3 + c_mode) {
+    case R_IDX * 3 + C_ZERO: return launch_gather<R_IDX, C_ZERO, MOD>(g, words, grid, block, stream);
+    case R_IDX * 3 + C_COL: return launch_gather<R_IDX, C_COL, MOD>(g, words, grid, block, stream);
+    case R_IDX_ROW * 3 + C_COL:
+      return launch_gather<R_IDX_ROW, C_COL, MOD>(g, words, grid, block, stream);
+    case R_ROW * 3 + C_IDX: return launch_gather<R_ROW, C_IDX, MOD>(g, words, grid, block, stream);
+    case R_IDX * 3 + C_IDX: return launch_gather<R_IDX, C_IDX, MOD>(g, words, grid, block, stream);
+    case R_IDX_ROW * 3 + C_IDX:
+      return launch_gather<R_IDX_ROW, C_IDX, MOD>(g, words, grid, block, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---- lcg_gather_sum: per lane (i, j) of an (H, W) block, seed
@@ -222,33 +334,109 @@ cudaError_t launch_lcg(int mode, const uint32_t* T, int C, Divisor dc, Divisor d
 // each step gathers one word of T (R, C) at an LCG (r, c) and chains it
 // through the 30: a = fma(a, c_keep, prev * c_mix); prev = a. Writes the
 // lane's sum of the 30, added in order.
+//
+// What bounds it: issue. A step's word comes from the LCG alone, not from
+// the chain, and a[m] of step t + 1 needs only a[m] of step t and a[m - 1]
+// of step t + 1: the longest path through `iters` steps is about iters + 2
+// x 29 operations, not 60 iters. So the steps run as a pipeline:
+//  - a lane's 30 values are split over CARRY_PARTS = 8 threads of a warp,
+//    part q holding a[4q .. 4q + 3] (the last part 2), so 8 x as many warps
+//    issue the links (X3's 1,024 lanes: 256 one-warp blocks);
+//  - the parts form a systolic pipeline over blocks of CARRY_U = 16 steps:
+//    in round b part q runs block b - q, in step order, as straight-line
+//    code whose links ptxas interleaves across the block's steps (a
+//    wavefront), and hands each step's last value (its `prev` for part
+//    q + 1) on by shuffle;
+//  - part 0's 16 words are loaded a round ahead of their links;
+//  - the iters % 16 steps past the whole blocks run through the same
+//    pipeline as blocks of one step, so the main loop has no branch for a
+//    ragged last block.
+// Every link is the same IEEE operation on the same operands as in step
+// order, so the result is bitwise; the sum gathers the parts' values by
+// shuffle and adds them in order. `% R` and `% C` are exact multiply-high
+// divisions (mod24: the numerators s >> 8 are below 2^24); the lane's
+// column k % W, once a thread outside the loop, stays a `%`. 8 parts and
+// 16-step blocks measured fastest against one thread a lane, 2, 4 and 16
+// parts, and 8 and 32 steps (PERF.md).
 constexpr int N_CARRY = 30;
+constexpr int CARRY_U = 16;
+constexpr int CARRY_PARTS = 8;
+constexpr int CARRY_M = (N_CARRY + CARRY_PARTS - 1) / CARRY_PARTS;  // values of a part
 
-__global__ void carry30_kernel(const float* __restrict__ T, int R, int C, uint32_t seed,
-                               int iters, int n_lanes, int W, float c_keep, float c_mix,
-                               float* __restrict__ out) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n_lanes) return;
-  uint32_t s = seed + uint32_t(k % W);
-  float a[N_CARRY];
+__device__ __forceinline__ int carry_index(uint32_t& s, int C, Divisor dr, Divisor dc) {
+  s = lcg(s);
+  const int r = int(mod24(s >> 8, dr));
+  s = lcg(s);
+  return r * C + int(mod24(s >> 8, dc));
+}
+
+__device__ __forceinline__ void carry_link(float& a, float& prev, float keep, float mix) {
+  a = __fmaf_rn(a, keep, __fmul_rn(prev, mix));
+  prev = a;
+}
+
+// `blocks` blocks of U steps through part q's values (a[0..] is a[m0..]):
+// round b runs block b - q in step order, its prevs from part q - 1's last
+// round; part 0's words are loaded a round ahead; s is the lane's LCG
+template <int U>
+__device__ __forceinline__ void carry_pipeline(float (&a)[CARRY_M], uint32_t& s,
+                                               const float* __restrict__ T, int C, Divisor dr,
+                                               Divisor dc, int blocks, int q, int m0, int lane,
+                                               float keep, float mix) {
+  float w[U], from_prev[U];
 #pragma unroll
-  for (int m = 0; m < N_CARRY; ++m) a[m] = float(0.01 * m);
-  for (int it = 0; it < iters; ++it) {
-    s = lcg(s);
-    int r = int(s >> 8) % R;
-    s = lcg(s);
-    int c = int(s >> 8) % C;
-    float prev = T[r * C + c];
+  for (int u = 0; u < U; ++u) from_prev[u] = 0.0f;
+  if (blocks > 0) {
 #pragma unroll
-    for (int m = 0; m < N_CARRY; ++m) {
-      a[m] = __fmaf_rn(a[m], c_keep, __fmul_rn(prev, c_mix));
-      prev = a[m];
+    for (int u = 0; u < U; ++u) w[u] = T[carry_index(s, C, dr, dc)];
+  }
+  for (int b = 0; b < blocks + CARRY_PARTS - 1; ++b) {
+    float p[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) p[u] = q == 0 ? w[u] : from_prev[u];
+    if (b + 1 < blocks) {  // the next block's words in flight
+#pragma unroll
+      for (int u = 0; u < U; ++u) w[u] = T[carry_index(s, C, dr, dc)];
+    }
+    if (b - q >= 0 && b - q < blocks) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int m = 0; m < CARRY_M; ++m)
+          if (m0 + m < N_CARRY) carry_link(a[m], p[u], keep, mix);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)  // part q - 1's prevs, for the next round
+      from_prev[u] = __shfl_sync(0xFFFFFFFFu, p[u], (lane + 31) & 31);
+  }
+}
+
+// CARRY_PARTS threads a lane, whole warps; dr divides by R, dc by C
+__global__ void carry30_kernel(const float* __restrict__ T, int C, Divisor dr, Divisor dc,
+                               uint32_t seed, int iters, int n_lanes, int W, float keep,
+                               float mix, float* __restrict__ out) {
+  const int g = blockIdx.x * blockDim.x + threadIdx.x, lane = threadIdx.x & 31;
+  const int k = g / CARRY_PARTS, q = g % CARRY_PARTS, m0 = q * CARRY_M;
+  // every thread of a warp takes part in the shuffles: one past the last
+  // lane walks lane 0's steps and writes nothing
+  uint32_t s = seed + uint32_t((k < n_lanes ? k : 0) % W);
+  float a[CARRY_M];
+#pragma unroll
+  for (int m = 0; m < CARRY_M; ++m) a[m] = float(0.01 * (m0 + m));
+  // the whole blocks, then the steps past them as blocks of one step
+  carry_pipeline<CARRY_U>(a, s, T, C, dr, dc, iters / CARRY_U, q, m0, lane, keep, mix);
+  carry_pipeline<1>(a, s, T, C, dr, dc, iters % CARRY_U, q, m0, lane, keep, mix);
+  float acc = 0.0f;
+#pragma unroll
+  for (int part = 0; part < CARRY_PARTS; ++part) {
+#pragma unroll
+    for (int m = 0; m < CARRY_M; ++m) {
+      const float v = __shfl_sync(0xFFFFFFFFu, a[m], lane - q + part);
+      if (part * CARRY_M + m < N_CARRY) acc = part == 0 && m == 0 ? v : __fadd_rn(acc, v);
     }
   }
-  float acc = a[0];
-#pragma unroll
-  for (int m = 1; m < N_CARRY; ++m) acc = __fadd_rn(acc, a[m]);
-  out[k] = acc;
+  if (q == 0 && k < n_lanes) out[k] = acc;
 }
 
 // ---- carry_loop, Q6: the march-like body on an (8, W) lane block, one
@@ -582,12 +770,27 @@ int probe_affine_loop(const float* x, float* out, int n, int iters, const int* i
   return cudaGetLastError();
 }
 
-int probe_gather(const uint32_t* T, int C, const int* r_idx, int r_mode, int r_mod,
-                 const int* c_idx, int c_mode, uint32_t* out, int H, int W,
-                 cudaStream_t stream) {
-  gather_kernel<<<blocks((long long)H * W), THREADS, 0, stream>>>(T, C, r_idx, r_mode, r_mod,
-                                                                  c_idx, c_mode, out, H, W);
-  return cudaGetLastError();
+// tables and outs: n_tables pointers each; mod 0: no modulo. The plan
+// (words a thread, block tx x ty, grid gx x gy) is the wrapper's gather_plan.
+int probe_gather(const uint32_t* const* tables, uint32_t* const* outs, int n_tables, int C,
+                 const int* r_idx, long long r_ld, int r_mode, int mod, const int* c_idx,
+                 long long c_ld, int c_mode, int H, int W, int words, int tx, int ty, int gx,
+                 int gy, cudaStream_t stream) {
+  if (n_tables < 1 || n_tables > GATHER_TABLES || tx * ty > 1024) return int(cudaErrorInvalidValue);
+  GatherArgs g{};
+  for (int t = 0; t < n_tables; ++t) {
+    g.T[t] = tables[t];
+    g.out[t] = outs[t];
+  }
+  g.n_tables = n_tables, g.C = C, g.H = H, g.W = W;
+  g.r_idx = r_idx, g.c_idx = c_idx, g.r_ld = r_ld, g.c_ld = c_ld;
+  g.mod = mod;
+  const dim3 grid(gx, gy), block(tx, ty);
+  if (mod <= 0)
+    return int(launch_gather_modes<MOD_NONE>(g, r_mode, c_mode, words, grid, block, stream));
+  if ((mod & (mod - 1)) == 0)
+    return int(launch_gather_modes<MOD_MASK>(g, r_mode, c_mode, words, grid, block, stream));
+  return int(launch_gather_modes<MOD_PY>(g, r_mode, c_mode, words, grid, block, stream));
 }
 
 // (d, m, sh) of dc and dr, and the block size, are the wrapper's div_plan
@@ -604,10 +807,17 @@ int probe_lcg_gather_sum(const uint32_t* T, int is_int, int mode, int C, unsigne
                                         acc, stream));
 }
 
-int probe_carry30(const float* T, int R, int C, unsigned seed, int iters, int n_lanes, int W,
-                  float c_keep, float c_mix, float* out, cudaStream_t stream) {
-  carry30_kernel<<<blocks(n_lanes), THREADS, 0, stream>>>(T, R, C, seed, iters, n_lanes, W, c_keep,
-                                                      c_mix, out);
+// (d, m, sh) of dr and dc, and the block size, are the wrapper's div_plan
+// and lcg_threads (of CARRY_PARTS threads a lane)
+int probe_carry30(const float* T, int C, unsigned dr_d, unsigned dr_m, unsigned dr_sh,
+                  unsigned dc_d, unsigned dc_m, unsigned dc_sh, unsigned seed, int iters,
+                  int n_lanes, int W, float c_keep, float c_mix, int threads, float* out,
+                  cudaStream_t stream) {
+  const Divisor dr{dr_d, dr_m, dr_sh}, dc{dc_d, dc_m, dc_sh};
+  if (threads < 32 || threads > 1024 || threads % 32) return int(cudaErrorInvalidValue);
+  const long long n_threads = (long long)n_lanes * CARRY_PARTS;
+  carry30_kernel<<<int((n_threads + threads - 1) / threads), threads, 0, stream>>>(
+      T, C, dr, dc, seed, iters, n_lanes, W, c_keep, c_mix, out);
   return cudaGetLastError();
 }
 

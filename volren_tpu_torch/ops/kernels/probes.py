@@ -12,11 +12,14 @@ families:
   (as XLA computes the probes' ``x * 1.0000001 + 1e-6``), the trip count
   from the host or read on the device;
 - ``gather``: ``T[r, c]`` with r and c each an index array, the output's
-  row / column number, or (a 1-D table) ``T[r % mod]``;
+  row / column number, or (a 1-D table) ``T[r % mod]``, for up to
+  ``GATHER_TABLES`` tables in one launch (one word a thread, or 4 in
+  16-byte accesses: ``gather_words``, ``gather_plan``);
 - ``lcg_gather_sum``: per lane, ``iters`` LCG-indexed table words summed
   (exact multiply-high division, ``LCG_UNROLL`` loads in flight a lane);
 - ``carry30`` and ``march`` (the ``carry_loop`` family): X3's 30 carried
-  values and Q6's march-like body;
+  values (split over ``CARRY_PARTS`` threads, a systolic pipeline over
+  blocks of ``CARRY_U`` steps) and Q6's march-like body;
 - ``row_gather_rounds``: the dmagather checksum, rows staged in shared
   memory (16-byte cp.async, each warp copying its own lanes' rows, or the
   whole block a few rows) or words loaded directly;
@@ -53,6 +56,11 @@ INDEX_COPY_OPS = {"transpose": 0, "tile_rows": 1, "roll_cols": 2, "broadcast_row
 C_KEEP, C_MIX = np.float32(0.9999), np.float32(1e-4)                 # X3
 VEL0, S_NEAR, S_FAR, DECAY = (np.float32(v) for v in (0.01, 0.01, 0.05, 0.999))  # Q6
 N_CARRY = 30
+CARRY_U = 16          # csrc/probes.cu: carry30's steps a block
+CARRY_PARTS = 8       # csrc/probes.cu: the threads a carry30 lane's values are split over
+GATHER_TABLES = 4     # csrc/probes.cu: the tables one gather launch takes
+GATHER_THREADS = 256  # a gather block's threads, at most
+MAX_GRID_Y = 65535    # CUDA's limit on a grid's second axis
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -96,16 +104,17 @@ def _lib() -> ctypes.CDLL:
     with _LIB_LOCK:
         if _LIB is None:
             p, n, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+            ll = ctypes.c_longlong
             _LIB = _build.load(build(), {
                 "probe_affine_loop": [p, p, n, n, p, f, f, n, p],
-                "probe_gather": [p, n, p, n, n, p, n, p, n, n, p],
+                "probe_gather": [p, p, n, n, p, ll, n, n, p, ll, n, n, n, n, n, n, n, n, p],
                 "probe_lcg_gather_sum": [p, n, n, n, u, u, u, u, u, u, u, u, n, n, n, n,
                                          p, p],
-                "probe_carry30": [p, n, n, u, n, n, n, f, f, p, p],
+                "probe_carry30": [p, n, u, u, u, u, u, u, u, n, n, n, f, f, n, p, p],
                 "probe_march": [p, n, n, p, p, n, f, f, f, f, p, p],
                 "probe_row_gather_rounds": [n, p, p, n, n, n, n, p, p],
                 "probe_index_copy": [p, n, n, n, n, p, n, n, p],
-                "probe_transpose": [p, n, n, ctypes.c_longlong, n, n, n, n, p, p],
+                "probe_transpose": [p, n, n, ll, n, n, n, n, p, p],
                 "probe_tea8": [p, p, p, p, n, p],
                 "probe_row_scan": [p, p, n, n, p],
             })
@@ -276,45 +285,121 @@ def _gather_plan(table, rows, cols):
     return h, w, r_mode, c_mode
 
 
+def _tables(table) -> tuple[tuple[torch.Tensor, ...], bool]:
+    """(the tables, whether one tensor was given) of a gather's first
+    argument: a tensor, or a tuple or list of up to GATHER_TABLES tensors of
+    one shape on one device."""
+    if isinstance(table, torch.Tensor):
+        return (table,), True
+    tables = tuple(table)
+    if not 1 <= len(tables) <= GATHER_TABLES:
+        raise ValueError(f"a gather takes 1 to {GATHER_TABLES} tables, got {len(tables)}")
+    if any(t.shape != tables[0].shape or t.device != tables[0].device for t in tables):
+        raise ValueError("the tables of one gather must have one shape and one device")
+    return tables, False
+
+
 def gather_plain(table, rows=None, cols=None, row_mod=0):
-    h, w, r_mode, c_mode = _gather_plan(table, rows, cols)
-    dev = table.device
+    tables, single = _tables(table)
+    h, w, r_mode, c_mode = _gather_plan(tables[0], rows, cols)
+    dev = tables[0].device
     if r_mode == 0:
         r = torch.arange(h, dtype=i64, device=dev)[:, None].expand(h, w)
     else:
         r = rows.to(i64).expand(h, w)
     if row_mod:
         r = r % row_mod
-    if table.dim() == 1:
-        return table[r]
-    c = cols.to(i64) if c_mode == 2 else torch.arange(w, dtype=i64, device=dev)[None, :].expand(h, w)
-    return table[r, c]
+    if tables[0].dim() == 1:
+        outs = tuple(t[r] for t in tables)
+    else:
+        c = (cols.to(i64) if c_mode == 2
+             else torch.arange(w, dtype=i64, device=dev)[None, :].expand(h, w))
+        outs = tuple(t[r, c] for t in tables)
+    return outs[0] if single else outs
 
 
-def gather(table: torch.Tensor, rows: torch.Tensor | None = None,
-           cols: torch.Tensor | None = None, row_mod: int = 0) -> torch.Tensor:
+def gather_words(r_mode: int, c_mode: int, vec_ok: bool, w: int) -> int:
+    """Words a thread of the gather kernel: 4, in 16-byte accesses, where a
+    thread's words lie in one table row picked through a column index (r
+    from the output's row or from rows of shape (H, 1), c from cols: Q2's
+    in-row shuffle, 15% faster than one word a thread) and the arrays allow
+    it (``vec_ok``, w % 4 == 0); else one word a thread, which measured as
+    fast or faster where each word's row comes from an index array (P3a-c,
+    Q1, Q4, W3, the harness) and for P3d's row fetch."""
+    return 4 if vec_ok and w % 4 == 0 and c_mode == 2 and r_mode != 1 else 1
+
+
+def gather_plan(h: int, w: int, words: int):
+    """(tx, ty, gx, gy) of the gather kernel for an (h, w) output at
+    ``words`` words a thread: blocks of tx x ty threads, tx a power of two
+    that covers a row's threads, at most a warp, ty rows, up to
+    GATHER_THREADS threads (at most h rounded up to a power of two); gx row
+    bands by gy column blocks (at most MAX_GRID_Y: the kernel loops over the
+    rest)."""
+    per_row = w // words
+    tx = min(32, 1 << max(per_row - 1, 0).bit_length())
+    ty = min(GATHER_THREADS // tx, 1 << max(h - 1, 0).bit_length())
+    return tx, ty, -(-h // ty), min(-(-per_row // tx), MAX_GRID_Y)
+
+
+def index_pitch(t: torch.Tensor | None) -> int:
+    """The row pitch (words) of a 2-D index array whose columns are
+    adjacent (0 for no array); raises for another layout."""
+    if t is None:
+        return 0
+    if t.dim() != 2 or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError("an index array must be 2-D with adjacent columns")
+    return t.stride(0) if t.shape[0] > 1 else t.shape[1]
+
+
+def gather_vec_ok(rows, cols, r_mode: int, c_mode: int) -> bool:
+    """Whether a gather's index arrays allow 4 words a thread in 16-byte
+    accesses (beside w % 4 == 0): each array read 4 words at a time (rows of
+    the output's shape, cols) 16-byte aligned with a pitch of a multiple of
+    4 words."""
+    return all(t.data_ptr() % 16 == 0 and index_pitch(t) % 4 == 0
+               for t, quads in ((rows, r_mode == 1), (cols, c_mode == 2)) if quads)
+
+
+def gather(table, rows: torch.Tensor | None = None, cols: torch.Tensor | None = None,
+           row_mod: int = 0):
     """out[i, j] = table[r, c] for a 2-D float32 or int32 table: r is
     ``rows[i, j]``, ``rows[i, 0]`` (rows of shape (H, 1)) or i (rows None);
     c is ``cols[i, j]`` or j (cols None). A 1-D table gives
-    ``table[rows % row_mod]`` (``row_mod`` 0: no modulo). The indices must
-    lie inside the table: the kernel does not check them."""
-    if not _on_card(table):
+    ``table[rows % row_mod]`` (``row_mod`` 0: no modulo). ``table`` may be a
+    tuple or list of up to GATHER_TABLES tables of one shape, float32 or
+    int32 in any mix: one launch gathers them all at the same (r, c) and a
+    tuple of outputs comes back. The index arrays are int32 with adjacent
+    columns; their rows may lie any distance apart (a column slice). The
+    indices must lie inside the table: the kernel does not check them."""
+    tables, single = _tables(table)
+    if not _on_card(tables[0]):
         return gather_plain(table, rows, cols, row_mod)
-    _check(table, "table", (f32, i32))
-    h, w, r_mode, c_mode = _gather_plan(table, rows, cols)
+    for t in tables:
+        _check(t, "table", (f32, i32))
+    h, w, r_mode, c_mode = _gather_plan(tables[0], rows, cols)
     for t, name in ((rows, "rows"), (cols, "cols")):
-        if t is not None:
-            _check(t, name, (i32,))
+        if t is not None and (not t.is_cuda or t.dtype != i32):
+            raise ValueError(f"{name} must be an int32 CUDA tensor")
+    r_ld, c_ld = index_pitch(rows), index_pitch(cols)
     if h * w >= 2 ** 31:
         raise ValueError("the kernel indexes the output with 32-bit integers")
-    out = torch.empty(h, w, dtype=table.dtype, device=table.device)
-    n_cols = 1 if table.dim() == 1 else table.shape[1]
-    _launch("probe_gather", table.data_ptr(), n_cols,
-            rows.data_ptr() if rows is not None else None, r_mode, int(row_mod),
-            cols.data_ptr() if cols is not None else None, c_mode, out.data_ptr(), h, w,
-            device=table.device)
+    if not 0 <= row_mod < 2 ** 31:
+        raise ValueError(f"row_mod must lie in [0, 2^31), got {row_mod}")
+    outs = tuple(torch.empty(h, w, dtype=t.dtype, device=t.device) for t in tables)
+    n_cols = 1 if tables[0].dim() == 1 else tables[0].shape[1]
+    if h * w == 0:
+        return outs[0] if single else outs
+    words = gather_words(r_mode, c_mode, gather_vec_ok(rows, cols, r_mode, c_mode), w)
+    tx, ty, gx, gy = gather_plan(h, w, words)
+    ptrs = ctypes.c_void_p * GATHER_TABLES
+    _launch("probe_gather", ptrs(*(t.data_ptr() for t in tables)),
+            ptrs(*(o.data_ptr() for o in outs)), len(tables), n_cols,
+            rows.data_ptr() if rows is not None else None, r_ld, r_mode, int(row_mod),
+            cols.data_ptr() if cols is not None else None, c_ld, c_mode, h, w, words, tx, ty,
+            gx, gy, device=tables[0].device)
     gather.launches += 1
-    return out
+    return outs[0] if single else outs
 
 
 gather.launches = 0
@@ -439,9 +524,16 @@ def carry30(table: torch.Tensor, seed: int, iters: int, lanes=(8, 128)) -> torch
     if not _on_card(table):
         return carry30_plain(table, seed, iters, lanes)
     _check(table, "table", (f32,))
+    rows_t, cols_t = table.shape
+    n_lanes = lanes[0] * lanes[1]
+    if n_lanes * CARRY_PARTS >= 2 ** 31 or table.numel() >= 2 ** 31:
+        raise ValueError("the kernel indexes threads and the table with 32-bit integers")
     out = torch.empty(lanes, dtype=f32, device=table.device)
-    _launch("probe_carry30", table.data_ptr(), table.shape[0], table.shape[1], seed & MASK,
-            int(iters), lanes[0] * lanes[1], lanes[1], float(C_KEEP), float(C_MIX),
+    if n_lanes == 0:
+        return out
+    _launch("probe_carry30", table.data_ptr(), cols_t, rows_t, *div_plan(rows_t), cols_t,
+            *div_plan(cols_t), seed & MASK, int(iters), n_lanes, lanes[1], float(C_KEEP),
+            float(C_MIX), lcg_threads(n_lanes * CARRY_PARTS, _sm_count(table.device)),
             out.data_ptr(), device=table.device)
     carry30.launches += 1
     return out
@@ -590,7 +682,6 @@ def index_copy_plain(x, op, arg=0):
 
 
 T_COLS = 32        # csrc/probes.cu: a transpose tile's columns (words); 64 threads a block
-MAX_GRID_Y = 65535  # CUDA's limit on a grid's second axis
 
 
 def transpose_plan(h: int, w: int, ld: int, ptr: int):

@@ -36,6 +36,7 @@ class Case:
     n_bytes: int
     n_ops: int
     exact: bool = True                    # bitwise; else allclose(rtol=1e-5)
+    library_calls: int = 1                # the PyTorch calls ``library`` makes
 
     def bound(self):
         """(ms, "bytes" | "operations")."""
@@ -141,11 +142,14 @@ def _w3(ctx):
 
 
 def _harness(ctx):
+    """Both tables in one launch; the library is two calls (no one PyTorch
+    call gathers two tables)."""
     tf32, ti32, rn, cn = scan_gather.harness_inputs()
     t1, t2, r, c = (ctx.t(a) for a in (tf32, ti32, rn, cn))
-    n_bytes = 2 * (_words(t1, r.numel()) + _nbytes(r, c) + 4 * r.numel())
-    return Case(lambda: (K.gather(t1, r, c), K.gather(t2, r, c)),
-                lambda: (K.gather_plain(t1, r, c), K.gather_plain(t2, r, c)), None, n_bytes, 0)
+    rl, cl = r.long(), c.long()
+    n_bytes = 2 * (_words(t1, r.numel()) + 4 * r.numel()) + _nbytes(r, c)
+    return Case(lambda: K.gather((t1, t2), r, c), lambda: K.gather_plain((t1, t2), r, c),
+                lambda: (t1[rl, cl], t2[rl, cl]), n_bytes, 0, library_calls=2)
 
 
 # ---- index_copy
