@@ -45,10 +45,12 @@ of which raises on failure (exit code non-zero, no result line):
    (each site that has one in turns with that call, median and p10-p90:
    P0 and W4 101 rounds, the gathers P3a, P3c, P3d, Q1, Q2, Q4, W3 and the
    cumsum 31; the _scan_gather harness, one gather launch for both tables,
-   31 rounds against the pair t1[r, c], t2[r, c], its library_ms two calls);
+   31 rounds against the pair t1[r, c], t2[r, c], its library_ms two calls;
+   Q3's five ops, 31 rounds against their six PyTorch calls);
    the gather's plan and carry30's pipeline, lcg_gather_sum's loads in
-   flight a lane (from the built library) and the staged rounds' design,
-   each with ptxas's registers;
+   flight a lane (from the built library), the staged rounds' and the
+   direct mode's design and the affine loop kernel's blocks of steps, each
+   with ptxas's registers;
    the transpose of an 8192 x 8192 f32 array held bitwise to t.t() and
    timed in turns with .t().contiguous() beside its bound by bytes;
    then the entry point python -m volren_tpu_torch.probes, run in-process
@@ -181,7 +183,8 @@ ORACLE_ITEMS_MAIN, ORACLE_ITEMS_SMALL = 64, 32
 ORACLE_REPLACES = "volren_tpu/ops/tracer.py:154 (trace_pass; XLA, no pallas_call)"
 # phase 8: the sites timed in turns with their PyTorch call, and the rounds
 PROBES_IN_TURNS = {"probe_P0": 101, "probe_W4": 101, "scan_gather_harness": 31, **{
-    f"probe_{name}": 31 for name in ("P3a", "P3c", "P3d", "Q1", "Q2", "Q4", "W3", "cumsum")}}
+    f"probe_{name}": 31 for name in ("P3a", "P3c", "P3d", "Q1", "Q2", "Q3", "Q4", "W3",
+                                     "cumsum")}}
 ORACLE_VARIANTS = [(dda, tf, emi) for dda in (True, False) for tf in (False, True)
                    for emi in (False, True)]
 VARIANT = {"plain": (False, False), "tf": (True, False), "emission": (False, True),
@@ -1324,6 +1327,11 @@ def main(argv=None) -> int:
           f"16-byte accesses for a gather within a row by a column index, Q2), the modes as "
           f"template arguments, up to {probe_kernels.GATHER_TABLES} tables a launch; "
           f"ptxas {registers('gather<')}", flush=True)
+    print(f"affine_loop (P1, P2, P4): one chain a thread, blocks of {probe_kernels.AFFINE_U} "
+          f"steps written out and a remainder loop; ptxas {registers('affine_loop')}", flush=True)
+    print(f"row_gather_rounds direct (dmagather3): {probe_kernels.DIRECT_INFLIGHT} rounds' loads "
+          f"in flight a lane, the row advanced without a division, the mask a template "
+          f"argument; ptxas {registers('row_gather_direct')}", flush=True)
     print(f"carry30: a lane's values over {probe_kernels.CARRY_PARTS} threads, a systolic "
           f"pipeline over blocks of {probe_kernels.CARRY_U} steps, the words a block ahead, "
           f"exact multiply-high division, "

@@ -401,6 +401,25 @@ def test_probe_kernel_matches_plain_version(case):
         assert got.is_cuda and torch.equal(got, want), float((got.double() - want.double()).abs().max())
 
 
+@pytest.mark.parametrize("shape", [(37, 23), (256, 512)], ids=["37x23", "256x512"])
+def test_probe_affine_loop_matches_plain_version_at_ragged_counts(shape):
+    """The loop kernel (blocks of AFFINE_U steps written out, then the rest)
+    at counts around a block and P4's, P1's and P2's 64 and 4096 steps, the
+    count from the host and read on the device, bitwise."""
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    x = torch.from_numpy((np.random.default_rng(19).random(shape) * 4.0 - 2.0)
+                         .astype(np.float32)).to(dev)
+    u = K.AFFINE_U
+    for count in sorted({0, 1, u - 1, u, u + 1, 64, 4095, 4096, 4097}):
+        want = K.affine_loop_plain(x, count, 1.0000001, 1e-6)
+        n_dev = torch.tensor([count], dtype=torch.int32, device=dev)
+        for got in (K.affine_loop(x, count, 1.0000001, 1e-6),
+                    K.affine_loop(x, 0, 1.0000001, 1e-6, n_dev)):
+            assert got.is_cuda and torch.equal(got, want), count
+
+
 ROUND_MODES = ("ids", "direct", "stage", "staged", "stale")
 ROUND_LANES = (0, 1, 8, 31, 32, 33, 127, 128)
 ROUND_COUNTS = (0, 1, 2, 3, 300)
@@ -425,6 +444,31 @@ def test_probe_row_gather_rounds_matches_plain_version(mode, use_mask):
             assert K.row_gather_rounds.launches == before + 1
             want = K.row_gather_rounds_plain(base, tab, mode, rounds, n, use_mask)
             assert got.is_cuda and torch.equal(got, want), (n, rounds)
+
+
+@pytest.mark.parametrize("rows,use_mask", [(7, False), (7919, False), (7920, False),
+                                           (65536, False), (65536, True), (65537, False),
+                                           (65537, True)])
+def test_probe_direct_rounds_match_plain_version_at_ragged_rounds(rows, use_mask):
+    """The direct mode (rows advanced without a division, DIRECT_INFLIGHT
+    rounds' loads in flight, then the rest) on tables of 7 to 65537 rows,
+    negative base ids too, at rounds around a batch and n around the lanes'
+    edges, bitwise."""
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    rng = np.random.default_rng(17)
+    tab = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (rows, 128), dtype=np.int64)
+                           .astype(np.int32)).to(dev)
+    base = torch.from_numpy(rng.integers(-2 ** 20, 2 ** 20, (128,), dtype=np.int32)).to(dev)
+    d = K.DIRECT_INFLIGHT
+    for rounds in (0, 1, d - 1, d, d + 1, 512, 513):
+        for n in (0, 1, 37, 128):
+            before = K.row_gather_rounds.launches
+            got = K.row_gather_rounds(base, tab, "direct", rounds, n, use_mask)
+            assert K.row_gather_rounds.launches == before + 1
+            want = K.row_gather_rounds_plain(base, tab, "direct", rounds, n, use_mask)
+            assert got.is_cuda and torch.equal(got, want), (rounds, n)
 
 
 def test_probe_staged_rounds_refuse_a_misaligned_table():

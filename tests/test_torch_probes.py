@@ -20,6 +20,7 @@ totals (another summation order); rtol 1e-5 for row_scan.
 
 import importlib
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +35,8 @@ from volren_tpu_torch import probes as port_probes
 from volren_tpu_torch.ops.kernels import probes as K
 from volren_tpu_torch.probes import probe_dmagather as port_dmagather
 from volren_tpu_torch.probes import variants
-from volren_tpu_torch.probes.sites import SITES
+from volren_tpu_torch.probes._common import Context
+from volren_tpu_torch.probes.sites import Q3_OPS, SITES, _q3, q3_library
 
 # one intra-op thread: these tensors are small, and the test workers share the cores
 torch.set_num_threads(1)
@@ -429,6 +431,21 @@ def test_q3_shape_ops_match_pallas(probe):
         assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("seed", [None, 3], ids=["probe_input", "random"])
+def test_q3_pytorch_calls_are_the_plain_version(seed):
+    """Q3's library row: each op's PyTorch call (six kernels for the five
+    ops) bitwise index_copy_plain, on the probe's input and on a random one."""
+    x = (np.arange(8 * 128, dtype=np.float32).reshape(8, 128) if seed is None else
+         np.random.default_rng(seed).standard_normal((8, 128)).astype(np.float32) * 1e3)
+    calls = q3_library(_t(x))
+    for op, arg in Q3_OPS:
+        got, want = calls[op](), K.index_copy_plain(_t(x), op, arg)
+        assert got.dtype == want.dtype and torch.equal(got, want), op
+    case = _q3(Context(torch.device("cpu")))
+    assert case.library_calls == 6
+    assert all(torch.equal(a, b) for a, b in zip(case.library(), case.plain()))
+
+
 def test_w4_transpose_matches_pallas(probe):
     mod, pulled = probe("probe_pallas3")
     with _interpret():
@@ -517,6 +534,53 @@ def test_variants_edit_the_shipped_kernels_once(name):
     (1, 4, 0, False, False), (1, 0, 8, False, False)])          # not 16-byte aligned
 def test_affine_short_path_is_the_host_known_short_loop(iters, x_ptr, out_ptr, dev_count, short):
     assert K.affine_short(iters, x_ptr, out_ptr, dev_count) is short
+
+
+AFFINE_COUNTS = tuple(sorted({0, 1, K.AFFINE_U - 1, K.AFFINE_U, K.AFFINE_U + 1, 64, 4095, 4096,
+                              4097}))
+
+
+def _replay_affine_loop(x, iters, a, b, iters_dev=None):
+    """csrc/probes.cu's affine_loop_kernel for every element at once: the
+    count from the host or read once from ``iters_dev``, m / AFFINE_U blocks
+    of AFFINE_U steps written out (C's truncating division), then m %
+    AFFINE_U steps one at a time. Returns the result and the steps taken."""
+    m = int(iters_dev[0]) if iters_dev is not None else iters
+    at, bt = torch.tensor(np.float32(a)), torch.tensor(np.float32(b)).expand_as(x)
+    v, steps = x, 0
+    for _ in range(int(m / K.AFFINE_U)):
+        for _u in range(K.AFFINE_U):
+            v, steps = K.fma32(v, at, bt), steps + 1
+    for _ in range(int(math.fmod(m, K.AFFINE_U))):
+        v, steps = K.fma32(v, at, bt), steps + 1
+    return v, steps
+
+
+@pytest.fixture(scope="module")
+def affine_chain():
+    """A (37, 23) x and the sequential fma32 chain of P1's step after each
+    count of AFFINE_COUNTS."""
+    x = _t((np.random.default_rng(5).random((37, 23)) * 4.0 - 2.0).astype(np.float32))
+    a, b = torch.tensor(np.float32(1.0000001)), torch.tensor(np.float32(1e-6)).expand_as(x)
+    chain, v = {}, x
+    for k in range(max(AFFINE_COUNTS) + 1):
+        if k in AFFINE_COUNTS:
+            chain[k] = v
+        v = K.fma32(v, a, b)
+    return x, chain
+
+
+@pytest.mark.parametrize("dev_count", [False, True], ids=["host_count", "device_count"])
+@pytest.mark.parametrize("count", AFFINE_COUNTS)
+def test_affine_loop_blocks_and_remainder_are_the_sequential_chain(affine_chain, count,
+                                                                   dev_count):
+    """The loop kernel's schedule (blocks of AFFINE_U steps written out, then
+    the rest) takes exactly ``count`` steps, bitwise the sequential chain, at
+    counts around a block and P4's, P1's and P2's 64 and 4096 steps."""
+    x, chain = affine_chain
+    n_dev = _t(np.array([count], np.int32)) if dev_count else None
+    got, steps = _replay_affine_loop(x, 0 if dev_count else count, 1.0000001, 1e-6, n_dev)
+    assert steps == count and torch.equal(got, chain[count])
 
 
 # ---------------------------------------------------------------- tea8, row_scan
@@ -695,6 +759,9 @@ def test_lcg_threads_spreads_small_lane_blocks_over_the_sms(lanes, threads):
 
 def test_schedule_constants_are_the_kernels():
     src = open(K.SOURCE).read()
+    assert f"constexpr int AFFINE_U = {K.AFFINE_U};" in src
+    assert 64 % K.AFFINE_U == 0 or K.AFFINE_U % 64 == 0    # P4's 64 steps: no remainder
+    assert f"constexpr int DIRECT_INFLIGHT = {K.DIRECT_INFLIGHT};" in src
     assert f"constexpr int LCG_UNROLL = {K.LCG_UNROLL};" in src
     assert f"constexpr int BLOCK_COPY_MAX = {K.BLOCK_COPY_MAX};" in src
     assert f"constexpr int CARRY_U = {K.CARRY_U};" in src
@@ -707,7 +774,10 @@ def test_schedule_constants_are_the_kernels():
     ("_ZN12_GLOBAL__N_121lcg_gather_sum_kernelILb1ELi2EEEvPKjiNS_7DivisorES3_jjiiiPf",
      "lcg_gather_sum<1,2>"),
     ("_ZN12_GLOBAL__N_111tea8_kernelEPKjS1_PjS2_i", "tea8"),
-    ("_ZN12_GLOBAL__N_113gather_kernelILi2ELi1ELb0ELb1EEEvNS_10GatherArgsE", "gather<2,1,0,1>")])
+    ("_ZN12_GLOBAL__N_113gather_kernelILi2ELi1ELb0ELb1EEEvNS_10GatherArgsE", "gather<2,1,0,1>"),
+    ("_ZN12_GLOBAL__N_118affine_loop_kernelEPKfPfiiPKiff", "affine_loop"),
+    ("_ZN12_GLOBAL__N_124row_gather_direct_kernelILb0EEEvPKiPKjiiiPj", "row_gather_direct<0>"),
+    ("_ZN12_GLOBAL__N_124row_gather_direct_kernelILb1EEEvPKiPKjiiiPj", "row_gather_direct<1>")])
 def test_kernel_names_carry_every_template_argument(mangled, name):
     assert K._kernel_name(mangled) == name
 
@@ -936,6 +1006,75 @@ def test_stale_rounds_pick_the_zero_filled_buffer(dma_table):
     assert not _port_rounds(dma_table, "stale", 5, use_mask=True).any()
     want = port_dmagather.ref_checksum(idx, tab, 128, 5, True, "stale")
     assert not want.any()
+
+
+DIRECT_ROWS = ((7, False), (7919, False), (7920, False), (65536, False), (65536, True),
+               (65537, False), (65537, True))
+
+
+@pytest.fixture(scope="module")
+def direct_table():
+    rng = np.random.default_rng(17)
+    tab = _t(rng.integers(-2 ** 31, 2 ** 31, (65537, 128), dtype=np.int64).astype(np.int32))
+    base = _t(rng.integers(-2 ** 20, 2 ** 20, (128,), dtype=np.int32))
+    return tab, base
+
+
+def _replay_direct_rounds(base, tab, rounds, n, use_mask, inflight):
+    """csrc/probes.cu's row_gather_direct_kernel for the 128 lanes at once:
+    round 0's row base & 0xFFFF, or base % rows with Python's sign rule; each
+    next row + 7919 & 0xFFFF, or + 7919 % rows brought back below rows by one
+    subtraction; the words of ``inflight`` rounds loaded before they are
+    added, then the rounds past the last whole batch one at a time; lanes
+    j >= n load nothing. Asserts each round's row is ``round_ids``'."""
+    rows = tab.shape[0]
+    b = base.to(torch.int64)
+    step = K.ROUND_STEP if use_mask else K.ROUND_STEP % rows
+    ids = b & 0xFFFF if use_mask else b % rows
+    live = torch.arange(K.LANES) < n
+    acc = torch.zeros(K.LANES, dtype=torch.int64)
+
+    def load(ids, k):
+        assert torch.equal(ids, K.round_ids(base, torch.tensor([k]), rows, use_mask)[0]), k
+        return torch.where(live, tab[ids, ids & 127].to(torch.int64), 0)
+
+    def advance(ids):
+        if use_mask:
+            return (ids + step) & 0xFFFF
+        ids = ids + step
+        assert bool((ids < 2 * rows).all())
+        return torch.where(ids >= rows, ids - rows, ids)
+
+    k = 0
+    while k + inflight <= rounds:
+        words = []
+        for u in range(inflight):
+            words.append(load(ids, k + u))
+            ids = advance(ids)
+        for w in words:
+            acc += w
+        k += inflight
+    for k in range(k, rounds):
+        acc += load(ids, k)
+        ids = advance(ids)
+    return K.u32_bits(acc).to(torch.int32)
+
+
+@pytest.mark.parametrize("rows,use_mask", DIRECT_ROWS)
+def test_direct_rounds_in_flight_are_the_plain_version(direct_table, rows, use_mask):
+    """The direct mode's schedule (rows advanced without a division, the
+    loads of DIRECT_INFLIGHT rounds in flight, then the rest) on tables of 7
+    to 65537 rows, negative base ids too: every round's row is round_ids',
+    and the checksum bitwise row_gather_rounds_plain at rounds around a batch
+    and n around the lanes' edges."""
+    tab, base = direct_table
+    tab = tab[:rows]
+    d = K.DIRECT_INFLIGHT
+    for rounds in (0, 1, d - 1, d, d + 1, 512, 513):
+        for n in (0, 1, 37, 128):
+            got = _replay_direct_rounds(base, tab, rounds, n, use_mask, d)
+            want = K.row_gather_rounds_plain(base, tab, "direct", rounds, n, use_mask)
+            assert torch.equal(got, want), (rounds, n)
 
 
 def test_staged_rounds_refuse_a_table_their_copies_cannot_take(dma_table):

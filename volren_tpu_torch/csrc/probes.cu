@@ -28,17 +28,20 @@
 // asks for one with __fmaf_rn and the plain version emulates it exactly.
 // A gather moves 32-bit words, so one kernel serves f32 and i32 tables.
 //
-// What bounds them: two families are dependent chains by construction,
-// and their time per step is the answer: affine_loop (each step reads the
-// last) and march (the cell a step reads comes from pos[0]). carry30's 30
-// values are a chain within a step but not from step to step, so its steps
-// run as a pipeline and it is bound by issue. row_gather_rounds
-// waits for a round's copies to land and be picked before the next round
-// copies into the same rows, so it is latency-bound by the probe's rule,
-// not by its data. lcg_gather_sum's loads do not depend on each other (each
-// index comes from the LCG alone); only its sum is a chain, kept in order,
-// so it is bound by issue and by the loads it keeps in flight. Their bound
-// by bytes or operations is far below their time.
+// What bounds them: two families are dependent chains by construction, and
+// their time per step is the answer: affine_loop (each step reads the last; a
+// grid of chains is bound by the FMA pipe's rate for one chain a warp, so its
+// loop is written out in blocks of steps) and march (the cell a step reads
+// comes from pos[0]). carry30's 30 values are a chain within a step but not
+// from step to step, so its steps run as a pipeline and it is bound by issue.
+// row_gather_rounds' staged modes wait for a round's copies to land and be
+// picked before the next round copies into the same rows, so they are
+// latency-bound by the probe's rule, not by their data. Its direct mode has
+// no landing rows, so nothing orders its rounds: it keeps several rounds'
+// loads in flight and is bound by one SM's rate to L2. lcg_gather_sum's loads
+// do not depend on each other (each index comes from the LCG alone); only its
+// sum is a chain, kept in order, so it is bound by issue and by the loads it
+// keeps in flight.
 // Each C entry point launches on the given stream and returns
 // cudaGetLastError().
 
@@ -63,16 +66,38 @@ int blocks(long long n) { return int((n + THREADS - 1) / THREADS); }
 //
 // The loop kernel keeps P1, P2 and P4's question (probes/probe_pallas.py
 // :133, :178, :341): one element a thread, one dependent chain of `iters`
-// steps, the count from the host or read on the device. Their time per step
-// is the answer; a thread never carries two chains.
-__global__ void affine_loop_kernel(const float* __restrict__ x, float* __restrict__ out, int n,
-                                   int iters, const int* __restrict__ iters_dev, float a,
-                                   float b) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+// steps, the count from the host or read once on the device before the
+// loop. Their time per step is the answer; a thread never carries two
+// chains.
+//
+// What bounds it: the FMA pipe's rate for one chain a warp. Measured on an
+// H100 80GB HBM3 (PERF.md), a step takes 2 cycles for each warp its busiest
+// scheduler holds from 4 warps up (8.0, 16.0, 32.0 cycles at 4, 8, 16), and
+// the FMA's latency, about 5 cycles, at 2: half the published FP32 rate (two
+// independent chains a thread, not the probe's question, took 1.5 cycles an
+// FMA). P1's (256, 512) puts 8 warps on its busiest scheduler. So what the
+// design can cut is what surrounds the FMAs: the steps run as a main loop of
+// AFFINE_U = 64 steps written out (P4's 64-step launches run no remainder)
+// and a remainder loop of fewer than AFFINE_U, the same FMAs in the same
+// order, bitwise the plain version. Of 4 to 64 steps a block and 128 to 1024
+// threads a block, 64 steps in 512-thread blocks measured fastest or tied at
+// P1, P2 and P4 (PERF.md).
+constexpr int AFFINE_U = 64;
+constexpr int AFFINE_THREADS = 512;
+
+__global__ void __launch_bounds__(AFFINE_THREADS)
+    affine_loop_kernel(const float* __restrict__ x, float* __restrict__ out, int n, int iters,
+                       const int* __restrict__ iters_dev, float a, float b) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  int m = iters_dev ? *iters_dev : iters;
+  const int m = iters_dev ? *iters_dev : iters;
   float v = x[i];
-  for (int k = 0; k < m; ++k) v = __fmaf_rn(v, a, b);
+  for (int k = m / AFFINE_U; k > 0; --k) {
+#pragma unroll
+    for (int u = 0; u < AFFINE_U; ++u) v = __fmaf_rn(v, a, b);
+  }
+#pragma unroll 1
+  for (int k = m % AFFINE_U; k > 0; --k) v = __fmaf_rn(v, a, b);
   out[i] = v;
 }
 
@@ -481,10 +506,11 @@ __global__ void march_kernel(const float* __restrict__ T, int R, int W,
 // ---- row_gather_rounds: one block of 128 lanes; per round k, lane j's
 // row is ids = (base[j] + 7919 k) % rows (or & 0xFFFF); lanes j < n add
 // tab[ids, ids & 127] to a wrapping u32 checksum. MODE_IDS adds ids (no
-// load); MODE_DIRECT loads the word; MODE_STAGE copies the n demanded
-// 512-byte rows into shared memory and adds ids; MODE_STAGED copies them and
-// picks each lane's word from shared memory; MODE_STALE picks from the
-// zero-filled landing buffer without copying.
+// load); MODE_DIRECT loads the word (its own kernel, row_gather_direct,
+// below); MODE_STAGE copies the n demanded 512-byte rows into shared memory
+// and adds ids; MODE_STAGED copies them and picks each lane's word from
+// shared memory; MODE_STALE picks from the zero-filled landing buffer
+// without copying.
 //
 // The staged modes keep the probe's question (probes/probe_dmagather*.py:
 // one block, whole rows copied into fast memory each round, a round's
@@ -540,8 +566,6 @@ __global__ void __launch_bounds__(LANES)
     int ids = use_mask ? (v & 0xFFFF) : v % rows;
     if (MODE == MODE_IDS) {
       acc += uint32_t(ids);
-    } else if (MODE == MODE_DIRECT) {
-      if (j < n) acc += tab[(long long)ids * LANES + (ids & 127)];
     } else if (MODE == MODE_STALE) {
       acc += row[ids & 127];
     } else {
@@ -593,6 +617,71 @@ cudaError_t launch_rounds(const int* base, const uint32_t* tab, int rows, int us
   }
   row_gather_rounds_kernel<MODE, BY_WARP><<<1, LANES, smem, stream>>>(base, tab, rows, use_mask,
                                                                        n, rounds, out);
+  return cudaGetLastError();
+}
+
+// ---- row_gather_rounds' direct mode (dmagather3's word4): each lane j < n
+// adds its word of each round's row, tab[ids, ids & 127], loaded directly.
+//
+// What bounds it: one SM's rate to L2. The mode has no landing rows, so
+// nothing orders one round's load after the last: round k's row comes from
+// k alone, and the wrapping u32 sum is the same in any order. (The staged
+// modes above wait for a round's copies by the probe's rule: the next round
+// copies into the same rows.) A lane that waited for each word before it
+// loaded the next paid one L2 round trip a round; here a lane issues the
+// loads of DIRECT_INFLIGHT rounds together and then adds them, and a
+// remainder loop takes the rounds % DIRECT_INFLIGHT past them. Rows lie 512
+// bytes apart, so each word costs a 32-byte sector: at n = 128 a round
+// takes about 68 ns on an H100 80GB HBM3 (60 GB/s of sectors) whatever the
+// loads in flight; with fewer lanes (n 32, 8) the loads in flight set the
+// time, and 32 measured fastest of 1-32 (PERF.md). The row advances without a division: with the mask,
+// + 7919 & 0xFFFF (a sum modulo 2^16); else + 7919 % rows, brought back
+// below rows by one subtraction (the row and the step are both below rows),
+// from round 0's row base[j] % rows with Python's sign rule, as the plain
+// version takes it. Lanes j >= n load nothing.
+constexpr int DIRECT_INFLIGHT = 32;
+
+template <bool USE_MASK>
+__device__ __forceinline__ uint32_t next_row(uint32_t ids, uint32_t step, uint32_t rows) {
+  if (USE_MASK) return (ids + step) & 0xFFFFu;
+  ids += step;
+  return ids >= rows ? ids - rows : ids;
+}
+
+template <bool USE_MASK>
+__global__ void __launch_bounds__(LANES)
+    row_gather_direct_kernel(const int* __restrict__ base, const uint32_t* __restrict__ tab,
+                             int rows, int n, int rounds, uint32_t* __restrict__ out) {
+  const int j = threadIdx.x;
+  uint32_t acc = 0u;
+  if (j < n) {
+    const uint32_t step = USE_MASK ? 7919u : uint32_t(7919 % rows);
+    uint32_t ids = USE_MASK ? uint32_t(base[j]) & 0xFFFFu : uint32_t(pymod(base[j], rows));
+    int k = 0;
+    for (; k + DIRECT_INFLIGHT <= rounds; k += DIRECT_INFLIGHT) {
+      uint32_t w[DIRECT_INFLIGHT];
+#pragma unroll
+      for (int u = 0; u < DIRECT_INFLIGHT; ++u) {
+        w[u] = tab[(long long)ids * LANES + (ids & 127u)];
+        ids = next_row<USE_MASK>(ids, step, uint32_t(rows));
+      }
+#pragma unroll
+      for (int u = 0; u < DIRECT_INFLIGHT; ++u) acc += w[u];
+    }
+    for (; k < rounds; ++k) {
+      acc += tab[(long long)ids * LANES + (ids & 127u)];
+      ids = next_row<USE_MASK>(ids, step, uint32_t(rows));
+    }
+  }
+  out[j] = acc;
+}
+
+cudaError_t launch_direct(const int* base, const uint32_t* tab, int rows, int use_mask, int n,
+                          int rounds, uint32_t* out, cudaStream_t stream) {
+  if (use_mask)
+    row_gather_direct_kernel<true><<<1, LANES, 0, stream>>>(base, tab, rows, n, rounds, out);
+  else
+    row_gather_direct_kernel<false><<<1, LANES, 0, stream>>>(base, tab, rows, n, rounds, out);
   return cudaGetLastError();
 }
 
@@ -755,7 +844,8 @@ extern "C" {
 int probe_affine_loop(const float* x, float* out, int n, int iters, const int* iters_dev,
                       float a, float b, int short_loop, cudaStream_t stream) {
   if (!short_loop) {
-    affine_loop_kernel<<<blocks(n), THREADS, 0, stream>>>(x, out, n, iters, iters_dev, a, b);
+    affine_loop_kernel<<<(n + AFFINE_THREADS - 1) / AFFINE_THREADS, AFFINE_THREADS, 0, stream>>>(
+        x, out, n, iters, iters_dev, a, b);
     return cudaGetLastError();
   }
   const int grid = blocks(n / 4 + n % 4);
@@ -834,7 +924,7 @@ int probe_row_gather_rounds(int mode, const int* base, const uint32_t* tab, int 
                             cudaStream_t stream) {
   switch (mode) {
     case MODE_IDS: return launch_rounds<MODE_IDS>(base, tab, rows, use_mask, n, rounds, out, stream);
-    case MODE_DIRECT: return launch_rounds<MODE_DIRECT>(base, tab, rows, use_mask, n, rounds, out, stream);
+    case MODE_DIRECT: return launch_direct(base, tab, rows, use_mask, n, rounds, out, stream);
     case MODE_STAGE: return launch_rounds<MODE_STAGE>(base, tab, rows, use_mask, n, rounds, out, stream);
     case MODE_STAGED: return launch_rounds<MODE_STAGED>(base, tab, rows, use_mask, n, rounds, out, stream);
     case MODE_STALE: return launch_rounds<MODE_STALE>(base, tab, rows, use_mask, n, rounds, out, stream);

@@ -10,7 +10,8 @@ families:
 
 - ``affine_loop``: ``iters`` steps of ``v = v * a + b`` with one rounding
   (as XLA computes the probes' ``x * 1.0000001 + 1e-6``), the trip count
-  from the host or read on the device;
+  from the host or read on the device (blocks of ``AFFINE_U`` steps written
+  out, then the rest);
 - ``gather``: ``T[r, c]`` with r and c each an index array, the output's
   row / column number, or (a 1-D table) ``T[r % mod]``, for up to
   ``GATHER_TABLES`` tables in one launch (one word a thread, or 4 in
@@ -22,7 +23,8 @@ families:
   blocks of ``CARRY_U`` steps) and Q6's march-like body;
 - ``row_gather_rounds``: the dmagather checksum, rows staged in shared
   memory (16-byte cp.async, each warp copying its own lanes' rows, or the
-  whole block a few rows) or words loaded directly;
+  whole block a few rows) or words loaded directly (``DIRECT_INFLIGHT``
+  rounds' loads in flight a lane);
 - ``index_copy``: transpose, row tiling, column roll, row broadcast, iota;
 - ``tea8``: 8 TEA rounds; ``row_scan``: cumsum along rows.
 
@@ -47,6 +49,7 @@ SOURCE = os.path.join(_build.CSRC, "probes.cu")
 f32, i32, i64 = torch.float32, torch.int32, torch.int64
 LANES = 128                 # row_gather_rounds: one block of 128 lanes, 512-byte rows
 BLOCK_COPY_MAX = 64         # csrc/probes.cu: up to this n the whole block copies the rows
+DIRECT_INFLIGHT = 32        # csrc/probes.cu: the direct mode's rounds in flight a lane
 ROUND_STEP = 7919           # the dmagather index stride per round
 ROW_GATHER_MODES = {"ids": 0, "direct": 1, "stage": 2, "staged": 3, "stale": 4}
 LCG_MODES = {"row": 0, "rc": 1, "flat": 2}
@@ -218,6 +221,7 @@ def affine_loop_plain(x, iters, a, b, iters_dev=None):
 
 
 SHORT_STEPS = 4   # csrc/probes.cu: the short kernel's longest loop
+AFFINE_U = 64     # csrc/probes.cu: the loop kernel's steps written out a block
 
 
 def affine_short(iters: int, x_ptr: int, out_ptr: int, dev_count: bool) -> bool:

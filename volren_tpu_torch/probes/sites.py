@@ -153,14 +153,31 @@ def _harness(ctx):
 
 
 # ---- index_copy
+Q3_OPS = (("transpose", 0), ("tile_rows", 4), ("roll_cols", 3), ("broadcast_row0", 3584),
+          ("iota_plus", 3584))
+
+
+def q3_library(x: torch.Tensor) -> dict:
+    """Q3's five ops as PyTorch calls, by op: six kernels in all (iota_plus
+    is an arange and an add), each bitwise ``index_copy_plain`` (float(i) is
+    exact below 2^24, and the add rounds once, as the kernel's does)."""
+    arg, w = dict(Q3_OPS), x.shape[1]
+    return {"transpose": lambda: x.t().contiguous(),
+            "tile_rows": lambda: x.repeat(arg["tile_rows"], 1),
+            "roll_cols": lambda: torch.roll(x, arg["roll_cols"], 1),
+            "broadcast_row0": lambda: x[0:1].expand(arg["broadcast_row0"], w).contiguous(),
+            "iota_plus": lambda: torch.arange(arg["iota_plus"], dtype=torch.float32,
+                                              device=x.device)[:, None].expand(-1, w) + x[0, 0]}
+
+
 def _q3(ctx):
     x = ctx.t(np.arange(8 * 128, dtype=np.float32).reshape(8, 128))
-    ops = (("transpose", 0), ("tile_rows", 4), ("roll_cols", 3), ("broadcast_row0", 3584),
-           ("iota_plus", 3584))
-    outs = [K.index_copy_plain(x, op, arg) for op, arg in ops]
-    return Case(lambda: tuple(K.index_copy(x, op, arg) for op, arg in ops),
-                lambda: tuple(K.index_copy_plain(x, op, arg) for op, arg in ops), None,
-                len(ops) * _nbytes(x) + _nbytes(*outs), outs[-1].numel())
+    outs = [K.index_copy_plain(x, op, arg) for op, arg in Q3_OPS]
+    calls = q3_library(x)
+    return Case(lambda: tuple(K.index_copy(x, op, arg) for op, arg in Q3_OPS),
+                lambda: tuple(K.index_copy_plain(x, op, arg) for op, arg in Q3_OPS),
+                lambda: tuple(calls[op]() for op, _ in Q3_OPS),
+                len(Q3_OPS) * _nbytes(x) + _nbytes(*outs), outs[-1].numel(), library_calls=6)
 
 
 def _w4(ctx):

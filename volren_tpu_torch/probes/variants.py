@@ -30,6 +30,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 
 import torch
 
@@ -124,7 +125,7 @@ def patched_source(name: str) -> str:
 
 def _build_lib(name: str, source: str) -> str:
     os.makedirs(OUT_DIR, exist_ok=True)
-    stem = name.replace(" ", "_")
+    stem = re.sub(r"[^A-Za-z0-9_.-]", "_", name)   # nvcc's fatbinary refuses a "," in a path
     path = os.path.join(OUT_DIR, f"{stem}.cu")
     with open(path, "w") as f:
         f.write(source)
