@@ -49,8 +49,11 @@ of which raises on failure (exit code non-zero, no result line):
    Q3's five ops, 31 rounds against their six PyTorch calls);
    the gather's plan and carry30's pipeline, lcg_gather_sum's loads in
    flight a lane (from the built library), the staged rounds' and the
-   direct mode's design and the affine loop kernel's blocks of steps, each
-   with ptxas's registers;
+   direct mode's design, the affine loop kernel's blocks of steps, the
+   march's thread a (row, column) and index_copy's plan at Q3's shapes,
+   each with ptxas's registers; Q6's chain floor (a step's time on one
+   warp alone, 64 -> 512 steps, times Q6's 64 steps, plus P0's time)
+   beside its bound;
    the transpose of an 8192 x 8192 f32 array held bitwise to t.t() and
    timed in turns with .t().contiguous() beside its bound by bytes;
    then the entry point python -m volren_tpu_torch.probes, run in-process
@@ -1043,9 +1046,9 @@ def main(argv=None) -> int:
     from volren_tpu_torch.measure import PEAK_BYTES_S, kernel_bound, path_renderer
     from volren_tpu_torch.ops.kernels import megakernel, oracle
     from volren_tpu_torch.ops.kernels import probes as probe_kernels
-    from volren_tpu_torch.probes import probe_pallas3
+    from volren_tpu_torch.probes import probe_pallas2, probe_pallas3
     from volren_tpu_torch.probes._common import Context, interleaved_ms
-    from volren_tpu_torch.probes.sites import SITES
+    from volren_tpu_torch.probes.sites import Q3_OPS, SITES
     from volren_tpu_torch.renderer import DISPATCH_SPP
     from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params
     from volren_tpu_torch.scene.environment import Environment, procedural_sky
@@ -1337,6 +1340,17 @@ def main(argv=None) -> int:
           f"exact multiply-high division, "
           f"{probe_kernels.lcg_threads(1024 * probe_kernels.CARRY_PARTS, n_sms)}-thread blocks at "
           f"1024 lanes; ptxas {registers('carry30')}", flush=True)
+    m_threads, m_grid = probe_kernels.march_plan(128, n_sms)
+    print(f"march (Q6): one thread a (row, column), each running its column's row-0 chain, "
+          f"{probe_kernels.MARCH_COLS} columns a warp, {m_grid} blocks of {m_threads} threads "
+          f"at W 128 on {n_sms} SMs, 0.5 + jitter from the LCG's bits (no conversion), the "
+          f"clamp one VIMNMX.RELU; ptxas {registers('march')}", flush=True)
+    q3_plans = {op: probe_kernels.index_copy_args(8, 128, op, arg, 0, n_sms)[5]
+                for op, arg in Q3_OPS[1:]}
+    print(f"index_copy (Q3 but the transpose): the op a template argument, 4 words of `per` "
+          f"rows a thread and no division (a 4-word segment with 16-byte stores where the row "
+          f"is whole quads; a roll's 4 words a block's width apart), (tx, ty, gx, gy, per) at "
+          f"Q3's shapes {q3_plans}; ptxas {registers('index_copy')}", flush=True)
     for site in SITES:
         case = site.make(ctx)
         before = probe_launches()
@@ -1368,6 +1382,15 @@ def main(argv=None) -> int:
         if case.library and case.library_calls != 1:
             record[site.name]["library_calls"] = case.library_calls
         del case
+    # Q6's chain floor: a step's latency on one warp alone, times Q6's steps,
+    # plus the launch floor (P0's time in this run)
+    step_ms = probe_pallas2.q6_step_ms(ctx)
+    q6_rec, p0_ms = record["probe_Q6"], record["probe_P0"]["ms"]
+    q6_rec["chain_floor_ms"] = probe_pallas2.Q6_ITERS * step_ms + p0_ms
+    print(f"march (Q6) chain floor: a step on one warp {step_ms * 1e6!r} ns (64 -> 512 steps, "
+          f"median of 5) x {probe_pallas2.Q6_ITERS} steps + the launch floor (P0, {p0_ms!r} ms) "
+          f"= {q6_rec['chain_floor_ms']!r} ms; the kernel {q6_rec['ms']!r} ms, its bound "
+          f"{q6_rec['bound_ms']!r} ms by {q6_rec['bound_by']} on {gpu_line}", flush=True)
     # the transpose where its bytes, not its launch, set the time
     big = torch.rand(probe_pallas3.BIG, probe_pallas3.BIG, device=dev)
     if not torch.equal(probe_kernels.index_copy(big, "transpose"), big.t()):
@@ -1428,7 +1451,9 @@ def main(argv=None) -> int:
     # the oracle's: ms a pass of its launch, the bound's share, what plain_ms traced
     # the harness's library_ms: two PyTorch calls (library_calls), as no one call gathers
     # two tables
-    extra = ("ms_per_pass", "passes_per_launch", "share", "plain_of", "library_calls")
+    # Q6's: chain_floor_ms, the latency floor beside its bound
+    extra = ("ms_per_pass", "passes_per_launch", "share", "plain_of", "library_calls",
+             "chain_floor_ms")
     print(gpu_line)
     print(json.dumps({"kernels": [{k: entry[k] for k in keys + extra if k in keys or k in entry}
                                   for entry in kernels]}))

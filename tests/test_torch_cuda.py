@@ -597,6 +597,71 @@ def test_probe_carry30_matches_plain_version_at_ragged_steps(lanes):
             assert got.is_cuda and torch.equal(got, want), (shape, iters)
 
 
+MARCH_WIDTHS = (1, 3, 127, 129, 1000)
+MARCH_STEPS = (0, 1, 63, 64, 65, 1000)
+MARCH_ROWS = (1, 17, 4096)
+
+
+@pytest.mark.parametrize("w", MARCH_WIDTHS)
+def test_probe_march_matches_plain_version_at_ragged_shapes(w):
+    """The march kernel (one thread a (row, column), march_plan's grid) at
+    widths that fill no whole warp or block, at step counts around Q6's 64
+    and past it, on tables of 1, 17 and 4096 rows, from positions below 0
+    and above R / 16 (both clamps bind), bitwise."""
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    rng = np.random.default_rng(29 + w)
+    for rows_t in MARCH_ROWS:
+        t, x, s = (torch.from_numpy(a).to(dev) for a in (
+            rng.random((rows_t, w), np.float32),
+            (rng.random((8, w)) * (rows_t / 16 + 2) - 1).astype(np.float32),
+            rng.integers(0, 2 ** 32, (8, w), dtype=np.uint32).astype(np.int64)))
+        # row 0's position picks the cell: column 0 below 0, then past R / 16
+        for pos0 in (-0.5, rows_t / 16 + 0.5):
+            x[0, 0] = pos0
+            for iters in MARCH_STEPS:
+                before = K.march.launches
+                got = K.march(t, x, s, iters)
+                assert K.march.launches == before + 1
+                want = K.march_plain(t, x, s, iters)
+                assert got.is_cuda and torch.equal(got, want), (rows_t, pos0, iters)
+
+
+IC_WIDTHS = (1, 3, 5, 127, 128, 129)
+IC_CASES = [(op, kind) for op in ("tile_rows", "roll_cols", "broadcast_row0", "iota_plus")
+            for kind in ("f32", "i32") if (op, kind) != ("iota_plus", "i32")]
+
+
+@pytest.mark.parametrize("op,kind", IC_CASES, ids=[f"{op}-{kind}" for op, kind in IC_CASES])
+def test_probe_index_copy_matches_plain_version_at_ragged_shapes(op, kind):
+    """Q3's index_copy ops (index_copy_plan's segments, 16-byte stores where
+    the row is whole quads, word stores otherwise) at ragged widths, one and
+    three rows, tile counts 1-5, roll shifts negative and past W, up to
+    3584 rows, from an aligned array and from views 4 bytes past a 16-byte
+    boundary, bitwise."""
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    rng = np.random.default_rng(31)
+    args = {"tile_rows": (1, 2, 3, 4, 5), "broadcast_row0": (1, 37, 3584),
+            "iota_plus": (1, 37, 3584)}
+    for w in IC_WIDTHS:
+        for h in (1, 3):
+            a = (rng.random(h * w + 1).astype(np.float32) if kind == "f32" else
+                 rng.integers(-2 ** 31, 2 ** 31, h * w + 1).astype(np.int32))
+            flat = torch.from_numpy(a).to(dev)
+            aligned, unaligned = flat[:-1].view(h, w), flat[1:].view(h, w)
+            assert aligned.data_ptr() % 16 == 0 and unaligned.data_ptr() % 16 == 4
+            for x in (aligned, unaligned):
+                for arg in args.get(op, (3, -1, -w - 2, w, w + 3, 2 * w + 1)):
+                    before = K.index_copy.launches
+                    got = K.index_copy(x, op, arg)
+                    assert K.index_copy.launches == before + 1
+                    want = K.index_copy_plain(x, op, arg)
+                    assert got.is_cuda and torch.equal(got, want), (w, h, x.data_ptr() % 16, arg)
+
+
 def test_probe_row_scan_matches_cumsum():
     from volren_tpu_torch.ops.kernels import probes as K
 

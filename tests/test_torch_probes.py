@@ -446,6 +446,94 @@ def test_q3_pytorch_calls_are_the_plain_version(seed):
     assert all(torch.equal(a, b) for a, b in zip(case.library(), case.plain()))
 
 
+Q3_PLAN_SHAPES = ((1, 1), (1, 3), (1, 5), (3, 127), (8, 128), (5, 129), (3584, 128),
+                  (300, 1000), (2, 4096))
+
+
+def _replay_index_copy_plan(oh, ow, vec, plan, roll=False):
+    """(row, column) of every word the index_copy kernel's threads store
+    (csrc/probes.cu: index_copy_kernel's index arithmetic, written out for
+    every thread of the plan): a 4-word segment a thread, or for a roll 4
+    words tx apart, in each of ``per`` rows."""
+    tx, ty, gx, gy, per = plan
+    bx, by, ix, iy, k, e = np.meshgrid(np.arange(gx), np.arange(gy), np.arange(tx),
+                                       np.arange(ty), np.arange(per), np.arange(4),
+                                       indexing="ij")
+    r = by * ty * per + iy + k * ty
+    if roll:
+        c = 4 * bx * tx + ix + e * tx
+        live = c < ow
+    else:
+        seg = 4 * (bx * tx + ix)
+        c = seg + e
+        live = (seg < ow) & (vec | (c < ow))
+    live &= r < oh
+    return r[live], c[live]
+
+
+@pytest.mark.parametrize("roll", [False, True], ids=["segments", "roll"])
+@pytest.mark.parametrize("n_sms", [1, 132])
+@pytest.mark.parametrize("oh,ow", Q3_PLAN_SHAPES)
+def test_index_copy_plan_writes_every_word_once(oh, ow, n_sms, roll):
+    """Q3's plan (index_copy_plan: 4 words of ``per`` rows a thread): every
+    output word is written by exactly one thread, on the 16-byte path (ow %
+    4 == 0) each segment lies wholly inside its row, a block has at most
+    IC_THREADS threads and the grid fits CUDA's second axis."""
+    vec = not roll and ow % 4 == 0
+    plan = K.index_copy_plan(oh, ow, n_sms)
+    tx, ty, gx, gy, per = plan
+    assert tx * ty == K.IC_THREADS and gy <= K.MAX_GRID_Y and per >= 1
+    r, c = _replay_index_copy_plan(oh, ow, vec, plan, roll)
+    words = np.zeros((oh, ow + 3), np.int64)
+    np.add.at(words, (r, c), 1)
+    assert (words[:, :ow] == 1).all() and (words[:, ow:] == 0).all()
+    if oh * ow >= 128 * 4 * K.IC_THREADS:   # enough work: about IC_BLOCKS_PER_SM blocks an SM
+        assert gx * gy <= n_sms * K.IC_BLOCKS_PER_SM + gx
+
+
+def _replay_index_copy(x: np.ndarray, op: str, arg: int, ptr: int, n_sms: int) -> np.ndarray:
+    """The index_copy kernel on a contiguous x, in numpy: the launch
+    arguments of index_copy_args and, for each word stored, the word the
+    kernel's op reads (the roll's source column by one conditional
+    subtraction), stored where it stores it."""
+    h, w = x.shape
+    oh, ow, back, vec, load_vec, plan = K.index_copy_args(h, w, op, arg, ptr, n_sms)
+    assert load_vec == (vec and ptr % 16 == 0) and vec == (op != "roll_cols" and ow % 4 == 0)
+    flat = x.reshape(-1)
+    out = np.full(oh * ow, -1, x.dtype)
+    r, c = _replay_index_copy_plan(oh, ow, vec, plan, op == "roll_cols")
+    if op in ("tile_rows", "broadcast_row0"):
+        v = flat[c]
+    elif op == "roll_cols":
+        s = c + back
+        s = np.where(s >= w, s - w, s)
+        assert (s >= 0).all() and (s < w).all()
+        v = flat[r * w + s]
+    else:
+        v = r.astype(np.int32).astype(np.float32) + flat[0]
+    out[r * ow + c] = v
+    return out.reshape(oh * ow // w if op == "tile_rows" else oh, -1)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 3), (3, 5), (8, 128), (2, 127), (1, 129)])
+def test_index_copy_arguments_reproduce_the_plain_version(h, w, dtype):
+    """What the wrapper gives the kernel (index_copy_args), replayed: every
+    op at ragged shapes, tile counts 1-5, roll shifts negative and past W,
+    an aligned and an unaligned x, equals index_copy_plain bitwise."""
+    x = np.random.default_rng(h * 1000 + w).integers(-2 ** 20, 2 ** 20, (h, w)).astype(dtype)
+    cases = [("tile_rows", n) for n in range(1, 6)]
+    cases += [("roll_cols", s) for s in (3, -1, -w - 2, w, w + 3, 2 * w + 1)]
+    cases += [("broadcast_row0", n) for n in (1, 3, 37)]
+    if dtype == np.float32:
+        cases += [("iota_plus", n) for n in (1, 5, 300)]
+    for op, arg in cases:
+        want = K.index_copy_plain(_t(x), op, arg).numpy()
+        for ptr in (0, 4):
+            got = _replay_index_copy(x, op, arg, ptr, 132)
+            assert got.dtype == want.dtype and np.array_equal(got, want), (op, arg, ptr)
+
+
 def test_w4_transpose_matches_pallas(probe):
     mod, pulled = probe("probe_pallas3")
     with _interpret():
@@ -767,6 +855,8 @@ def test_schedule_constants_are_the_kernels():
     assert f"constexpr int CARRY_U = {K.CARRY_U};" in src
     assert f"constexpr int CARRY_PARTS = {K.CARRY_PARTS};" in src
     assert f"constexpr int GATHER_TABLES = {K.GATHER_TABLES};" in src
+    assert f"constexpr int Q6_ROWS = {K.Q6_ROWS}, MARCH_COLS = {K.MARCH_COLS};" in src
+    assert f"constexpr int IC_THREADS = {K.IC_THREADS};" in src
 
 
 @pytest.mark.parametrize("mangled,name", [
@@ -777,7 +867,9 @@ def test_schedule_constants_are_the_kernels():
     ("_ZN12_GLOBAL__N_113gather_kernelILi2ELi1ELb0ELb1EEEvNS_10GatherArgsE", "gather<2,1,0,1>"),
     ("_ZN12_GLOBAL__N_118affine_loop_kernelEPKfPfiiPKiff", "affine_loop"),
     ("_ZN12_GLOBAL__N_124row_gather_direct_kernelILb0EEEvPKiPKjiiiPj", "row_gather_direct<0>"),
-    ("_ZN12_GLOBAL__N_124row_gather_direct_kernelILb1EEEvPKiPKjiiiPj", "row_gather_direct<1>")])
+    ("_ZN12_GLOBAL__N_124row_gather_direct_kernelILb1EEEvPKiPKjiiiPj", "row_gather_direct<1>"),
+    ("_ZN12_GLOBAL__N_117index_copy_kernelILi3ELb1EEEvPKjiiiiPjii", "index_copy<3,1>"),
+    ("_ZN12_GLOBAL__N_112march_kernelEPKfiiS1_PKjiffffPf", "march")])
 def test_kernel_names_carry_every_template_argument(mangled, name):
     assert K._kernel_name(mangled) == name
 
@@ -931,6 +1023,84 @@ def test_q6_march_matches_the_kernel_body():
     want = np.asarray(q6_body(jnp.asarray(t), jnp.asarray(x), jnp.asarray(s)))
     got = K.march(_t(t), _t(x), _t(s.astype(np.int64)), 64).numpy()
     assert np.array_equal(got, want)
+
+
+def test_q6_jitter_from_bits_is_the_conversion():
+    """The march kernel's 0.5 + jitter without a conversion: for every m =
+    rs >> 9 < 2^23, bits(0x3F800000 | m) - 0.5 equals 0.5 + float(m) *
+    2^-23 in float32, bitwise."""
+    m = np.arange(1 << 23, dtype=np.uint32)
+    want = np.float32(0.5) + m.astype(np.float32) * np.float32(1.0 / 8388608.0)
+    got = (np.uint32(0x3F800000) | m).view(np.float32) - np.float32(0.5)
+    assert want.dtype == got.dtype == np.float32
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n_sms", [1, 132])
+@pytest.mark.parametrize("w", [1, 3, 127, 128, 129, 1000])
+def test_march_plan_covers_every_row_and_column_once(w, n_sms):
+    """march_plan's grid, thread t on row t % 8 of column t // 8: every
+    (row, column) of the (8, W) block exactly once, whole warps of
+    MARCH_COLS columns, MARCH_WARPS warps a block where the columns fill
+    them, and at most one block an SM unless a block is full."""
+    threads, grid = K.march_plan(w, n_sms)
+    warps_needed = -(-w // K.MARCH_COLS)
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    assert grid <= n_sms or threads == 1024
+    assert threads >= 32 * min(K.MARCH_WARPS, warps_needed)
+    assert threads <= 32 * K.MARCH_WARPS or warps_needed > n_sms * threads // 64
+    t = np.arange(threads * grid)
+    i, j = t % K.Q6_ROWS, t // K.Q6_ROWS
+    live = j < w
+    seen = np.zeros((K.Q6_ROWS, w), np.int64)
+    np.add.at(seen, (i[live], j[live]), 1)
+    assert (seen == 1).all()
+    assert K.Q6_ROWS * K.MARCH_COLS == 32
+
+
+def _replay_march(table, x, s, iters):
+    """The march kernel's arithmetic, one (row, column) a thread as
+    march_plan places them: each thread's own row-0 chain, one vel for all
+    rows, 0.5 + jitter from the bits, the clamp as max(min(cell, R - 1), 0)."""
+    rows_t, w = table.shape
+    threads, grid = K.march_plan(w, 132)
+    t = torch.arange(threads * grid)
+    i, j = t % K.Q6_ROWS, t // K.Q6_ROWS
+    i, j = i[j < w], j[j < w]
+    f = torch.float32
+    near, far, half = (torch.tensor(float(v), dtype=f) for v in (K.S_NEAR, K.S_FAR, 0.5))
+
+    def half_plus_jitter(r):
+        return (0x3F800000 | (r >> 9)).to(torch.int32).view(f) - half
+
+    p0, p, r0, r = x[0, j], x[i, j], s[0, j], s[i, j]
+    vel = torch.full_like(p, float(K.VEL0))
+    for _ in range(iters):
+        r0, r = K.lcg32(r0), K.lcg32(r)
+        h0, h = half_plus_jitter(r0), half_plus_jitter(r)
+        cell = (p0 * 16.0).to(torch.int32).clamp(max=rows_t - 1).clamp(min=0).long()
+        base = torch.where(table[cell, j] > 0.5, near, far)
+        p0 = K.fma32(vel, base * h0, p0)
+        p = K.fma32(vel, base * h, p)
+        vel = vel * torch.tensor(float(K.DECAY), dtype=f)
+    out = torch.empty_like(x)
+    out[i, j] = p + vel
+    return out
+
+
+@pytest.mark.parametrize("iters", [0, 1, 65])
+@pytest.mark.parametrize("rows_t,w", [(1, 3), (17, 37), (4096, 129)])
+def test_march_kernel_arithmetic_is_the_plain_version(rows_t, w, iters):
+    """The kernel's arithmetic (_replay_march) bitwise march_plain, with
+    positions below 0 and above R / 16, so that both clamps bind."""
+    rng = np.random.default_rng(rows_t + w)
+    table = _t(rng.random((rows_t, w), np.float32))
+    x = _t((rng.random((8, w)) * (rows_t / 16 + 2) - 1).astype(np.float32))
+    x[0, 0], x[0, -1] = -0.5, rows_t / 16 + 0.5   # row 0 picks the cell
+    s = _t(rng.integers(0, 2 ** 32, (8, w), dtype=np.uint32).astype(np.int64))
+    want = K.march_plain(table, x, s, iters)
+    assert torch.equal(_replay_march(table, x, s, iters), want)
+    assert torch.equal(K.march(table, x, s, iters), want)
 
 
 def test_q6_stage_fails_as_recorded_on_the_tpu(probe):

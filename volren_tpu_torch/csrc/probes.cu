@@ -464,43 +464,63 @@ __global__ void carry30_kernel(const float* __restrict__ T, int C, Divisor dr, D
   if (q == 0 && k < n_lanes) out[k] = acc;
 }
 
-// ---- carry_loop, Q6: the march-like body on an (8, W) lane block, one
-// thread per column. Per step: LCG jitter per lane; the majorant
+// ---- carry_loop, Q6 (probes/probe_pallas2.py:385): the march-like body on
+// an (8, W) lane block. Per step: LCG jitter per lane; the majorant
 // maj = T[cell, j] with the cell of row 0 (clip(int(pos[0] * 16), 0, R-1))
 // for all 8 rows; step = (maj > 0.5 ? s_near : s_far) * (0.5 + jitter);
 // pos = fma(vel, step, pos); vel *= decay. Writes pos + vel.
-constexpr int Q6_ROWS = 8;
+//
+// What bounds it: row 0's chain. A step's cell comes from row 0's position,
+// which the last step moved, so each step waits for FMUL, F2I, the clamp,
+// the address, the load and the select before its FFMA; the time per step
+// is the probe's answer. One thread carries one (row, column): every thread
+// of column j runs the column's row-0 chain itself (the same operations, so
+// bitwise the same) and, in row i > 0, row i beside it; the 8 lanes of a
+// column load one address. A warp holds MARCH_COLS columns x 8 rows, and
+// the wrapper's march_plan puts 4 warps in a block, one for each of an SM's
+// schedulers (8 blocks at Q6's W 128; 32 one-warp blocks measured 2%
+// slower), more only where the grid would outnumber the SMs.
+// Nothing else is on the chain: vel is one value for every row (each starts
+// at vel0 and decays alike), and 0.5 + jitter = 0.5 + (rs >> 9) * 2^-23 is
+// built from its bits: __uint_as_float(0x3F800000 | m) - 0.5 equals it
+// bitwise for m < 2^23 (1 + m 2^-23 and the result, in [0.5, 1.5), are
+// exact), with no conversion. Measured on an H100 80GB HBM3 (PERF.md), a
+// step takes about 96 cycles on one warp alone; both candidate steps formed
+// before the load (ptxas makes them a predicated multiply after it), the
+// clamp as two VIMNMX, the address as T[cell * W + j], and all 1,024
+// threads on one SM each measured slower.
+constexpr int Q6_ROWS = 8, MARCH_COLS = 4;
+
+__device__ __forceinline__ float half_plus_jitter(uint32_t rs) {
+  return __fsub_rn(__uint_as_float(0x3F800000u | (rs >> 9)), 0.5f);
+}
 
 __global__ void march_kernel(const float* __restrict__ T, int R, int W,
                              const float* __restrict__ x, const uint32_t* __restrict__ s0,
                              int iters, float vel0, float s_near, float s_far, float decay,
                              float* __restrict__ out) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = t % Q6_ROWS, j = t / Q6_ROWS;
   if (j >= W) return;
-  float pos[Q6_ROWS], vel[Q6_ROWS];
-  uint32_t rs[Q6_ROWS];
-#pragma unroll
-  for (int i = 0; i < Q6_ROWS; ++i) {
-    pos[i] = x[i * W + j];
-    vel[i] = vel0;
-    rs[i] = s0[i * W + j];
-  }
+  // the column's words, W apart: one wide multiply-add from the cell to the address
+  const char* const col = reinterpret_cast<const char*>(T + j);
+  const unsigned row_bytes = 4u * unsigned(W);
+  float p0 = x[j], p = x[i * W + j], vel = vel0;
+  uint32_t r0 = s0[j], r = s0[i * W + j];
   for (int it = 0; it < iters; ++it) {
-    int cell = __float2int_rz(__fmul_rn(pos[0], 16.0f));
-    cell = min(max(cell, 0), R - 1);
-    float maj = T[cell * W + j];
-    float base = maj > 0.5f ? s_near : s_far;
-#pragma unroll
-    for (int i = 0; i < Q6_ROWS; ++i) {
-      rs[i] = lcg(rs[i]);
-      float jitter = __fmul_rn(__uint2float_rn(rs[i] >> 9), 1.0f / 8388608.0f);
-      float step = __fmul_rn(base, __fadd_rn(0.5f, jitter));
-      pos[i] = __fmaf_rn(vel[i], step, pos[i]);
-      vel[i] = __fmul_rn(vel[i], decay);
-    }
+    r0 = lcg(r0);
+    r = lcg(r);
+    const float h0 = half_plus_jitter(r0), h = half_plus_jitter(r);
+    // clip(cell, 0, R - 1) as max(min(cell, R - 1), 0), one VIMNMX.RELU (R >= 1)
+    const int cell = __vimin_s32_relu(__float2int_rz(__fmul_rn(p0, 16.0f)), R - 1);
+    const float maj = __ldg(reinterpret_cast<const float*>(
+        col + (unsigned long long)unsigned(cell) * row_bytes));
+    const float base = maj > 0.5f ? s_near : s_far;
+    p0 = __fmaf_rn(vel, __fmul_rn(base, h0), p0);
+    p = __fmaf_rn(vel, __fmul_rn(base, h), p);
+    vel = __fmul_rn(vel, decay);
   }
-#pragma unroll
-  for (int i = 0; i < Q6_ROWS; ++i) out[i * W + j] = __fadd_rn(pos[i], vel[i]);
+  out[i * W + j] = __fadd_rn(p, vel);
 }
 
 // ---- row_gather_rounds: one block of 128 lanes; per round k, lane j's
@@ -685,28 +705,106 @@ cudaError_t launch_direct(const int* base, const uint32_t* tab, int rows, int us
   return cudaGetLastError();
 }
 
-// ---- index_copy: out (OH, OW) from x (H, W). TILE_ROWS: x[i % H, j];
-// ROLL_COLS: x[i, (j - param) mod W]; BROADCAST_ROW: x[param, j];
-// IOTA_PLUS: float(i) + x[0, 0] (f32). TRANSPOSE has its own kernel below.
+// ---- index_copy, Q3 (probes/probe_pallas2.py:192): out (OH, OW) from a
+// contiguous x whose rows are W words. BROADCAST_ROW: x[0, j] in every row;
+// TILE_ROWS: `arg` copies of x stacked on axis 0, which is x's H * W words
+// broadcast to `arg` rows of H * W (the wrapper passes that view, and it
+// runs the broadcast kernel); ROLL_COLS: x[i, (j - shift) mod W], read as
+// x[i, j + back] less W where that passes W, back = (-shift) mod W from the
+// wrapper (Python's sign rule); IOTA_PLUS: float(i) + x[0, 0] (f32).
+// TRANSPOSE has its own kernel below.
+//
+// What bounds it: the launch, and past a few hundred KiB the bytes written
+// (broadcast_row0 and iota_plus write 1.84 MB at Q3's shape: 0.55 us at
+// 3.35 TB/s). So a thread moves 4 words of a row in each of `per` rows, ty
+// rows apart, the op a template argument and no division: the words and the
+// first row come from the 2-D grid of gx x gy blocks of tx x ty threads
+// (the wrapper's index_copy_plan), a block covering 4 tx words of a row. A
+// broadcast or an iota thread moves one 4-word segment: it reads its
+// segment (the broadcast) or x[0, 0] (the iota) once, into registers,
+// before the rows. VEC (OW % 4 == 0; out is a fresh allocation) stores 16
+// bytes a segment; otherwise each word is stored after a bound check. The
+// broadcast loads its segment in one 16-byte load where x is 16-byte
+// aligned too (load_vec), else word by word. A roll thread moves words tx
+// apart, so that each of a warp's loads, from a shifted column, and each of
+// its stores covers consecutive words: 4-word segments with 16-byte stores
+// measured slower there than the one-word-a-thread kernel they replaced
+// (each load of a warp then spans 4 cache lines; PERF.md).
 constexpr int IC_TRANSPOSE = 0, IC_TILE_ROWS = 1, IC_ROLL_COLS = 2, IC_BROADCAST_ROW = 3,
               IC_IOTA_PLUS = 4;
+constexpr int IC_THREADS = 256;
 
-__global__ void index_copy_kernel(const uint32_t* __restrict__ x, int H, int W, int mode,
-                                  int param, uint32_t* __restrict__ out, int OH, int OW) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= OH * OW) return;
-  int i = k / OW, j = k % OW;
-  uint32_t v;
-  if (mode == IC_TILE_ROWS) {
-    v = x[(i % H) * W + j];
-  } else if (mode == IC_ROLL_COLS) {
-    v = x[i * W + pymod(j - param, W)];
-  } else if (mode == IC_BROADCAST_ROW) {
-    v = x[param * W + j];
-  } else {
-    v = __float_as_uint(__fadd_rn(__int2float_rn(i), __uint_as_float(x[0])));
+template <int OP, bool VEC>
+__global__ void __launch_bounds__(IC_THREADS)
+    index_copy_kernel(const uint32_t* __restrict__ x, int W, int back, int load_vec, int per,
+                      uint32_t* __restrict__ out, int OH, int OW) {
+  int r = blockIdx.y * blockDim.y * per + threadIdx.y;
+  if (r >= OH) return;
+  if (OP == IC_ROLL_COLS) {
+    const int c0 = 4 * blockIdx.x * blockDim.x + threadIdx.x;
+    for (int k = 0; k < per && r < OH; ++k, r += blockDim.y) {
+      const uint32_t* row = x + (long long)r * W;
+      uint32_t* dst = out + (long long)r * W;
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + e * blockDim.x;
+        int s = c + back;
+        if (s >= W) s -= W;
+        if (c < W) w[e] = row[s];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = c0 + e * blockDim.x;
+        if (c < W) dst[c] = w[e];
+      }
+    }
+    return;
   }
-  out[k] = v;
+  const int c = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (c >= OW) return;
+  const int n = VEC ? 4 : min(4, OW - c);   // the segment's words inside the row
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  float x0 = 0.0f;
+  if (OP == IC_BROADCAST_ROW) {
+    if (VEC && load_vec) {
+      v = *reinterpret_cast<const uint4*>(x + c);
+    } else {
+      v.x = x[c];
+      if (n > 1) v.y = x[c + 1];
+      if (n > 2) v.z = x[c + 2];
+      if (n > 3) v.w = x[c + 3];
+    }
+  } else {
+    x0 = __uint_as_float(x[0]);
+  }
+  for (int k = 0; k < per && r < OH; ++k, r += blockDim.y) {
+    if (OP == IC_IOTA_PLUS) {
+      const uint32_t f = __float_as_uint(__fadd_rn(__int2float_rn(r), x0));
+      v = make_uint4(f, f, f, f);
+    }
+    uint32_t* dst = out + (long long)r * OW + c;
+    if (VEC) {
+      *reinterpret_cast<uint4*>(dst) = v;
+    } else {
+      dst[0] = v.x;
+      if (n > 1) dst[1] = v.y;
+      if (n > 2) dst[2] = v.z;
+      if (n > 3) dst[3] = v.w;
+    }
+  }
+}
+
+template <int OP>
+cudaError_t launch_index_copy(bool vec, dim3 grid, dim3 block, cudaStream_t stream,
+                              const uint32_t* x, int W, int back, int load_vec, int per,
+                              uint32_t* out, int OH, int OW) {
+  if (vec)
+    index_copy_kernel<OP, true><<<grid, block, 0, stream>>>(x, W, back, load_vec, per, out, OH, OW);
+  else
+    index_copy_kernel<OP, false><<<grid, block, 0, stream>>>(x, W, back, load_vec, per, out, OH,
+                                                             OW);
+  return cudaGetLastError();
 }
 
 // ---- transpose, W4 (probes/probe_pallas3.py:271, o_ref[:] = t_ref[:].T at
@@ -911,11 +1009,15 @@ int probe_carry30(const float* T, int C, unsigned dr_d, unsigned dr_m, unsigned 
   return cudaGetLastError();
 }
 
+// the grid (threads a block, blocks) is the wrapper's march_plan
 int probe_march(const float* T, int R, int W, const float* x, const uint32_t* s0, int iters,
-                float vel0, float s_near, float s_far, float decay, float* out,
-                cudaStream_t stream) {
-  march_kernel<<<(W + 127) / 128, 128, 0, stream>>>(T, R, W, x, s0, iters, vel0, s_near, s_far,
-                                                     decay, out);
+                float vel0, float s_near, float s_far, float decay, int threads, int grid,
+                float* out, cudaStream_t stream) {
+  if (threads < 32 || threads > 1024 || threads % 32 ||
+      (long long)grid * threads < (long long)Q6_ROWS * W)
+    return int(cudaErrorInvalidValue);
+  march_kernel<<<grid, threads, 0, stream>>>(T, R, W, x, s0, iters, vel0, s_near, s_far, decay,
+                                             out);
   return cudaGetLastError();
 }
 
@@ -932,12 +1034,29 @@ int probe_row_gather_rounds(int mode, const int* base, const uint32_t* tab, int 
   }
 }
 
-int probe_index_copy(const uint32_t* x, int H, int W, int mode, int param, uint32_t* out,
-                     int OH, int OW, cudaStream_t stream) {
-  if (mode == IC_TRANSPOSE) return int(cudaErrorInvalidValue);  // probe_transpose
-  index_copy_kernel<<<blocks((long long)OH * OW), THREADS, 0, stream>>>(x, H, W, mode, param,
-                                                                         out, OH, OW);
-  return cudaGetLastError();
+// the plan (tx, ty, gx, gy, per), back, vec and load_vec are the wrapper's
+// index_copy_args; tile_rows passes x as one row of H * W words
+int probe_index_copy(const uint32_t* x, int W, int mode, int back, int vec, int load_vec,
+                     int per, int tx, int ty, int gx, int gy, uint32_t* out, int OH, int OW,
+                     cudaStream_t stream) {
+  if (tx * ty > IC_THREADS || (tx * ty) % 32 || per < 1 || (vec && OW % 4))
+    return int(cudaErrorInvalidValue);
+  const dim3 grid(gx, gy), block(tx, ty);
+  switch (mode) {
+    case IC_TILE_ROWS:
+    case IC_BROADCAST_ROW:
+      return int(launch_index_copy<IC_BROADCAST_ROW>(vec, grid, block, stream, x, W, back,
+                                                     load_vec, per, out, OH, OW));
+    case IC_ROLL_COLS:  // words tx apart, each stored alone (vec is 0)
+      index_copy_kernel<IC_ROLL_COLS, false><<<grid, block, 0, stream>>>(x, W, back, load_vec,
+                                                                          per, out, OH, OW);
+      return int(cudaGetLastError());
+    case IC_IOTA_PLUS:
+      return int(launch_index_copy<IC_IOTA_PLUS>(vec, grid, block, stream, x, W, back, load_vec,
+                                                 per, out, OH, OW));
+    default:  // IC_TRANSPOSE: probe_transpose
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 // the plan (vec, tile_rows, gx, gy) is the wrapper's transpose_plan

@@ -20,12 +20,15 @@ families:
   (exact multiply-high division, ``LCG_UNROLL`` loads in flight a lane);
 - ``carry30`` and ``march`` (the ``carry_loop`` family): X3's 30 carried
   values (split over ``CARRY_PARTS`` threads, a systolic pipeline over
-  blocks of ``CARRY_U`` steps) and Q6's march-like body;
+  blocks of ``CARRY_U`` steps) and Q6's march-like body (a thread a row
+  and column, each running its column's row-0 chain: ``march_plan``);
 - ``row_gather_rounds``: the dmagather checksum, rows staged in shared
   memory (16-byte cp.async, each warp copying its own lanes' rows, or the
   whole block a few rows) or words loaded directly (``DIRECT_INFLIGHT``
   rounds' loads in flight a lane);
-- ``index_copy``: transpose, row tiling, column roll, row broadcast, iota;
+- ``index_copy``: transpose (``transpose_plan``), row tiling, column roll,
+  row broadcast, iota (4 words of several rows a thread, the op a template
+  argument: ``index_copy_args``, ``index_copy_plan``);
 - ``tea8``: 8 TEA rounds; ``row_scan``: cumsum along rows.
 
 u32 values travel as int64 tensors holding [0, 2^32), as in ``ops/rng.py``;
@@ -114,9 +117,9 @@ def _lib() -> ctypes.CDLL:
                 "probe_lcg_gather_sum": [p, n, n, n, u, u, u, u, u, u, u, u, n, n, n, n,
                                          p, p],
                 "probe_carry30": [p, n, u, u, u, u, u, u, u, n, n, n, f, f, n, p, p],
-                "probe_march": [p, n, n, p, p, n, f, f, f, f, p, p],
+                "probe_march": [p, n, n, p, p, n, f, f, f, f, n, n, p, p],
                 "probe_row_gather_rounds": [n, p, p, n, n, n, n, p, p],
-                "probe_index_copy": [p, n, n, n, n, p, n, n, p],
+                "probe_index_copy": [p, n, n, n, n, n, n, n, n, n, n, p, n, n, p],
                 "probe_transpose": [p, n, n, ll, n, n, n, n, p, p],
                 "probe_tea8": [p, p, p, p, n, p],
                 "probe_row_scan": [p, p, n, n, p],
@@ -564,22 +567,48 @@ def march_plain(table, x, s, iters):
     return pos + vel
 
 
+Q6_ROWS = 8       # csrc/probes.cu: a march lane block's rows, one thread each
+MARCH_COLS = 4    # csrc/probes.cu: the columns a march warp holds (8 rows each)
+MARCH_WARPS = 4   # march_plan: the warps a march block holds at least, where the columns fill them
+
+
+def march_plan(w: int, n_sms: int) -> tuple[int, int]:
+    """(threads a block, blocks) of the march kernel for W columns: one
+    thread a (row, column), thread t holding row t % 8 of column t // 8, so
+    a warp holds MARCH_COLS columns. A block holds MARCH_WARPS warps (one
+    for each of an SM's 4 schedulers, so that each chain has its scheduler
+    to itself), or as many as the columns need if fewer, and twice as many
+    while the grid would hold more blocks than the card has SMs (up to
+    1,024 threads)."""
+    warps_needed = -(-w // MARCH_COLS)
+    warps = min(MARCH_WARPS, warps_needed)
+    while warps < 32 and -(-warps_needed // warps) > n_sms:
+        warps *= 2
+    return 32 * warps, max(1, -(-warps_needed // warps))
+
+
 def march(table: torch.Tensor, x: torch.Tensor, s: torch.Tensor, iters: int) -> torch.Tensor:
     """Q6: ``iters`` march-like steps of an (8, W) lane block (``x`` the
     float32 positions, ``s`` the u32 LCG states, int64 values or int32
     bits) against the (R, W)
     float32 majorant ``table``; every row reads the cell of row 0. Returns
     pos + vel."""
-    if tuple(x.shape) != (8, table.shape[1]) or tuple(s.shape) != tuple(x.shape):
+    if tuple(x.shape) != (Q6_ROWS, table.shape[1]) or tuple(s.shape) != tuple(x.shape):
         raise ValueError("march takes (8, W) lanes over an (R, W) table")
     if not _on_card(table):
         return march_plain(table, x, s, iters)
     _check(table, "table", (f32,))
     _check(x, "x", (f32,))
+    rows_t, w = table.shape
+    if table.numel() >= 2 ** 31 or rows_t == 0:
+        raise ValueError("the kernel takes a non-empty table of fewer than 2^31 words")
     sb = u32_bits(s)
     out = torch.empty_like(x)
-    _launch("probe_march", table.data_ptr(), table.shape[0], x.shape[1], x.data_ptr(),
-            sb.data_ptr(), int(iters), float(VEL0), float(S_NEAR), float(S_FAR), float(DECAY),
+    if w == 0:
+        return out
+    threads, grid = march_plan(w, _sm_count(table.device))
+    _launch("probe_march", table.data_ptr(), rows_t, w, x.data_ptr(), sb.data_ptr(), int(iters),
+            float(VEL0), float(S_NEAR), float(S_FAR), float(DECAY), threads, grid,
             out.data_ptr(), device=table.device)
     march.launches += 1
     return out
@@ -721,6 +750,41 @@ def _transpose(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+IC_THREADS = 256        # csrc/probes.cu: an index_copy block's threads
+IC_BLOCKS_PER_SM = 1    # index_copy_plan: the blocks a grid aims at for each SM
+
+
+def index_copy_plan(oh: int, ow: int, n_sms: int) -> tuple[int, int, int, int, int]:
+    """(tx, ty, gx, gy, per) of the index_copy kernel for an (oh, ow)
+    output: a thread moves 4 words of a row (one 4-word segment, or for a
+    roll 4 words tx apart) in each of ``per`` rows, ty rows apart; a block
+    is tx threads across (a warp where a row has 32 segments, else the
+    power of two that covers them) by ty rows, IC_THREADS threads, and
+    covers 4 tx words of a row; the grid is gx blocks across by gy down. A
+    thread takes as many rows as bring the grid to about IC_BLOCKS_PER_SM
+    blocks an SM (and gy within MAX_GRID_Y)."""
+    seg = -(-ow // 4)
+    tx = min(32, 1 << max(0, seg - 1).bit_length())
+    ty = IC_THREADS // tx
+    gx, bands = -(-seg // tx), -(-oh // ty)
+    per = max(1, -(-bands * gx // (n_sms * IC_BLOCKS_PER_SM)), -(-bands // MAX_GRID_Y))
+    return tx, ty, gx, -(-bands // per), per
+
+
+def index_copy_args(h: int, w: int, op: str, arg: int, ptr: int, n_sms: int):
+    """What the index_copy kernel is given for ``op`` on a contiguous (h, w)
+    array at address ``ptr`` whose output is not empty: (oh, ow, back, vec,
+    load_vec, plan). tile_rows runs as a broadcast of x's h * w words to
+    ``arg`` rows; back = (-shift) mod w (Python's sign rule), the offset of a
+    roll's source column; vec: 16-byte stores (ow % 4 == 0, not a roll);
+    load_vec: and a broadcast's 16-byte load (x 16-byte aligned); plan:
+    index_copy_plan."""
+    oh, ow = (arg, h * w) if op == "tile_rows" else (h, w) if op == "roll_cols" else (arg, w)
+    back = (-arg) % w if op == "roll_cols" else 0
+    vec = op != "roll_cols" and ow % 4 == 0
+    return oh, ow, back, vec, vec and ptr % 16 == 0, index_copy_plan(oh, ow, n_sms)
+
+
 def index_copy(x: torch.Tensor, op: str, arg: int = 0) -> torch.Tensor:
     """Data movement of a 2-D float32 / int32 array: "transpose"; "tile_rows"
     (``arg`` copies stacked on axis 0, as pltpu.repeat); "roll_cols" (by
@@ -739,13 +803,17 @@ def index_copy(x: torch.Tensor, op: str, arg: int = 0) -> torch.Tensor:
     if op == "transpose":
         return _transpose(x)
     _check(x, "x", (f32, i32))
+    h, w = x.shape
     oh, ow = _index_copy_shape(x, op, arg)
-    if oh * ow >= 2 ** 31:
-        raise ValueError("the kernel indexes the output with 32-bit integers")
+    if oh * ow >= 2 ** 31 or h * w >= 2 ** 31:
+        raise ValueError("the kernel indexes the arrays with 32-bit integers")
     out = torch.empty(oh, ow, dtype=x.dtype, device=x.device)
-    param = arg if op == "roll_cols" else 0
-    _launch("probe_index_copy", x.data_ptr(), x.shape[0], x.shape[1], INDEX_COPY_OPS[op], param,
-            out.data_ptr(), oh, ow, device=x.device)
+    if out.numel() == 0:
+        return out
+    oh, ow, back, vec, load_vec, (tx, ty, gx, gy, per) = index_copy_args(
+        h, w, op, arg, x.data_ptr(), _sm_count(x.device))
+    _launch("probe_index_copy", x.data_ptr(), w, INDEX_COPY_OPS[op], back, int(vec),
+            int(load_vec), per, tx, ty, gx, gy, out.data_ptr(), oh, ow, device=x.device)
     index_copy.launches += 1
     return out
 

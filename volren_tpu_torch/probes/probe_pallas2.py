@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import probes as K
-from ._common import Context, require
+from ._common import Context, marginal, require
 
 PROBE, KEY = "pallas2", "stage"
 ATLAS_R = 3584
@@ -132,6 +132,17 @@ def q6_inputs(ctx: Context):
     x = ctx.t(np.random.default_rng(4).random((8, 128)).astype(np.float32))
     s = ctx.t(np.random.default_rng(5).integers(0, 2 ** 32, (8, 128), dtype=np.uint32))
     return t, x, s
+
+
+def q6_step_ms(ctx: Context) -> float:
+    """ms of one step of Q6's chain on one warp alone (Q6's first
+    MARCH_COLS columns: march_plan gives them one 32-thread block): the
+    median of 5 marginals between 64 and 512 steps, which cancel the
+    launch. Times the card."""
+    t, x, s = q6_inputs(ctx)
+    t, x, s = (a[:, :K.MARCH_COLS].contiguous() for a in (t, x, K.u32_bits(s)))
+    return float(np.median([marginal(ctx, lambda n: K.march(t, x, s, n), 64, 512, reps=20)[2]
+                            for _ in range(5)]))
 
 
 def q6(ctx: Context):
