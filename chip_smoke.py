@@ -9,7 +9,10 @@ of which raises on failure (exit code non-zero, no result line):
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
 2. build: the CUDA megakernel, its four <USE_TF, HAS_EMI> instantiations
-   (and their STATS twins), the probe kernels and the oracle engine's
+   on the float32 tables and, for each, its three packed ones (<MIP_U8>,
+   <RGBE>, <MIP_U8, RGBE>: the u8 majorant pyramid, the RGBE environment
+   and NEE pool; all with their STATS twins), the probe kernels and the
+   oracle engine's
    eight <USE_DDA, USE_TF, HAS_EMI> instantiations, compiled with nvcc for
    sm_90a from volren_tpu_torch/csrc into build/ (one nvcc per source, in
    parallel), with ptxas's registers, stack and spill of each;
@@ -22,20 +25,35 @@ of which raises on failure (exit code non-zero, no result line):
    built to round as the plain version does, so the bar is bitwise
    equality, and two runs must be bitwise identical; for the plain variant
    at 4 spp, besides, its RMSE must stay below 1.5x the kernel's own
-   seed-to-seed noise with the mean within 5%;
+   seed-to-seed noise with the mean within 5%. The same with the packed
+   tables (Renderer.pallas_mip_u8 / pallas_env_rgbe / pallas_pool_rgbe):
+   all three on, in every variant, on both scenes at both spp, and each
+   alone on the random grid at 4 spp, each launching its instantiation;
 4. kernel vs plain at the paths' shapes: one 4-spp dispatch of the whole
    cloud512 at 1024x1024 through both, for the plain path, the TF path,
    the emission path (a 256x256x128 temperature grid made from --seed) and
    TF + emission (phase 9's --turbo path),
    timed (CUDA events for the kernel), bitwise equal; the plain run also
-   counts the dispatch's events for the kernel's work bound; then a 4-spp
-   and a 64-spp dispatch of each path at 256x256, bitwise equal;
+   counts the dispatch's events for the kernel's work bound; the same
+   with all three packs on (the plain path also with each pack alone);
+   then a 4-spp and a 64-spp dispatch of each path at 256x256, bitwise
+   equal; then 64-spp 1024x1024 dispatches of each path
+   on the float32 tables and with all packs (the plain path also with each
+   pack alone), timed in turns (CUDA events, three rounds), each with its
+   bound from its STATS twin's counts; the RGBE encode kernel (the packed
+   tables' feeder) on a dispatch's pool radiance and the sky's texels,
+   bitwise its plain version, timed;
 5. the main path: volren_tpu_torch.cli renders cloud512 at 1024x1024,
    256 spp (four 64-spp dispatches), 100 bounces, under a procedural sky
    made from --seed;
 6. the TF path: the same through the CLI with --fau;
 7. the emission path: the same scene with the temperature grid, through
-   Renderer.trace(256);
+   Renderer.trace(256); then each of the four paths through
+   Renderer.render(256) at the same shapes on the float32 tables and with
+   all three packs on, in turns (f32, packed, packed, f32): spp/s of each,
+   the packed instantiation and the RGBE encode kernel launched (counts
+   set to 0 before a run, read after it), 0 capped samples, and the packed
+   image's mean within 5% of the float32 image's;
 8. the probe kernels (volren_tpu_torch/csrc/probes.cu, built in phase 2
    beside the megakernel, ptxas's lines printed): for each of the 28 Pallas
    call sites they replace (volren_tpu_torch.probes.sites), one call at the
@@ -171,6 +189,19 @@ KERNELS = (("megakernel", "plain", "volren_tpu/ops/pallas/kernel.py:602"),
            ("megakernel_tf", "tf", "volren_tpu/ops/pallas/kernel.py:635"),
            ("megakernel_emission", "emission", "volren_tpu/ops/pallas/kernel.py:636"),
            ("megakernel_tf_emission", "tf+emission", "volren_tpu/ops/pallas/kernel.py:635"))
+# the packed tables (mip_u8, env_rgbe, pool_rgbe) of a dispatch, and the
+# parts of _make_kernel their instantiations replace (each KERNELS entry's
+# packed twin is "<name>_packed")
+NO_PACKS, ALL_PACKS = (False, False, False), (True, True, True)
+PACK_SETS = {"u8": (True, False, False), "env_rgbe": (False, True, False),
+             "pool_rgbe": (False, False, True), "all": ALL_PACKS}
+PACKED_REPLACES = ("volren_tpu/ops/pallas/kernel.py:780-826, :952-958 (mip_u8), :833-838, "
+                   ":1753-1794 (env_rgbe), :687, :1626-1635 (pool_rgbe)")
+PACK_ROUNDS = 3                            # phase 4: 64-spp dispatches timed in turns
+# the RGBE encode kernel (the packed tables' feeder): what it replaces,
+# and a row's float32 operations (an FMA two) for its bound
+RGBE_ENCODE_REPLACES = "volren_tpu/ops/pallas/pack.py:118 (rgbe_encode; XLA, no pallas_call)"
+RGBE_ENCODE_OPS = 87
 FRAMES = 3                                 # phase 9's animated folder
 ORACLE_SPP, ORACLE_BOUNCES = 16, 16        # phase 10: the full-width path; kernel vs plain
 ORACLE_LAUNCHES = (1, 2, 5, 33)            # 10.1: passes of the launches, one after another
@@ -1033,6 +1064,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7, help="seed of the sky, grids and renders")
     args = ap.parse_args(argv)
+    t_smoke = time.time()
 
     import numpy as np
     import torch
@@ -1043,14 +1075,14 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     from volren_tpu_torch import cli
     from volren_tpu_torch import probes as probe_entry
-    from volren_tpu_torch.measure import PEAK_BYTES_S, kernel_bound, path_renderer
+    from volren_tpu_torch.measure import PEAK_BYTES_S, PEAK_F32_S, kernel_bound, path_renderer
     from volren_tpu_torch.ops.kernels import megakernel, oracle
     from volren_tpu_torch.ops.kernels import probes as probe_kernels
     from volren_tpu_torch.probes import probe_pallas2, probe_pallas3
     from volren_tpu_torch.probes._common import Context, interleaved_ms
     from volren_tpu_torch.probes.sites import Q3_OPS, SITES
     from volren_tpu_torch.renderer import DISPATCH_SPP
-    from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params
+    from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params, rgbe_encode_plain
     from volren_tpu_torch.scene.environment import Environment, procedural_sky
     from volren_tpu_torch.utils.hdr import write_hdr
     from volren_tpu_torch.voldata import DenseGrid, Volume, read_brick
@@ -1083,6 +1115,15 @@ def main(argv=None) -> int:
                         usage)
     print(f"    megakernel registers with the row band {regs}, before it {PREV_REGISTERS}; "
           f"spill stores (bytes) {spills}", flush=True)
+    packed = dict(re.findall(r"(<[01],[01]> (?:u8|rgbe|u8\+rgbe)(?: stats)?) Used (\d+) registers",
+                             usage))
+    packed_spills = re.findall(
+        r"(<[01],[01]> (?:u8|rgbe|u8\+rgbe)(?: stats)?) (\d+) bytes stack frame, (\d+) bytes spill "
+        r"stores", usage)
+    print(f"    packed instantiations' registers {packed}; stack and spill stores (bytes) "
+          f"{packed_spills}", flush=True)
+    if len(packed) != 24:
+        raise AssertionError(f"expected 24 packed instantiations, ptxas reported {sorted(packed)}")
     print(f"    ptxas oracle.cu <USE_DDA,USE_TF,HAS_EMI>: {oracle.resource_usage(oracle_lib)}",
           flush=True)
     for line in probe_kernels.resource_usage(probe_lib):
@@ -1094,10 +1135,15 @@ def main(argv=None) -> int:
     sky = Environment(sky_path)
     dev = torch.device("cuda")
 
-    def scene(volume, res, seed, spp, path="plain", bounces=BOUNCES):
+    def set_packs(r, packs):
+        r.pallas_mip_u8 = "1" if packs[0] else "0"
+        r.pallas_env_rgbe, r.pallas_pool_rgbe = packs[1], packs[2]
+
+    def scene(volume, res, seed, spp, path="plain", bounces=BOUNCES, packs=NO_PACKS):
         r = path_renderer(volume, sky, res, seed, path, bounces, device=dev)
+        set_packs(r, packs)
         ks = r._kernel_scene()
-        pool = build_env_pool(r._env_device, seed, 0)
+        pool = r._env_pool(0)
         pf, pi = build_params(ks, r._trace_params(), res, res, 0, spp)
         return ks, pool, pf, pi
 
@@ -1142,6 +1188,7 @@ def main(argv=None) -> int:
         return err
 
     # ---- 3. kernel vs plain version, every variant
+    t_phase = time.time()
     rng = np.random.default_rng(7)
     g16 = rng.random((16, 16, 16)).astype(np.float32) * 3.0
     g16[:4] = 0.0
@@ -1170,6 +1217,24 @@ def main(argv=None) -> int:
                 print(f"    kernel {k_ms!r} ms, plain {p_ms!r} ms on {gpu_line}", flush=True)
                 if path == "plain" and spp == CMP_SPP[0]:
                     first = a, plain
+                # the packed instantiations: all three packs everywhere, each
+                # alone on the random grid at 4 spp
+                for pname, packs in PACK_SETS.items():
+                    if pname != "all" and (spp != CMP_SPP[0] or name != "random16"):
+                        continue
+                    plabel = f"{label}, packed {pname}"
+                    key = VARIANT[path] + packs
+                    before_p = megakernel.render.launches_by_packs.get(key, 0)
+                    pinputs = scene(Volume(DenseGrid(w, h, d, dense)), CMP_RES, args.seed, spp,
+                                    path, packs=packs)
+                    pa = megakernel.render(*pinputs)
+                    pb = megakernel.render(*pinputs)
+                    if megakernel.render.launches_by_packs.get(key, 0) != before_p + 2:
+                        raise AssertionError(f"{plabel}: the packed instantiation did not launch")
+                    if not torch.equal(pa, pb):
+                        raise AssertionError(f"{plabel}: the kernel is not bitwise deterministic")
+                    uncapped(plabel, pinputs, pa)
+                    compare(plabel, pa, megakernel.render_plain(*pinputs))
             if path != "plain":
                 continue
             spp = CMP_SPP[0]
@@ -1184,7 +1249,10 @@ def main(argv=None) -> int:
             if not (rmse < 1.5 * noise and mean_rel < 0.05):
                 raise AssertionError(f"{name}: kernel disagrees with its plain version")
 
+    print(f"phase 3 took {time.time() - t_phase!r} s", flush=True)
+
     # ---- 4. kernel vs plain on one dispatch at each path's shapes
+    t_phase = time.time()
     record = {}
     for kname, path, _ in KERNELS:
         inputs = scene(Volume(CLOUD), RES, args.seed, MAIN_CMP_SPP, path)
@@ -1205,7 +1273,31 @@ def main(argv=None) -> int:
         record[kname] = {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}
         del inputs, kernel_out, plain_out
-        torch.cuda.empty_cache()
+        # the same dispatch with all three packs on (the plain path: each
+        # pack alone too)
+        for pname, packs in (PACK_SETS if path == "plain" else {"all": ALL_PACKS}).items():
+            inputs = scene(Volume(CLOUD), RES, args.seed, MAIN_CMP_SPP, path, packs=packs)
+            kernel_out = megakernel.render(*inputs)
+            ms = cuda_ms(lambda: megakernel.render(*inputs), 3)
+            stats = {}
+            plain_ms, plain_out = host_ms(lambda: megakernel.render_plain(*inputs, stats=stats))
+            plabel = f"{label}, packed {pname}"
+            max_abs_err = compare(plabel, kernel_out, plain_out)
+            counted = uncapped(plabel, inputs, kernel_out)
+            if {k: counted[k] for k in stats} != stats:
+                raise AssertionError(f"{plabel}: the STATS instantiation counts other events "
+                                     f"than the plain version: {counted} against {stats}")
+            bound_ms, bound_by, n_bytes, n_ops = kernel_bound(inputs[0], inputs[1], inputs[3],
+                                                              stats)
+            print(f"{plabel}: kernel {ms!r} ms, plain {plain_ms!r} ms per dispatch; bound "
+                  f"{bound_ms!r} ms by {bound_by} ({n_bytes} bytes, {n_ops} f32 operations from "
+                  f"events {stats}) on {gpu_line}", flush=True)
+            if pname == "all":
+                record[f"{kname}_packed"] = {"max_abs_err": max_abs_err, "ms": ms,
+                                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                             "bound_by": bound_by}
+            del inputs, kernel_out, plain_out
+            torch.cuda.empty_cache()
     # the old one-thread-per-pixel schedule's worst shape: few pixels, many
     # samples each (64: the main path's dispatch)
     for _kname, path, _ in KERNELS:
@@ -1222,7 +1314,58 @@ def main(argv=None) -> int:
             del inputs, kernel_out, plain_out
             torch.cuda.empty_cache()
 
+    # the main path's dispatch, 64 spp at 1024x1024, on the float32 tables
+    # and packed, timed in turns; the bound from each one's STATS twin
+    for kname, path, _ in KERNELS:
+        sets = {"f32": NO_PACKS, **(PACK_SETS if path == "plain" else {"all": ALL_PACKS})}
+        dispatches = {pname: scene(Volume(CLOUD), RES, args.seed, DISPATCH_SPP, path, packs=packs)
+                      for pname, packs in sets.items()}
+        times = {pname: [] for pname in sets}
+        for _ in range(PACK_ROUNDS):
+            for pname, inputs in dispatches.items():
+                times[pname].append(cuda_ms(lambda: megakernel.render(*inputs), 3))
+        line = []
+        for pname, inputs in dispatches.items():
+            st = uncapped(f"cloud512 {path} {RES}x{RES}, {DISPATCH_SPP} spp, {pname}", inputs)
+            bound_ms, bound_by, _nb, _no = kernel_bound(inputs[0], inputs[1], inputs[3], st)
+            med = float(np.median(times[pname]))
+            line.append(f"{pname} {med!r} ms (rounds {times[pname]!r}), bound {bound_ms!r} ms by "
+                        f"{bound_by}, {st['march']} substeps, {st['test']} tests")
+            if pname == "all":
+                record[f"{kname}_packed"].update(ms_64spp=med, bound_ms_64spp=bound_ms)
+            elif pname == "f32":
+                record[kname].update(ms_64spp=med, bound_ms_64spp=bound_ms)
+        print(f"cloud512 {path} {RES}x{RES}, {DISPATCH_SPP}-spp dispatch in turns: " + "; ".join(line)
+              + f" on {gpu_line}", flush=True)
+        del dispatches
+        torch.cuda.empty_cache()
+
+    # the RGBE encode kernel at the packed main path's shapes: a dispatch's
+    # pool radiance (a strided view of the pool) and the sky's texels
+    r = path_renderer(Volume(CLOUD), sky, RES, args.seed, "plain", device=dev)
+    encode_rows = {"pool radiance": build_env_pool(r._env_device, args.seed, 0)[:, 4:7],
+                   "sky texels": r._env_device.envmap.reshape(-1, 3)}
+    for label, rows in encode_rows.items():
+        got = megakernel.rgbe_encode(rows)
+        ms = cuda_ms(lambda: megakernel.rgbe_encode(rows), 20)
+        plain_ms, want = host_ms(lambda: rgbe_encode_plain(rows))
+        if not torch.equal(got, want):
+            raise AssertionError(f"rgbe_encode [{label}]: the kernel's words are not its plain "
+                                 f"version's ({int((got != want).sum())} differ)")
+        n = rows.shape[0]
+        t_bytes, t_ops = n * 16 / PEAK_BYTES_S, n * RGBE_ENCODE_OPS / PEAK_F32_S
+        bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+        print(f"rgbe_encode [{label}, {n} rows]: bitwise its plain version; kernel {ms!r} ms, "
+              f"plain {plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by} on {gpu_line}",
+              flush=True)
+        if label == "pool radiance":
+            record["rgbe_encode"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": bound_ms, "bound_by": bound_by}
+    del r, encode_rows
+    print(f"phase 4 took {time.time() - t_phase!r} s", flush=True)
+
     # ---- 5-7. the three paths through the entry points a user calls
+    t_phase = time.time()
     path_means, path_renderers = {}, {}
 
     def check_path(kname, path, run):
@@ -1280,12 +1423,62 @@ def main(argv=None) -> int:
     check_path("megakernel", "plain", run_cli())
     check_path("megakernel_tf", "tf", run_cli("--fau"))
     check_path("megakernel_emission", "emission", run_emission)
+
+    # the four paths again through Renderer.render, on the float32 tables
+    # and with all three packs, in turns: f32, packed, packed, f32
+    for kname, path, _ in KERNELS:
+        r = path_renderer(Volume(CLOUD), sky, RES, args.seed, path, device=dev)
+        runs = {False: [], True: []}
+        for packed_run in (False, True, True, False):
+            packs = ALL_PACKS if packed_run else NO_PACKS
+            set_packs(r, packs)
+            key = VARIANT[path] + packs
+            megakernel.render.launches = 0
+            megakernel.render.launches_by_packs.clear()
+            megakernel.rgbe_encode.launches = 0
+            seconds, _ = host_ms(lambda: r.render(SPP))
+            seconds /= 1e3
+            launches = megakernel.render.launches_by_packs.get(key, 0)
+            if launches <= 0 or launches != megakernel.render.launches:
+                raise AssertionError(f"the {path} path ({'packed' if packed_run else 'f32'}) "
+                                     f"launched {megakernel.render.launches_by_packs}")
+            encodes = megakernel.rgbe_encode.launches
+            if (encodes > 0) != packed_run:
+                raise AssertionError(f"the {path} path ({'packed' if packed_run else 'f32'}) "
+                                     f"launched the RGBE encode {encodes} times")
+            if packed_run and path == "plain" and "launches" not in record["rgbe_encode"]:
+                record["rgbe_encode"]["launches"] = encodes
+            fb = r.framebuffer()
+            if tuple(fb.shape) != (RES, RES, 4) or not bool(torch.isfinite(fb).all()):
+                raise AssertionError(f"the packed {path} path's framebuffer is not finite")
+            runs[packed_run].append((SPP / seconds, float(fb[..., :3].mean()), launches))
+        ks, tp = r._kernel_scene(), r._trace_params()
+        for base in range(0, SPP, DISPATCH_SPP):
+            pf, pi = build_params(ks, tp, RES, RES, base, DISPATCH_SPP)
+            uncapped(f"the packed {path} path's dispatch at sample {base}",
+                     (ks, r._env_pool(base), pf, pi))
+        f32_mean, packed_mean = runs[False][0][1], runs[True][0][1]
+        if not (f32_mean > 0.0 and abs(packed_mean - f32_mean) / f32_mean < 0.05):
+            raise AssertionError(f"the packed {path} path's mean {packed_mean} is not within 5% "
+                                 f"of the f32 mean {f32_mean}")
+        print(f"{path} path through Renderer.render({SPP}), cloud512 {RES}x{RES}, {BOUNCES} "
+              f"bounces, in turns: f32 {[run[0] for run in runs[False]]!r} spp/s, all packs "
+              f"{[run[0] for run in runs[True]]!r} spp/s ({runs[True][0][2]} launches of the "
+              f"packed instantiation); image mean f32 {f32_mean!r}, packed {packed_mean!r} "
+              f"({(packed_mean - f32_mean) / f32_mean:+.4%}) on {gpu_line}", flush=True)
+        record[f"{kname}_packed"].update(launches=runs[True][0][2],
+                                         spp_s=[run[0] for run in runs[True]],
+                                         spp_s_f32=[run[0] for run in runs[False]])
+        del r, fb
+        torch.cuda.empty_cache()
     main_r = path_renderers.pop("plain")
     clean_fb = main_r.framebuffer()[..., :3].clone()
     main_r.render(MAIN_CMP_SPP)
     noisy_fb = main_r.framebuffer()[..., :3].clone()
     path_renderers.clear()
     del main_r
+
+    print(f"phases 5-7 took {time.time() - t_phase!r} s", flush=True)
 
     # ---- 8. the probe kernels: kernel vs plain at each call site's shapes
     ctx = Context(dev)
@@ -1441,6 +1634,13 @@ def main(argv=None) -> int:
     kernels = [dict(name=kname, route="cuda", source="volren_tpu_torch/csrc/megakernel.cu",
                     replaces=replaces, library_ms=None, **record[kname])
                for kname, _path, replaces in KERNELS]
+    kernels += [dict(name=f"{kname}_packed", route="cuda",
+                     source="volren_tpu_torch/csrc/megakernel.cu", replaces=PACKED_REPLACES,
+                     library_ms=None, **record[f"{kname}_packed"])
+                for kname, _path, _replaces in KERNELS]
+    kernels.append(dict(name="rgbe_encode", route="cuda",
+                        source="volren_tpu_torch/csrc/megakernel.cu",
+                        replaces=RGBE_ENCODE_REPLACES, library_ms=None, **record["rgbe_encode"]))
     kernels += [dict(name=site.name, route="cuda", source="volren_tpu_torch/csrc/probes.cu",
                      replaces=site.replaces, **record[site.name]) for site in SITES]
     kernels += [dict(name=name, route="cuda", source="volren_tpu_torch/csrc/oracle.cu",
@@ -1452,8 +1652,11 @@ def main(argv=None) -> int:
     # the harness's library_ms: two PyTorch calls (library_calls), as no one call gathers
     # two tables
     # Q6's: chain_floor_ms, the latency floor beside its bound
+    # the megakernel's: the 64-spp dispatch's ms and bound; the packed ones':
+    # spp/s of their path's Renderer.render runs, and of the f32 runs in turns
     extra = ("ms_per_pass", "passes_per_launch", "share", "plain_of", "library_calls",
-             "chain_floor_ms")
+             "chain_floor_ms", "ms_64spp", "bound_ms_64spp", "spp_s", "spp_s_f32")
+    print(f"chip_smoke took {time.time() - t_smoke!r} s", flush=True)
     print(gpu_line)
     print(json.dumps({"kernels": [{k: entry[k] for k in keys + extra if k in keys or k in entry}
                                   for entry in kernels]}))

@@ -34,13 +34,15 @@ def _grid16():
     return dense
 
 
-def _renderer(device, seed=123, tf=False, emission=False, width=RES, height=RES, env=None):
+def _renderer(device, seed=123, tf=False, emission=False, width=RES, height=RES, env=None,
+              dense=None):
     """The 16^3 test scene; ``tf`` adds a non-monotone LUT with a moved
     window, ``emission`` a radial temperature grid at half resolution.
     ``env``: the scene's sky, Environment(procedural_sky(64, 32, seed=4)),
-    if made already."""
+    if made already; ``dense``: a 16^3 density grid in place of the
+    random one."""
     r = Renderer(device=device)
-    r.volume = Volume(DenseGrid(16, 16, 16, _grid16()))
+    r.volume = Volume(DenseGrid(16, 16, 16, _grid16() if dense is None else dense))
     r.scale_and_move_to_unit_cube()
     r.set_environment(env or Environment(procedural_sky(64, 32, seed=4)))
     r.bounces = 16
@@ -141,6 +143,127 @@ def test_kernel_matches_plain_version_at_ragged_shapes(spp, tf, emission):
     assert a.shape == (37 * 23, 4) and torch.equal(a, b)
     plain = megakernel.render_plain(*inputs)
     assert torch.equal(a, plain), float((a - plain).abs().max())
+
+
+# the packed tables of a dispatch, (mip_u8, env_rgbe, pool_rgbe): each
+# alone (the two RGBE reads are flags of one instantiation) and all three
+PACK_SETS = [(True, False, False), (False, True, False), (False, False, True),
+             (True, True, True)]
+PACK_IDS = ["u8", "env_rgbe", "pool_rgbe", "all"]
+
+
+def _packed_inputs(r, packs, spp=SPP):
+    """The renderer's dispatch with its packed-table switches set to
+    ``packs``: the tables, the pool and the parameter block of a trace."""
+    r.pallas_mip_u8 = "1" if packs[0] else "0"
+    r.pallas_env_rgbe, r.pallas_pool_rgbe = packs[1], packs[2]
+    ks = r._kernel_scene()
+    pf, pi = build_params(ks, r._trace_params(), r._width, r._height, 0, spp)
+    return ks, r._env_pool(0), pf, pi
+
+
+@pytest.mark.parametrize("packs", PACK_SETS, ids=PACK_IDS)
+@pytest.mark.parametrize("tf,emission", VARIANTS, ids=VARIANT_IDS)
+@pytest.mark.parametrize("spp", [3, 70])
+def test_packed_kernel_matches_plain_version_at_ragged_shapes(spp, tf, emission, packs):
+    """Every packed instantiation, <MIP_U8> and <RGBE> with either RGBE
+    read or both, in every variant, at 37 x 23 with 3 spp (several pixels
+    a warp) and 70 (two rounds of a warp's slots): the image bitwise the
+    plain version's and bitwise run to run, launched as its own
+    instantiation; its STATS twin renders the same image and counts the
+    events the plain version counts."""
+    r = _renderer(_cuda(), tf=tf, emission=emission, width=37, height=23)
+    inputs = _packed_inputs(r, packs, spp)
+    key = (tf, emission) + packs
+    before = megakernel.render.launches_by_packs.get(key, 0)
+    a = megakernel.render(*inputs)
+    b = megakernel.render(*inputs)
+    assert megakernel.render.launches_by_packs[key] == before + 2
+    assert a.shape == (37 * 23, 4) and torch.equal(a, b) and bool(torch.isfinite(a).all())
+    stats = {}
+    plain = megakernel.render_plain(*inputs, stats=stats)
+    assert torch.equal(a, plain), float((a - plain).abs().max())
+    again, counters = megakernel.render_stats(*inputs)
+    assert torch.equal(again, a) and {k: counters[k] for k in stats} == stats
+
+
+def test_packed_f32_instantiation_is_the_f32_dispatch():
+    """With every switch off the tables are the float32 ones, and the
+    dispatch is the f32 instantiation's image."""
+    r = _renderer(_cuda())
+    ks, pool, pf, pi = _packed_inputs(r, (False, False, False))
+    assert ks.mip_u8 is None and ks.env_rgbe is None and pool.dtype == torch.float32
+    assert torch.equal(megakernel.render(ks, pool, pf, pi),
+                       megakernel.render(*_inputs(_renderer(_cuda()))))
+
+
+def test_packed_kernel_with_scale_zero_levels():
+    """A grid of one value makes every level of the u8 pyramid hi == lo
+    (scale 0, every byte 0): the kernel decodes each to its value and
+    matches the plain version bitwise, in the plain and the TF variant."""
+    dense = np.full((16, 16, 16), 1.3, np.float32)
+    for tf in (False, True):
+        r = _renderer(_cuda(), tf=tf, dense=dense)
+        inputs = _packed_inputs(r, (True, True, True))
+        ks = inputs[0]
+        assert (ks.mip_dq[1] == 0.0).all() and int(ks.mip_u8.max()) == 0
+        got = megakernel.render(*inputs)
+        assert torch.equal(got, megakernel.render_plain(*inputs))
+
+
+def test_packed_renderer_on_card_launches_the_packed_kernel():
+    """trace() with all three switches on launches the packed
+    instantiation, once a dispatch, and draws an RGBE pool."""
+    r = _renderer(_cuda())
+    r.pallas_mip_u8, r.pallas_env_rgbe, r.pallas_pool_rgbe = "1", True, True
+    key = (False, False, True, True, True)
+    before = megakernel.render.launches_by_packs.get(key, 0)
+    r.trace(DISPATCH_SPP + 3)
+    assert megakernel.render.launches_by_packs[key] == before + 2
+    fb = r.framebuffer()
+    assert bool(torch.isfinite(fb).all()) and float(fb[..., :3].mean()) > 0
+
+
+def test_device_rgbe_encode_is_the_plain_encode():
+    """The library's encode kernel against pack.rgbe_encode_plain (XLA's
+    log and exp emulated in float64) on the same CUDA tensors: 2^24 random
+    rows over 2^-80 .. 2^80, the values next to every power of two, zeros,
+    negatives, and a strided view (a pool's radiance columns), bitwise;
+    one launch each."""
+    from volren_tpu_torch.ops.kernels.pack import rgbe_encode_plain
+
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rgb = (torch.rand(1 << 24, 3, device=dev, generator=gen) ** 3
+           * torch.exp2(torch.rand(1 << 24, 1, device=dev, generator=gen) * 160 - 80))
+    k = torch.arange(-125, 126, device=dev, dtype=torch.float64)[:, None]
+    near = (torch.exp2(k) * torch.tensor([1 - 2.0 ** -24, 1.0, 1 + 2.0 ** -23], device=dev,
+                                         dtype=torch.float64)).float().reshape(-1, 1)
+    rgb = torch.cat([rgb, near * torch.tensor([[1.0, 0.5, 0.999]], device=dev),
+                     torch.zeros(4, 3, device=dev), -torch.ones(4, 3, device=dev)])
+    before = megakernel.rgbe_encode.launches
+    for chunk in rgb.split(1 << 22):
+        assert torch.equal(megakernel.rgbe_encode(chunk), rgbe_encode_plain(chunk))
+    pool = build_env_pool(_renderer(dev)._env_device, 3, 0)
+    assert torch.equal(megakernel.rgbe_encode(pool[:, 4:7]), rgbe_encode_plain(pool[:, 4:7]))
+    assert megakernel.rgbe_encode.launches == before + len(rgb.split(1 << 22)) + 1
+
+
+def test_device_rgbe_decode_is_the_plain_decode_on_every_word():
+    """The kernel's RGBE decode against pack.rgbe_decode on all 2^32 words,
+    in chunks of 2^26, bitwise (NaN and infinity bit patterns included)."""
+    from volren_tpu_torch.ops.kernels.pack import rgbe_decode
+
+    dev = _cuda()
+    chunk = 1 << 26
+    before = megakernel.rgbe_decode.launches
+    for start in range(0, 1 << 32, chunk):
+        w = torch.arange(start, start + chunk, dtype=torch.int64, device=dev)
+        w = torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+        got = megakernel.rgbe_decode(w)
+        want = rgbe_decode(w)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), start
+    assert megakernel.rgbe_decode.launches == before + (1 << 32) // chunk
 
 
 @pytest.mark.parametrize("tf,emission", VARIANTS, ids=VARIANT_IDS)

@@ -40,6 +40,8 @@ from volren_tpu_torch.voldata.vdb import write_vdb_grids
 torch.set_num_threads(1)
 
 LUT = [(0.9, 0.2, 0.1, 0.0), (0.2, 0.9, 0.6, 0.7), (1.0, 1.0, 1.0, 1.0)]
+PACK_DEFAULTS = {"pallas_mip_u8": "0", "pallas_env_rgbe": False, "pallas_pool_rgbe": False}
+PACK_SWITCHES = tuple(PACK_DEFAULTS)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -187,6 +189,9 @@ def test_cli_state_matches_reference(case, scene_files, tmp_path, monkeypatch, c
         theirs.commit()
     a, b = ours.describe(), theirs.describe()
     assert a.pop("engine") == "megakernel" and b.pop("engine") in ("wavefront", "oracle")
+    # the port's packed-table switches, off by default (volren_tpu's are
+    # attributes describe() does not report)
+    assert {k: a.pop(k) for k in PACK_SWITCHES} == PACK_DEFAULTS
     assert a == b
     if "--step-engine" in argv:
         assert ours.step_engine == theirs.step_engine == argv[argv.index("--step-engine") + 1]
@@ -294,7 +299,7 @@ def test_checkpoint_resume_equals_straight_trace(random_grid16, tmp_path, monkey
 
 def test_describe_save_and_profile(random_grid16, tmp_path, capsys):
     r = Renderer(device="cpu")
-    assert list(r.describe()) == list(JRenderer().describe())
+    assert list(r.describe()) == list(JRenderer().describe()) + list(PACK_SWITCHES)
     assert repr(r).startswith("Renderer(\n  sample: 0")
     r.volume = Volume(DenseGrid(16, 16, 16, random_grid16))
     r.scale_and_move_to_unit_cube()

@@ -4,7 +4,11 @@
 // of its scene variants (in both its VMEM-atlas and HBM-atlas modes): the
 // no-TF, no-emission kernel, the TF variant (`use_tf`, kernel.py:635) and
 // the emission variant (`has_emi`, kernel.py:636), here the template
-// parameters USE_TF and HAS_EMI. For every pixel, `spp` full volumetric
+// parameters USE_TF and HAS_EMI, each with the f32 tables or with the
+// packed tables of its `mip_u8`, `env_rgbe` and `pool_rgbe` modes (the
+// template parameter MIP_U8: kernel.py:780-826, :952-958; RGBE, the two
+// RGBE reads, each under a flag of the parameter block: kernel.py:833-838,
+// :1753-1794 and :687, :1626-1635). For every pixel, `spp` full volumetric
 // path samples, written once as the per-pixel SUM over samples of (L.rgb,
 // alpha). A dispatch may trace a band of the frame's rows only (pi[PI_ROW0],
 // pi[PI_ROWS]; parallel/sharding.py renders across devices with bands):
@@ -63,12 +67,16 @@ constexpr int PF_CAM_POS = 0, PF_CAM_XFORM = 3, PF_ZCAM = 12, PF_BB_MIN = 13,
               PF_INV_XFORM = 26, PF_ENV_INV = 42, PF_ENV_STRENGTH = 51,
               PF_IMP_AVG = 52, PF_SHOW_ENV = 53, PF_TF_LEFT = 54,
               PF_TF_WIDTH = 55, PF_EMI_SCALE = 56, PF_EMI_NORM = 57,
-              PF_EMI_X = 58;
+              PF_EMI_X = 58, PF_MIP_LO = 74, PF_MIP_SCALE = 78;
 constexpr int PI_WIDTH = 0, PI_HEIGHT = 1, PI_SPP_BASE = 2, PI_BOUNCES = 3,
               PI_SEED = 4, PI_SPP = 5, PI_N_BRICKS = 6, PI_N_SLOTS = 9,
               PI_ENV_H = 10, PI_ENV_W = 11, PI_MIP_DIMS = 12,
               PI_MIP_OFFSETS = 24, PI_MAX_ITERS = 28, PI_TF_SIZE = 29,
-              PI_EMI_N_BRICKS = 30, PI_EMI_N_SLOTS = 33, PI_ROW0 = 34, PI_ROWS = 35;
+              PI_EMI_N_BRICKS = 30, PI_EMI_N_SLOTS = 33, PI_ROW0 = 34, PI_ROWS = 35,
+              PI_MIP_U8 = 36;
+// the bits of volren_render's `packs`: the tables a dispatch reads packed
+// (ops/kernels/megakernel.py PACKS)
+constexpr int PACK_MIP_U8 = 1, PACK_ENV_RGBE = 2, PACK_POOL_RGBE = 4;
 constexpr int POOL_N = 16384;
 
 constexpr float INV_2PI = float(1.0 / (2.0 * PI_D));
@@ -105,6 +113,20 @@ struct Tables {
   const float* __restrict__ env;
   const float* __restrict__ pool;
   const float* __restrict__ tf_lut;    // USE_TF only: (tf_size, 4) RGBA
+};
+
+// the packed tables (ops/kernels/pack.py) and their parameters, read only
+// by the packed instantiations: the baked pyramid as one byte an entry
+// (MIP_U8, in place of mip) with its per-level dequantisation, and under
+// RGBE the texels as RGBE words (in place of env) and the pool as POOL_N
+// float4 [w, pdf] rows followed by POOL_N radiance words, each when its
+// flag is set
+struct Packed {
+  const uint8_t* __restrict__ mip_u8;
+  const uint32_t* __restrict__ env_rgbe;
+  const uint32_t* __restrict__ pool_le;
+  float mip_lo[4], mip_sc[4];
+  int env_on, pool_on;
 };
 
 // ---- the STATS instantiation's counters (never launched by the render
@@ -232,9 +254,48 @@ __device__ __forceinline__ void setup_ray(const Params& P, Lane& s, const float 
   for (int k = 0; k < 3; ++k) s.ri[k] = 1.0f / s.id[k];
 }
 
-template <bool USE_TF>
-__device__ __forceinline__ float majorant_at(const Params& P, const Tables& T,
+// an RGBE word's three channels (pack.rgbe_decode, kernel.py:590-600):
+// mantissa * 2^(e - 135), the scale built by placing e - 8 in a float's
+// exponent field; exact, a word of 0 decodes to -0.0
+__device__ __forceinline__ void rgbe_decode(uint32_t w, float out[3]) {
+  const float scale = __uint_as_float((((w >> 24) & 255u) - 8u) << 23);
+  out[0] = float(w & 255u) * scale;
+  out[1] = float((w >> 8) & 255u) * scale;
+  out[2] = float((w >> 16) & 255u) * scale;
+}
+
+__device__ __forceinline__ float4 rgbe_texel(uint32_t w) {
+  float c[3];
+  rgbe_decode(w, c);
+  return make_float4(c[0], c[1], c[2], 0.0f);
+}
+
+// the u8 pyramid's majorant (kernel.py:780-826): lo[m] + q * scale[m],
+// quantised up and baked like the TF table, so no density_scale factor
+__device__ __forceinline__ float majorant_u8(const Params& P, const Packed& K, const float c[3],
+                                             int mip_i) {
+  const int ix = int(floorf(c[0])), iy = int(floorf(c[1])), iz = int(floorf(c[2]));
+  int idx = 0;
+  float lo = 0.0f, sc = 0.0f;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const int mz = P.mip_dims[3 * m], my = P.mip_dims[3 * m + 1], mx = P.mip_dims[3 * m + 2];
+    const int bxm = clampi(ix >> (3 + m), 0, mx - 1);
+    const int bym = clampi(iy >> (3 + m), 0, my - 1);
+    const int bzm = clampi(iz >> (3 + m), 0, mz - 1);
+    if (mip_i == m) {
+      idx = P.mip_offsets[m] + (bzm * my + bym) * mx + bxm;
+      lo = K.mip_lo[m];
+      sc = K.mip_sc[m];
+    }
+  }
+  return lo + float(__ldg(K.mip_u8 + idx)) * sc;
+}
+
+template <bool USE_TF, bool MIP_U8>
+__device__ __forceinline__ float majorant_at(const Params& P, const Tables& T, const Packed& K,
                                              const float c[3], int mip_i) {
+  if constexpr (MIP_U8) return majorant_u8(P, K, c, mip_i);
   const int ix = int(floorf(c[0])), iy = int(floorf(c[1])), iz = int(floorf(c[2]));
   int idx = 0;
 #pragma unroll
@@ -354,13 +415,14 @@ __device__ __forceinline__ void start_sample(const Params& P, Lane& s, int px, i
 }
 
 // one DDA substep (phase_march + majorant_at)
-template <bool USE_TF>
-__device__ __forceinline__ void march_substep(const Params& P, const Tables& T, Lane& s) {
+template <bool USE_TF, bool MIP_U8>
+__device__ __forceinline__ void march_substep(const Params& P, const Tables& T, const Packed& K,
+                                              Lane& s) {
   const bool is_extend = s.mode == MODE_EXTEND;
   float curr[3];
   for (int k = 0; k < 3; ++k) curr[k] = s.i0[k] + s.t * s.id[k];
   const int mip_i = int(rintf(s.mip));   // round half to even
-  const float maj = majorant_at<USE_TF>(P, T, curr, mip_i);
+  const float maj = majorant_at<USE_TF, MIP_U8>(P, T, K, curr, mip_i);
   const float dim = float(8 << mip_i);
   const float inv_dim = 1.0f / dim;      // exact: a power of two
   float dts[3];
@@ -435,8 +497,8 @@ __device__ __forceinline__ void resolve_test(const Params& P, const Tables& T, L
 }
 
 // next-event estimation from the alias pool (phase_nee)
-template <bool USE_TF>
-__device__ __forceinline__ void nee(const Params& P, const Tables& T, Lane& s) {
+template <bool USE_TF, bool RGBE>
+__device__ __forceinline__ void nee(const Params& P, const Tables& T, const Packed& K, Lane& s) {
   float mult[3] = {P.albedo[0], P.albedo[1], P.albedo[2]};
   if (USE_TF) {
     // tint by the LUT colour at the collision; no draws
@@ -448,8 +510,11 @@ __device__ __forceinline__ void nee(const Params& P, const Tables& T, Lane& s) {
   const float u0 = rng(s.seed, true);
   rng(s.seed, true);
   const int pidx = clampi(int(u0 * float(POOL_N)), 0, POOL_N - 1);
-  const float4 r0 = reinterpret_cast<const float4*>(T.pool)[2 * pidx];
-  const float4 r1 = reinterpret_cast<const float4*>(T.pool)[2 * pidx + 1];
+  // packed: a 16-byte [w, pdf] row and one radiance word
+  const bool packed = RGBE && K.pool_on != 0;
+  const float4 r0 = reinterpret_cast<const float4*>(T.pool)[packed ? pidx : 2 * pidx];
+  const float4 r1 = packed ? rgbe_texel(__ldg(K.pool_le + pidx))
+                           : reinterpret_cast<const float4*>(T.pool)[2 * pidx + 1];
   const float w_i[3] = {r0.x, r0.y, r0.z};
   const float pdf_nee = r0.w;
   const float le[3] = {r1.x, r1.y, r1.z};
@@ -473,11 +538,24 @@ __device__ __forceinline__ void nee(const Params& P, const Tables& T, Lane& s) {
   setup_ray(P, s, org, has_nee ? w_i : s.pd, has_nee);
 }
 
+// the escape's texel: three floats, or under RGBE its word when the flag
+// is set
+template <bool RGBE>
+__device__ __forceinline__ float4 env_texel(const Params& P, const Tables& T, const Packed& K,
+                                            int i) {
+  if constexpr (RGBE) {
+    if (K.env_on != 0) return rgbe_texel(__ldg(K.env_rgbe + i));
+  }
+  const float* e = T.env + size_t(i) * 3;
+  return make_float4(e[0], e[1], e[2], 0.0f);
+}
+
 // shadow / escape accumulation, Russian roulette, HG scatter
 // (phase_finish) of a lane with an event. Returns true when the sample
 // ends, with its sanitized (L.rgb, alpha) in `res`.
-__device__ __forceinline__ bool finish(const Params& P, const Tables& T, Lane& s,
-                                       float4& res) {
+template <bool RGBE>
+__device__ __forceinline__ bool finish(const Params& P, const Tables& T, const Packed& K,
+                                       Lane& s, float4& res) {
   const float g = P.phase_g;
   const int ev = s.event;
   const bool sh_hit = ev == EV_SH_HIT;
@@ -500,9 +578,9 @@ __device__ __forceinline__ bool finish(const Params& P, const Tables& T, Lane& s
     int xw = xt < 0 ? xt + P.env_w : xt;
     xw = clampi(xw >= P.env_w ? xw - P.env_w : xw, 0, P.env_w - 1);
     const int yc = clampi(yt, 0, P.env_h - 1);
-    const float* e = T.env + size_t(yc * P.env_w + xw) * 3;
-    const float le_env[3] = {P.env_strength * e[0], P.env_strength * e[1],
-                             P.env_strength * e[2]};
+    const float4 e = env_texel<RGBE>(P, T, K, yc * P.env_w + xw);
+    const float le_env[3] = {P.env_strength * e.x, P.env_strength * e.y,
+                             P.env_strength * e.z};
     const float pdf_esc = luma(le_env) / P.imp_avg * INV_4PI;
     const float a2 = s.last_f_p * s.last_f_p;
     const float mis_esc = s.n_paths > 0 ? a2 / vmax(a2 + pdf_esc * pdf_esc, 1e-32f) : 1.0f;
@@ -570,8 +648,8 @@ __device__ __forceinline__ float4 capped_slot() {
 // the item's slot and takes the round's next item (a ballot and a prefix
 // count, no atomics). After a round, lane j adds pixel j's slots in sample
 // order, from 0.0f, as render_plain does; a capped sample adds nothing.
-template <bool USE_TF, bool HAS_EMI, bool STATS>
-__device__ __forceinline__ void render_group(const Params& P, const Tables& T,
+template <bool USE_TF, bool HAS_EMI, bool STATS, bool MIP_U8, bool RGBE>
+__device__ __forceinline__ void render_group(const Params& P, const Tables& T, const Packed& K,
                                              float* __restrict__ out, int group,
                                              float4* slot, Counters& cnt) {
   const int lane = threadIdx.x & 31;
@@ -608,7 +686,7 @@ __device__ __forceinline__ void render_group(const Params& P, const Tables& T,
       // march until an event, one DDA substep at a time
       do {
         if (STATS) warp_tick(cnt.v[ST_MARCH_ISSUES], cnt.v[ST_MARCH_LANES]);
-        march_substep<USE_TF>(P, T, s);
+        march_substep<USE_TF, MIP_U8>(P, T, K, s);
       } while (s.event == EV_NONE && s.steps < P.budget);
       if (s.event == EV_TEST) {
         if (STATS) {
@@ -619,13 +697,13 @@ __device__ __forceinline__ void render_group(const Params& P, const Tables& T,
       }
       if (s.event == EV_EXT_HIT) {
         if (STATS) cnt.v[ST_NEE] += 1;
-        nee<USE_TF>(P, T, s);
+        nee<USE_TF, RGBE>(P, T, K, s);
       }
       float4 res;
       bool ended = false;
       if (s.event != EV_NONE) {
         const int ev = s.event;
-        ended = finish(P, T, s, res);
+        ended = finish<RGBE>(P, T, K, s, res);
         if (STATS) {
           cnt.v[ST_ESCAPE] += ev == EV_EXT_EXIT ? 1u : 0u;
           cnt.v[ST_SCATTER] += ev != EV_EXT_EXIT && !ended ? 1u : 0u;  // alive after a scatter event
@@ -668,11 +746,11 @@ __device__ __forceinline__ void render_group(const Params& P, const Tables& T,
 __device__ int next_group = 0;
 
 // persistent blocks: each warp takes groups from the one global counter
-template <bool USE_TF, bool HAS_EMI, bool STATS>
+template <bool USE_TF, bool HAS_EMI, bool STATS, bool MIP_U8, bool RGBE>
 __global__ void __launch_bounds__(THREADS, min_blocks(USE_TF, HAS_EMI))
 megakernel(const __grid_constant__ Params P, const __grid_constant__ Tables T,
            float* __restrict__ out, unsigned long long* __restrict__ stats,
-           unsigned long long* __restrict__ btimes) {
+           unsigned long long* __restrict__ btimes, const __grid_constant__ Packed K) {
   __shared__ float4 slots[WARPS][SLOTS];
   if (STATS && threadIdx.x == 0) btimes[2 * blockIdx.x] = globaltimer();
   const int last_fetch = P.n_groups + int(gridDim.x) * WARPS - 1;
@@ -685,7 +763,8 @@ megakernel(const __grid_constant__ Params P, const __grid_constant__ Tables T,
     }
     group = __shfl_sync(FULL, group, 0);
     if (group >= P.n_groups) break;
-    render_group<USE_TF, HAS_EMI, STATS>(P, T, out, group, slots[threadIdx.x >> 5], cnt);
+    render_group<USE_TF, HAS_EMI, STATS, MIP_U8, RGBE>(P, T, K, out, group,
+                                                      slots[threadIdx.x >> 5], cnt);
   }
   if (STATS) cnt.flush(stats, btimes);
 }
@@ -706,14 +785,117 @@ int n_groups(int width, int rows, int spp) {
 }
 
 using Kernel = void (*)(const Params, const Tables, float*, unsigned long long*,
-                       unsigned long long*);
+                       unsigned long long*, const Packed);
 
-Kernel pick_kernel(bool use_tf, bool has_emi, bool stats) {
-  const Kernel main_k[2][2] = {{megakernel<false, false, false>, megakernel<false, true, false>},
-                               {megakernel<true, false, false>, megakernel<true, true, false>}};
-  const Kernel stats_k[2][2] = {{megakernel<false, false, true>, megakernel<false, true, true>},
-                                {megakernel<true, false, true>, megakernel<true, true, true>}};
-  return (stats ? stats_k : main_k)[use_tf][has_emi];
+// the instantiations of one <MIP_U8, RGBE>: [use_tf][has_emi][stats]
+template <bool MIP_U8, bool RGBE>
+Kernel pick_variant(bool use_tf, bool has_emi, bool stats) {
+  const Kernel k[2][2][2] = {
+      {{megakernel<false, false, false, MIP_U8, RGBE>, megakernel<false, false, true, MIP_U8, RGBE>},
+       {megakernel<false, true, false, MIP_U8, RGBE>, megakernel<false, true, true, MIP_U8, RGBE>}},
+      {{megakernel<true, false, false, MIP_U8, RGBE>, megakernel<true, false, true, MIP_U8, RGBE>},
+       {megakernel<true, true, false, MIP_U8, RGBE>, megakernel<true, true, true, MIP_U8, RGBE>}}};
+  return k[use_tf][has_emi][stats];
+}
+
+// the f32 tables' instantiations, or a packed one: MIP_U8 for a u8
+// pyramid, RGBE when either RGBE read is on
+Kernel pick_kernel(bool use_tf, bool has_emi, int packs, bool stats) {
+  const bool mip_u8 = packs & PACK_MIP_U8, rgbe = packs & (PACK_ENV_RGBE | PACK_POOL_RGBE);
+  if (mip_u8) return rgbe ? pick_variant<true, true>(use_tf, has_emi, stats)
+                          : pick_variant<true, false>(use_tf, has_emi, stats);
+  return rgbe ? pick_variant<false, true>(use_tf, has_emi, stats)
+              : pick_variant<false, false>(use_tf, has_emi, stats);
+}
+
+// ---- the RGBE encode of the packed tables' texels and pool radiance
+// (pack.rgbe_encode_plain, bitwise): volren_tpu.ops.pallas.pack.rgbe_encode
+// as XLA computes it on the CPU, its log2 and exp2 XLA's Cephes polynomials
+// (xla/backends/cpu/codegen/polynomial_approximations.cc) with the
+// multiply-adds that XLA contracts as explicit FMAs, every other operation
+// rounded on its own (-fmad=false)
+
+constexpr float LN2_F = float(0.69314718055994530942);
+constexpr float INV_LN2_F = 1.0f / LN2_F;   // jnp.log2's divisor as XLA folds it
+
+// XLA's log for positive normal x
+__device__ __forceinline__ float xla_log(float x) {
+  float t0 = vmax(x, __uint_as_float(0x00800000u));
+  const uint32_t bits = __float_as_uint(t0);
+  const int emm0 = int(bits >> 23) - 0x7f;
+  t0 = __uint_as_float((bits & ~0x7f800000u) | 0x3f000000u);   // the mantissa in [0.5, 1)
+  float e = 1.0f + float(emm0);
+  const bool small = t0 < 0.707106781186547524f;
+  const float t1 = small ? t0 : 0.0f;
+  t0 = t0 - 1.0f;
+  e = e - (small ? 1.0f : 0.0f);
+  t0 = t0 + t1;
+  const float x2 = t0 * t0, x3 = x2 * t0;
+  float y = __fmaf_rn(t0, 7.0376836292e-2f, -1.1514610310e-1f);
+  float y1 = __fmaf_rn(t0, -1.2420140846e-1f, 1.4249322787e-1f);
+  float y2 = __fmaf_rn(t0, 2.0000714765e-1f, -2.4999993993e-1f);
+  y = __fmaf_rn(y, t0, 1.1676998740e-1f);
+  y1 = __fmaf_rn(y1, t0, -1.6668057665e-1f);
+  y2 = __fmaf_rn(y2, t0, 3.3333331174e-1f);
+  y = __fmaf_rn(y, x3, y1);
+  y = __fmaf_rn(y, x3, y2);
+  y = __fmaf_rn(y, x3, -2.12194440e-4f * e);
+  t0 = __fmaf_rn(-0.5f, x2, t0);
+  t0 = t0 + y;
+  return __fmaf_rn(0.693359375f, e, t0);
+}
+
+// XLA's exp
+__device__ __forceinline__ float xla_exp(float x) {
+  x = vmin(vmax(x, -87.8f), 88.8f);
+  const float n = vmin(vmax(floorf(__fmaf_rn(x, 1.44269504088896341f, 0.5f)), -127.0f), 127.0f);
+  x = __fmaf_rn(-0.693359375f, n, x);
+  x = __fmaf_rn(2.12194440e-4f, n, x);
+  float z = __fmaf_rn(x, 1.9875691500e-4f, 1.3981999507e-3f);
+  z = __fmaf_rn(z, x, 8.3334519073e-3f);
+  z = __fmaf_rn(z, x, 4.1665795894e-2f);
+  z = __fmaf_rn(z, x, 1.6666665459e-1f);
+  z = __fmaf_rn(z, x, 5.0000001201e-1f);
+  z = 1.0f + __fmaf_rn(z, x * x, x);
+  return z * __int_as_float((int(n) + 127) << 23);
+}
+
+__device__ __forceinline__ uint32_t rgbe_encode(float r, float g, float b) {
+  r = vmax(r, 0.0f);
+  g = vmax(g, 0.0f);
+  b = vmax(b, 0.0f);
+  const float m = vmax(vmax(r, g), b);
+  const int e = clampi(int(floorf(xla_log(vmax(m, 1e-37f)) * INV_LN2_F)), -119, 119);
+  const float scale = xla_exp((7.0f - float(e)) * LN2_F);
+  const uint32_t mr = uint32_t(vmin(rintf(r * scale), 255.0f));
+  const uint32_t mg = uint32_t(vmin(rintf(g * scale), 255.0f));
+  const uint32_t mb = uint32_t(vmin(rintf(b * scale), 255.0f));
+  const uint32_t word = mr | (mg << 8) | (mb << 16) | (uint32_t(e + 128) << 24);
+  return m >= 0x1p-119f ? word : 0u;
+}
+
+// `n` rows of 3 floats, `stride` floats apart, to their words
+__global__ void rgbe_encode_rows(const float* __restrict__ rgb, long long stride,
+                                 uint32_t* __restrict__ words, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const float* c = rgb + i * stride;
+    words[i] = rgbe_encode(c[0], c[1], c[2]);
+  }
+}
+
+// the RGBE decode of the escape and of the NEE on `n` words (the card's
+// tests hold it to pack.rgbe_decode on every word)
+__global__ void rgbe_decode_words(const uint32_t* __restrict__ words, float* __restrict__ out,
+                                  long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float c[3];
+    rgbe_decode(words[i], c);
+    out[3 * i] = c[0];
+    out[3 * i + 1] = c[1];
+    out[3 * i + 2] = c[2];
+  }
 }
 
 }  // namespace
@@ -723,19 +905,42 @@ Kernel pick_kernel(bool use_tf, bool has_emi, bool stats) {
 // groups need. Any count renders the same image. The STATS instantiation
 // writes a (start, end) pair of %globaltimer per block.
 extern "C" int volren_launch_blocks(int width, int rows, int spp, int use_tf, int has_emi,
-                                    int stats) {
-  static int resident[2][2][2] = {};
-  int& fit = resident[use_tf != 0][has_emi != 0][stats != 0];
+                                    int packs, int stats) {
+  static int resident[2][2][8][2] = {};
+  int& fit = resident[use_tf != 0][has_emi != 0][packs & 7][stats != 0];
   if (fit == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick_kernel(use_tf, has_emi, stats),
-                                                  THREADS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, pick_kernel(use_tf, has_emi, packs, stats), THREADS, 0);
     fit = sms * per_sm;
   }
   const int need = (n_groups(width, rows, spp) + WARPS - 1) / WARPS;
   return fit < need ? fit : need;
+}
+
+// `words` (n) uint32 = the RGBE encode of `n` rows of 3 floats at `rgb`,
+// `stride` floats apart (pack.build_env_pool's pool radiance, pack_scene's
+// texels), on `stream`.
+extern "C" int volren_rgbe_encode(const void* rgb, long long stride, void* words, long long n,
+                                  void* stream) {
+  if (n <= 0) return 0;
+  const long long blocks = (n + 255) / 256;
+  rgbe_encode_rows<<<int(blocks < 65536 ? blocks : 65536), 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rgb), stride, static_cast<uint32_t*>(words), n);
+  return int(cudaGetLastError());
+}
+
+// `out` (n, 3) float32 = the decode of `words` (n) uint32, on `stream`.
+extern "C" int volren_rgbe_decode(const void* words, void* out, long long n, void* stream) {
+  if (n <= 0) return 0;
+  const long long blocks = (n + 255) / 256;
+  rgbe_decode_words<<<int(blocks < 65536 ? blocks : 65536), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<float*>(out), n);
+  return int(cudaGetLastError());
 }
 
 // Host entry, bound with ctypes. `pf` / `pi` are HOST arrays (the parameter
@@ -744,7 +949,11 @@ extern "C" int volren_launch_blocks(int width, int rows, int spp, int use_tf, in
 // pi[PI_ROW0] (`n_pix` of them). The
 // parameter block selects the variant: pi[PI_TF_SIZE] > 0 needs `tf_lut`
 // (and `mip` is then the TF-baked table), pi[PI_EMI_N_SLOTS] > 0 needs the
-// four emission tables; pointers of an absent variant may be null. The
+// four emission tables; pointers of an absent variant may be null. `packs`
+// (PACK_* bits) says which tables are packed: PACK_MIP_U8 makes `mip` the
+// (M,) u8 pyramid (pi[PI_MIP_U8] must be 1, the dequantisation rows in
+// pf), PACK_ENV_RGBE makes `env` the (H*W,) RGBE words, PACK_POOL_RGBE
+// makes `pool` POOL_N float4 [w, pdf] rows followed by POOL_N words. The
 // launch goes on `stream`, and launches on two streams must not overlap
 // (they share the group counter); returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for a missing table. A non-null `stats` launches the
@@ -757,7 +966,7 @@ extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
                              const void* tf_lut, const void* emi_atlas,
                              const void* emi_slot, const void* emi_lo,
                              const void* emi_hi, void* out, void* stats,
-                             void* btimes, int n_pix, void* stream) {
+                             void* btimes, int packs, int n_pix, void* stream) {
   if (n_pix <= 0) return 0;
   Params P;
   for (int k = 0; k < 3; ++k) {
@@ -800,7 +1009,8 @@ extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
   P.tf_size = pi[PI_TF_SIZE];
   P.row0 = pi[PI_ROW0];
   P.rows = pi[PI_ROWS];
-  if (P.row0 < 0 || P.rows < 0 || P.row0 + P.rows > P.height || n_pix != P.rows * P.width)
+  if (P.row0 < 0 || P.rows < 0 || P.row0 + P.rows > P.height || n_pix != P.rows * P.width ||
+      (packs & ~7) != 0 || ((packs & PACK_MIP_U8) != 0) != (pi[PI_MIP_U8] != 0))
     return int(cudaErrorInvalidValue);
   group_tile(P.spp, P.tile_w, P.tile_h);
   P.tiles_x = (P.width + P.tile_w - 1) / P.tile_w;
@@ -817,14 +1027,24 @@ extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
   T.env = static_cast<const float*>(env);
   T.pool = static_cast<const float*>(pool);
   T.tf_lut = static_cast<const float*>(tf_lut);
+  Packed K;
+  K.mip_u8 = static_cast<const uint8_t*>(mip);
+  K.env_rgbe = static_cast<const uint32_t*>(env);
+  K.pool_le = static_cast<const uint32_t*>(pool) + 4 * POOL_N;
+  for (int k = 0; k < 4; ++k) {
+    K.mip_lo[k] = pf[PF_MIP_LO + k];
+    K.mip_sc[k] = pf[PF_MIP_SCALE + k];
+  }
+  K.env_on = (packs & PACK_ENV_RGBE) ? 1 : 0;
+  K.pool_on = (packs & PACK_POOL_RGBE) ? 1 : 0;
   const bool use_tf = P.tf_size > 0, has_emi = T.emi.n_slots > 0;
   if ((use_tf && !tf_lut) ||
       (has_emi && !(emi_atlas && emi_slot && emi_lo && emi_hi)) || (stats && !btimes))
     return int(cudaErrorInvalidValue);
-  const Kernel kernel = pick_kernel(use_tf, has_emi, stats != nullptr);
-  kernel<<<volren_launch_blocks(P.width, P.rows, P.spp, use_tf, has_emi, stats != nullptr),
+  const Kernel kernel = pick_kernel(use_tf, has_emi, packs, stats != nullptr);
+  kernel<<<volren_launch_blocks(P.width, P.rows, P.spp, use_tf, has_emi, packs, stats != nullptr),
            THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       P, T, static_cast<float*>(out), static_cast<unsigned long long*>(stats),
-      static_cast<unsigned long long*>(btimes));
+      static_cast<unsigned long long*>(btimes), K);
   return int(cudaGetLastError());
 }

@@ -92,17 +92,26 @@ OPS_PER_EVENT = {
     "regen": 120, "march": 73, "test": 183, "test_tf": 154, "emission": 202,
     "nee": 116, "nee_tf": 268, "escape": 74, "scatter": 157,
 }
+# what a packed table adds to its event: the u8 majorant's conversion and
+# multiply-add in place of the density_scale product, an RGBE word's three
+# conversions and products (its integer operations not counted)
+PACKED_OPS = {"mip_u8": ("march", 2), "env_rgbe": ("escape", 6), "pool_rgbe": ("nee", 6)}
 
 
 def kernel_bound(ks, pool: torch.Tensor, pi: np.ndarray, stats: dict):
     """The least time the card could take for one dispatch:
     max(bytes / peak bytes/s, float32 operations / peak float32/s).
-    Bytes: every table the kernel reads, once, and the (n_pix, 4) float32
-    output, once. Operations: the events this dispatch's data needs, from
-    ``render_plain(..., stats=stats)`` on the same inputs, times
-    OPS_PER_EVENT. Returns (ms, "bytes" | "operations", bytes, operations)."""
+    Bytes: every table the kernel reads, once (the packed ones where the
+    dispatch reads them packed), and the (n_pix, 4) float32 output, once.
+    Operations: the events this dispatch's data needs, from
+    ``render_plain(..., stats=stats)`` or the STATS twin on the same
+    inputs, times OPS_PER_EVENT (and PACKED_OPS). Returns (ms, "bytes" |
+    "operations", bytes, operations)."""
     use_tf, has_emi = ks.tf is not None, ks.emi_atlas is not None
-    tables = [ks.atlas, ks.slot, ks.lo, ks.hi, ks.mip_tf if use_tf else ks.mip, ks.env, pool]
+    packs = dict(zip(megakernel.PACKS, megakernel._packs(ks, pool)))
+    mip = ks.mip_u8 if packs["mip_u8"] else (ks.mip_tf if use_tf else ks.mip)
+    env = ks.env_rgbe if packs["env_rgbe"] else ks.env
+    tables = [ks.atlas, ks.slot, ks.lo, ks.hi, mip, env, pool]
     if use_tf:
         tables.append(ks.tf.lut)
     if has_emi:
@@ -112,6 +121,8 @@ def kernel_bound(ks, pool: torch.Tensor, pi: np.ndarray, stats: dict):
     weights = dict(OPS_PER_EVENT)
     if use_tf:
         weights["test"], weights["nee"] = weights["test_tf"], weights["nee_tf"]
+    for pack, (event, extra) in PACKED_OPS.items():
+        weights[event] += extra if packs[pack] else 0
     ops = sum(weights[k] * int(stats.get(k, 0)) for k in megakernel.EVENTS)
     t_bytes, t_ops = n_bytes / PEAK_BYTES_S, ops / PEAK_F32_S
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",

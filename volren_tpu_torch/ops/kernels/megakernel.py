@@ -26,6 +26,15 @@ compile-time ``use_tf`` / ``has_emi`` do (kernel.py:635-636):
   draws) of the emission grid and add
   ``th * (1 - albedo) * emission_scale * (t^2, t^4, t^8) * d / majorant``.
 
+Three packed tables, each on its own, change what a variant reads, as the
+Pallas kernel's ``mip_u8`` / ``env_rgbe`` / ``pool_rgbe`` do
+(kernel.py:780-838, :1626-1635, :1753-1794; pack.py's module docstring):
+the march's majorant from the u8 pyramid ``ks.mip_u8`` as ``lo[m] + q *
+scale[m]`` (pf's PF_MIP_LO / PF_MIP_SCALE rows; the table bakes
+density_scale and any TF alpha in), the escape's texel from the RGBE words
+``ks.env_rgbe``, and the NEE pool row's radiance from its RGBE word (an
+int32 pool, ``pack.build_env_pool(rgbe=True)``). ``PACKS`` names them.
+
 The plain version is the Pallas kernel's state machine with one march
 substep per step: every (pixel, sample) is a lane, and after the regen
 each step runs march -> resolve -> NEE -> finish on all lanes under masks;
@@ -58,12 +67,14 @@ from .pack import (
     PF_ALBEDO, PF_BB_MAX, PF_BB_MIN, PF_CAM_POS, PF_CAM_XFORM,
     PF_DENSITY_SCALE, PF_EMI_NORM, PF_EMI_SCALE, PF_EMI_X, PF_ENV_INV,
     PF_ENV_STRENGTH, PF_IMP_AVG, PF_INV_MAJORANT, PF_INV_XFORM, PF_MAJORANT,
-    PF_PHASE_G, PF_SHOW_ENV, PF_TF_LEFT, PF_TF_WIDTH, PF_ZCAM, PI_BOUNCES,
-    PI_EMI_N_BRICKS, PI_EMI_N_SLOTS, PI_ENV_H, PI_ENV_W, PI_HEIGHT,
-    PI_MAX_ITERS, PI_MIP_DIMS, PI_MIP_OFFSETS, PI_N_BRICKS, PI_N_SLOTS, PI_ROW0,
-    PI_ROWS, PI_SEED, PI_SPP, PI_SPP_BASE, PI_TF_SIZE, PI_WIDTH, POOL_N, PF_SIZE,
-    PI_SIZE, KernelScene,
+    PF_MIP_LO, PF_MIP_SCALE, PF_PHASE_G, PF_SHOW_ENV, PF_TF_LEFT, PF_TF_WIDTH,
+    PF_ZCAM, PI_BOUNCES, PI_EMI_N_BRICKS, PI_EMI_N_SLOTS, PI_ENV_H, PI_ENV_W,
+    PI_HEIGHT, PI_MAX_ITERS, PI_MIP_DIMS, PI_MIP_OFFSETS, PI_MIP_U8, PI_N_BRICKS,
+    PI_N_SLOTS, PI_ROW0, PI_ROWS, PI_SEED, PI_SPP, PI_SPP_BASE, PI_TF_SIZE,
+    PI_WIDTH, POOL_N, PF_SIZE, PI_SIZE, KernelScene,
 )
+from .pack import rgbe_decode as _plain_rgbe_decode
+from .pack import rgbe_encode_plain as _plain_rgbe_encode
 
 MODE_INACTIVE, MODE_REGEN, MODE_EXTEND, MODE_SHADOW = 0, 1, 2, 3
 # what render_plain(stats=...) counts: lanes that started a sample, took a
@@ -72,6 +83,10 @@ MODE_INACTIVE, MODE_REGEN, MODE_EXTEND, MODE_SHADOW = 0, 1, 2, 3
 EVENTS = ("regen", "march", "test", "emission", "nee", "escape", "scatter")
 EV_NONE, EV_EXT_HIT, EV_EXT_EXIT, EV_SH_HIT, EV_SH_EXIT = 0, 1, 2, 3, 4
 EV_SCATTER, EV_TEST = 5, 6
+
+# the packed tables a dispatch may read (the module docstring), in the
+# order of the bits of csrc/megakernel.cu's ``packs`` argument
+PACKS = ("mip_u8", "env_rgbe", "pool_rgbe")
 
 # the most lanes, (pixel, sample) pairs, that render_plain traces at once
 PLAIN_LANES = 1 << 22
@@ -94,6 +109,9 @@ def _variant(ks: KernelScene, pi: np.ndarray):
     use_tf, has_emi = ks.tf is not None, ks.emi_atlas is not None
     if use_tf != (int(pi[PI_TF_SIZE]) > 0) or has_emi != (int(pi[PI_EMI_N_SLOTS]) > 0):
         raise ValueError("the parameter block was built for another scene variant")
+    if (ks.mip_u8 is not None) != bool(pi[PI_MIP_U8]):
+        raise ValueError("the parameter block was built for another majorant table "
+                         "(u8 or float32)")
     if use_tf and ks.mip_tf is None:
         raise ValueError("a TF scene needs its baked majorant table (pack.bake_tf_majorant)")
     if use_tf and ks.tf.lut.shape[0] != int(pi[PI_TF_SIZE]):
@@ -102,6 +120,12 @@ def _variant(ks: KernelScene, pi: np.ndarray):
     if row0 < 0 or rows < 0 or row0 + rows > int(pi[PI_HEIGHT]):
         raise ValueError(f"the band's rows [{row0}, {row0 + rows}) are not rows of the frame")
     return use_tf, has_emi
+
+
+def _packs(ks: KernelScene, pool: torch.Tensor) -> tuple:
+    """(mip_u8, env_rgbe, pool_rgbe) of a dispatch: which tables it reads
+    packed (PACKS)."""
+    return ks.mip_u8 is not None, ks.env_rgbe is not None, pool.dtype == torch.int32
 
 
 def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
@@ -116,6 +140,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     lanes that ran each event (keys of EVENTS) and the capped samples
     (``"capped"``) to it."""
     use_tf, has_emi = _variant(ks, pi)
+    mip_u8, env_rgbe, pool_rgbe = _packs(ks, pool)
     dev = ks.atlas.device
     f32, i32 = torch.float32, torch.int32
 
@@ -153,6 +178,11 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
                     tuple(int(v) for v in pi[PI_EMI_N_BRICKS:PI_EMI_N_BRICKS + 3]),
                     int(pi[PI_EMI_N_SLOTS]))
     mip_t, env_t = (ks.mip_tf if use_tf else ks.mip), ks.env
+    if mip_u8:
+        mip_t = ks.mip_u8
+        mip_lo, mip_sc = s3(PF_MIP_LO, 4), s3(PF_MIP_SCALE, 4)
+    if pool_rgbe:   # POOL_N rows [w, pdf], then POOL_N radiance words
+        pool_rows, pool_words = pool[:4 * POOL_N].view(f32).reshape(POOL_N, 4), pool[4 * POOL_N:]
 
     def count(event, mask):
         if stats is not None:
@@ -190,6 +220,12 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
             bym = torch.clamp(iy >> (3 + m), 0, my - 1)
             bzm = torch.clamp(iz >> (3 + m), 0, mz - 1)
             idx = torch.where(mip_i == m, mip_offsets[m] + (bzm * my + bym) * mx + bxm, idx)
+        if mip_u8:  # quantised up, baked like the TF table (kernel.py:952-958)
+            lo, sc = zero, zero
+            for m in range(4):
+                lo = torch.where(mip_i == m, mip_lo[m], lo)
+                sc = torch.where(mip_i == m, mip_sc[m], sc)
+            return lo + mip_t[idx.long()].to(f32) * sc
         if use_tf:  # the baked table holds majorant * tf_alpha(...)
             return mip_t[idx.long()]
         return density_scale * mip_t[idx.long()]
@@ -366,10 +402,13 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         seed, _u1 = rng_masked(seed, act)
         st["seed"] = seed
         pidx = torch.clamp((u0 * POOL_N).to(i32), 0, POOL_N - 1).long()
-        row = pool[pidx]
+        if pool_rgbe:
+            row, le = pool_rows[pidx], _plain_rgbe_decode(pool_words[pidx]).unbind(1)
+        else:
+            row = pool[pidx]
+            le = (row[:, 4], row[:, 5], row[:, 6])
         w_i = (row[:, 0], row[:, 1], row[:, 2])
         pdf_nee = row[:, 3]
-        le = (row[:, 4], row[:, 5], row[:, 6])
         th = st["th"]
         thr = _w3(act, (th[0] * mult[0], th[1] * mult[1], th[2] * mult[2]), th)
         st["th"] = thr
@@ -414,7 +453,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
             xw = torch.clamp(torch.where(xw >= EW, xw - EW, xw), 0, EW - 1)
             yc = torch.clamp(yt, 0, EH - 1)
             eidx = torch.where(esc, yc * EW + xw, 0).long()
-            e = env_t[eidx]
+            e = _plain_rgbe_decode(ks.env_rgbe[eidx]) if env_rgbe else env_t[eidx]
             le_env = tuple(env_strength * e[:, k] for k in range(3))
             pdf_esc = luma(le_env) / imp_avg * INV_4PI
             a2 = st["last_f_p"] * st["last_f_p"]
@@ -530,24 +569,32 @@ def build(flags: list[str] = NVCC_FLAGS, source: str = SOURCE) -> str:
 
 
 def _variant_name(kernel: str) -> str:
-    flags = re.search(r"ILb([01])ELb([01])ELb([01])E", kernel)
+    flags = re.search(r"ILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E", kernel)
     if not flags:
         return kernel
-    return f"<{flags.group(1)},{flags.group(2)}>" + (" stats" if flags.group(3) == "1" else "")
+    tf, emi, stats, mip_u8, rgbe = flags.groups()
+    packs = "+".join(name for name, on in (("u8", mip_u8), ("rgbe", rgbe)) if on == "1")
+    return (f"<{tf},{emi}>" + (f" {packs}" if packs else "")
+            + (" stats" if stats == "1" else ""))
 
 
 def resource_usage(lib_path: str) -> str:
     """ptxas's register, stack and spill lines for the library at
     ``lib_path``, one entry per kernel instantiation, named by its
-    <USE_TF, HAS_EMI> template arguments ("stats" for the STATS ones)."""
+    <USE_TF, HAS_EMI> template arguments, then "u8" (MIP_U8), "rgbe" (the
+    RGBE reads) or "u8+rgbe" for a packed one, and "stats" for the STATS
+    ones."""
     return "; ".join(_build.resource_usage(lib_path, _variant_name))
 
 
 def load(lib_path: str) -> ctypes.CDLL:
     """Load a built library and declare its C entry point."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.load(lib_path, {"volren_render": [p] * 17 + [i, p],
-                                  "volren_launch_blocks": [i] * 6})
+    return _build.load(lib_path, {"volren_render": [p] * 17 + [i, i, p],
+                                  "volren_launch_blocks": [i] * 7,
+                                  "volren_rgbe_decode": [p, p, ctypes.c_longlong, p],
+                                  "volren_rgbe_encode": [p, ctypes.c_longlong, p,
+                                                         ctypes.c_longlong, p]})
 
 
 def _lib():
@@ -575,14 +622,23 @@ def _check_grid(prefix, atlas, slot, lo, hi, n_bricks, n_slots):
     _check(hi, f"{prefix}hi", torch.float32, (bx * by * bz,))
 
 
+def _pack_bits(*packs) -> int:
+    return sum(1 << k for k, on in enumerate(packs) if on)
+
+
 def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
                  pi: np.ndarray, lib: ctypes.CDLL | None = None,
                  stats: torch.Tensor | None = None,
                  btimes: torch.Tensor | None = None) -> torch.Tensor:
     use_tf, has_emi = _variant(ks, pi)
+    mip_u8, env_rgbe, pool_rgbe = _packs(ks, pool)
     _check_grid("", ks.atlas, ks.slot, ks.lo, ks.hi, ks.n_bricks, int(pi[PI_N_SLOTS]))
-    mip = ks.mip_tf if use_tf else ks.mip
-    _check(mip, "mip_tf" if use_tf else "mip", torch.float32, tuple(ks.mip.shape))
+    if mip_u8:
+        mip = ks.mip_u8
+        _check(mip, "mip_u8", torch.uint8, tuple(ks.mip.shape))
+    else:
+        mip = ks.mip_tf if use_tf else ks.mip
+        _check(mip, "mip_tf" if use_tf else "mip", torch.float32, tuple(ks.mip.shape))
     ptrs = [0] * 5   # tf_lut, emi_atlas, emi_slot, emi_lo, emi_hi
     if use_tf:
         _check(ks.tf.lut, "tf.lut", torch.float32, (int(pi[PI_TF_SIZE]), 4))
@@ -591,8 +647,17 @@ def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         _check_grid("emi_", ks.emi_atlas, ks.emi_slot, ks.emi_lo, ks.emi_hi, ks.emi_n_bricks,
                     int(pi[PI_EMI_N_SLOTS]))
         ptrs[1:] = [t.data_ptr() for t in (ks.emi_atlas, ks.emi_slot, ks.emi_lo, ks.emi_hi)]
-    _check(ks.env, "env", torch.float32, (int(pi[PI_ENV_H]) * int(pi[PI_ENV_W]), 3))
-    _check(pool, "pool", torch.float32, (POOL_N, 8))
+    n_texels = int(pi[PI_ENV_H]) * int(pi[PI_ENV_W])
+    if env_rgbe:
+        env = ks.env_rgbe
+        _check(env, "env_rgbe", torch.int32, (n_texels,))
+    else:
+        env = ks.env
+        _check(env, "env", torch.float32, (n_texels, 3))
+    if pool_rgbe:
+        _check(pool, "pool", torch.int32, (5 * POOL_N,))
+    else:
+        _check(pool, "pool", torch.float32, (POOL_N, 8))
     n_pix = int(pi[PI_WIDTH]) * int(pi[PI_ROWS])
     out = torch.empty(n_pix, 4, dtype=torch.float32, device=ks.atlas.device)
     pf = np.ascontiguousarray(pf, np.float32)
@@ -602,9 +667,10 @@ def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     stream = torch.cuda.current_stream(ks.atlas.device).cuda_stream
     err = (lib or _lib()).volren_render(
         pf.ctypes.data, pi.ctypes.data, ks.atlas.data_ptr(), ks.slot.data_ptr(),
-        ks.lo.data_ptr(), ks.hi.data_ptr(), mip.data_ptr(), ks.env.data_ptr(),
+        ks.lo.data_ptr(), ks.hi.data_ptr(), mip.data_ptr(), env.data_ptr(),
         pool.data_ptr(), *ptrs, out.data_ptr(), 0 if stats is None else stats.data_ptr(),
-        0 if btimes is None else btimes.data_ptr(), n_pix, stream)
+        0 if btimes is None else btimes.data_ptr(), _pack_bits(mip_u8, env_rgbe, pool_rgbe),
+        n_pix, stream)
     if err != 0:
         raise RuntimeError(f"megakernel launch failed: CUDA error {err}")
     return out
@@ -614,9 +680,11 @@ def render(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
            pi: np.ndarray) -> torch.Tensor:
     """Render one dispatch; returns the (rows*W, 4) per-pixel sums of its
     band (H*W: the whole frame). CUDA tensors launch the CUDA kernel's
-    variant for the scene (and add one to ``render.launches`` and to
-    ``render.launches_by_variant[(use_tf, has_emi)]``; a band of no rows
-    launches nothing); CPU tensors run ``render_plain``."""
+    instantiation for the scene and its packed tables (and add one to
+    ``render.launches``, to ``render.launches_by_variant[(use_tf,
+    has_emi)]`` and to ``render.launches_by_packs[(use_tf, has_emi,
+    mip_u8, env_rgbe, pool_rgbe)]``; a band of no rows launches nothing);
+    CPU tensors run ``render_plain``."""
     if ks.atlas.is_cuda and int(pi[PI_ROWS]) == 0:
         _variant(ks, pi)
         return torch.zeros(0, 4, dtype=torch.float32, device=ks.atlas.device)
@@ -625,6 +693,8 @@ def render(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         render.launches += 1
         variant = (ks.tf is not None, ks.emi_atlas is not None)
         render.launches_by_variant[variant] = render.launches_by_variant.get(variant, 0) + 1
+        packed = variant + _packs(ks, pool)
+        render.launches_by_packs[packed] = render.launches_by_packs.get(packed, 0) + 1
         return out
     if ks.atlas.device.type != "cpu":
         raise ValueError(f"unsupported device {ks.atlas.device}")
@@ -633,6 +703,7 @@ def render(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
 
 render.launches = 0
 render.launches_by_variant = {}
+render.launches_by_packs = {}
 
 
 # the STATS instantiation's counters, in csrc/megakernel.cu's order: the
@@ -662,7 +733,8 @@ def render_stats(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     dev = ks.atlas.device
     use_tf, has_emi = _variant(ks, pi)
     n_blocks = lib.volren_launch_blocks(int(pi[PI_WIDTH]), int(pi[PI_ROWS]), int(pi[PI_SPP]),
-                                        int(use_tf), int(has_emi), 1)
+                                        int(use_tf), int(has_emi), _pack_bits(*_packs(ks, pool)),
+                                        1)
     counters = torch.zeros(len(STATS), dtype=torch.int64, device=dev)
     btimes = torch.zeros(n_blocks, 2, dtype=torch.int64, device=dev)
     out = _launch_cuda(ks, pool, pf, pi, lib=lib, stats=counters, btimes=btimes)
@@ -681,3 +753,49 @@ def render_stats(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
 
 
 render_stats.launches = 0
+
+
+def rgbe_encode(rgb: torch.Tensor) -> torch.Tensor:
+    """(n, 3) float32 -> (n,) int32 RGBE words through the library's encode
+    kernel on CUDA tensors (one launch; adds one to
+    ``rgbe_encode.launches``; the rows may be a strided view, such as a
+    pool's radiance columns), ``pack.rgbe_encode_plain`` on CPU tensors:
+    bitwise the same words. ``pack.rgbe_encode`` calls it for CUDA
+    tensors."""
+    if not rgb.is_cuda:
+        return _plain_rgbe_encode(rgb)
+    if rgb.dtype != torch.float32 or rgb.dim() != 2 or rgb.shape[1] != 3 or rgb.stride(1) != 1:
+        raise ValueError(f"rgb must be (n, 3) float32 rows with unit column stride, got "
+                         f"{rgb.dtype} {tuple(rgb.shape)} strides {rgb.stride()}")
+    words = torch.empty(rgb.shape[0], dtype=torch.int32, device=rgb.device)
+    err = _lib().volren_rgbe_encode(rgb.data_ptr(), rgb.stride(0), words.data_ptr(),
+                                    rgb.shape[0],
+                                    torch.cuda.current_stream(rgb.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"RGBE encode launch failed: CUDA error {err}")
+    rgbe_encode.launches += 1
+    return words
+
+
+rgbe_encode.launches = 0
+
+
+def rgbe_decode(words: torch.Tensor) -> torch.Tensor:
+    """(n,) int32 RGBE words -> (n, 3) float32 through the kernel's own
+    decode on CUDA tensors (the device function the escape and the NEE
+    read packed tables with; adds one to ``rgbe_decode.launches``), or
+    ``pack.rgbe_decode`` on CPU tensors. No render path calls it: it holds
+    the device decode to the plain one."""
+    if not words.is_cuda:
+        return _plain_rgbe_decode(words)
+    _check(words, "words", torch.int32, (words.numel(),))
+    out = torch.empty(words.numel(), 3, dtype=torch.float32, device=words.device)
+    err = _lib().volren_rgbe_decode(words.data_ptr(), out.data_ptr(), words.numel(),
+                                    torch.cuda.current_stream(words.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"RGBE decode launch failed: CUDA error {err}")
+    rgbe_decode.launches += 1
+    return out
+
+
+rgbe_decode.launches = 0

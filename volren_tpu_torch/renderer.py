@@ -10,6 +10,15 @@ applies the Hable tonemap. On a CUDA device a trace launches the CUDA
 megakernel; on the CPU it runs the kernel's plain torch version. The
 choice follows ``device`` and is recorded in ``last_engine``.
 
+Three switches, named after volren_tpu.renderer.Renderer's, make the
+megakernel read packed tables (ops/kernels/pack.py): ``pallas_mip_u8``
+("0", "1" or "auto") the majorant pyramid quantised up to one byte an
+entry, built once per trace; ``pallas_env_rgbe`` the environment's texels
+as RGBE words; ``pallas_pool_rgbe`` the NEE pool's radiance as RGBE words.
+All three are off by default here; volren_tpu's Pallas path runs all
+three on. Each changes the image within its noise (a looser majorant adds
+null collisions; RGBE keeps 1/256 of a texel), not its mean.
+
 ``engine = "oracle"`` traces with the oracle engine instead
 (volren_tpu.ops.tracer, the GLSL-order tracer): one progressive pass per
 sample, up to DISPATCH_SPP of them in one launch of ``csrc/oracle.cu`` on a
@@ -43,7 +52,8 @@ import torch
 from .ops import scene as dscene
 from .ops import tonemap as _tonemap
 from .ops.kernels import megakernel, oracle
-from .ops.kernels.pack import DISPATCH_SPP, bake_tf_majorant, build_env_pool, pack_scene
+from .ops.kernels.pack import (DISPATCH_SPP, bake_mip_u8, bake_tf_majorant, build_env_pool,
+                               pack_pool_rgbe, pack_scene)
 from .parallel import sharding
 from .scene.camera import Camera
 from .scene.environment import Environment
@@ -98,7 +108,7 @@ class Renderer:
         self._density_ranges = []  # per-frame (density grid, its minorant_majorant())
         self._emission_grids = []  # per-frame GridTables or None
         self._majorant_emission = 0.0
-        self._packed = None        # (frame, KernelScene)
+        self._packed = None        # ((frame, env_rgbe), KernelScene)
         self._env_device = None
         self._tf_device = None
         self._engine = ENGINE
@@ -112,6 +122,13 @@ class Renderer:
         # the parallel.sharding.Mesh the megakernel renders across: a world
         # of one until distribute()
         self.mesh = sharding.Mesh(1, 1)
+        # the megakernel's packed tables (the module docstring; the oracle
+        # reads none). "auto" is off: volren_tpu turns the u8 pyramid on
+        # only for scenes its Pallas kernel must read from HBM, a mode the
+        # port does not have (every table is a plain global load here)
+        self.pallas_mip_u8 = "0"
+        self.pallas_env_rgbe = False
+        self.pallas_pool_rgbe = False
 
     # ---- engine selection (volren_tpu.renderer's names) ----
 
@@ -235,17 +252,47 @@ class Renderer:
                                   emission=self._frame_emission(), env=self._env_device,
                                   tf=self._tf_device)
 
+    def _mip_u8(self) -> bool:
+        """Whether a trace reads the u8 majorant pyramid (``pallas_mip_u8``)."""
+        if self.pallas_mip_u8 not in ("0", "1", "auto"):
+            raise ValueError(f"pallas_mip_u8 is one of '0', '1', 'auto', not "
+                             f"{self.pallas_mip_u8!r}")
+        return self.pallas_mip_u8 == "1"
+
+    def _switch(self, name: str) -> bool:
+        """The boolean switch ``name`` (``pallas_env_rgbe``,
+        ``pallas_pool_rgbe``); anything but True or False raises."""
+        value = getattr(self, name)
+        if value not in (True, False):
+            raise ValueError(f"{name} is True or False, not {value!r}")
+        return bool(value)
+
     def _kernel_scene(self):
         """The kernel's tables for the current frame (packed once per
-        frame), with the TF majorant table baked for the current trace
-        parameters when a transfer function is set."""
-        frame = self.volume.grid_frame_counter
-        if self._packed is None or self._packed[0] != frame:
-            self._packed = (frame, pack_scene(self._density_grids[frame], self._env_device,
-                                              tf=self._tf_device,
-                                              emission=self._emission_grids[frame]))
+        frame, with the environment's RGBE table when ``pallas_env_rgbe``
+        is on), with the TF majorant table baked for the current trace
+        parameters when a transfer function is set, and then the u8
+        pyramid of the baked table when ``pallas_mip_u8`` is "1"."""
+        frame, env_rgbe = self.volume.grid_frame_counter, self._switch("pallas_env_rgbe")
+        if self._packed is None or self._packed[0] != (frame, env_rgbe):
+            self._packed = ((frame, env_rgbe), pack_scene(
+                self._density_grids[frame], self._env_device, tf=self._tf_device,
+                emission=self._emission_grids[frame], env_rgbe=env_rgbe))
         ks = self._packed[1]
-        return ks if ks.tf is None else bake_tf_majorant(ks, self._trace_params())
+        mip_u8 = self._mip_u8()
+        if ks.tf is None and not mip_u8:
+            return ks
+        params = self._trace_params()
+        if ks.tf is not None:
+            ks = bake_tf_majorant(ks, params)
+        return bake_mip_u8(ks, params) if mip_u8 else ks
+
+    def _env_pool(self, spp_base: int):
+        """The NEE pool of the dispatch whose first sample is ``spp_base``,
+        drawn from (seed, spp_base); its radiance as RGBE words when
+        ``pallas_pool_rgbe`` is on."""
+        pool = build_env_pool(self._env_device, int(self.seed), int(spp_base))
+        return pack_pool_rgbe(pool) if self._switch("pallas_pool_rgbe") else pool
 
     # ---- rendering ----
 
@@ -283,7 +330,7 @@ class Renderer:
             n = min(DISPATCH_SPP, spp)
             with torch.profiler.record_function("volren_tpu_torch.megakernel"):
                 # the NEE pool is redrawn for every dispatch from (seed, sample)
-                pool = build_env_pool(self._env_device, int(self.seed), int(self.sample))
+                pool = self._env_pool(self.sample)
                 accum = sharding.render_sharded(ks, pool, params, self._width, self._height,
                                                 n, self.sample, self.mesh)
             self.last_engine = "cuda_kernel" if self.device.type == "cuda" else "torch_plain"
@@ -377,7 +424,7 @@ class Renderer:
     def describe(self) -> dict:
         """All live parameters, under volren_tpu.renderer.Renderer.describe's
         keys (``engine`` names the port's engine: "megakernel" or
-        "oracle")."""
+        "oracle"), then the three packed-table switches."""
         return {
             "sample": self.sample,
             "sppx": self.sppx,
@@ -408,6 +455,10 @@ class Renderer:
                 "window_left": self.transferfunc.window_left,
                 "window_width": self.transferfunc.window_width,
             },
+            # the megakernel's packed tables, after volren_tpu's keys
+            "pallas_mip_u8": self.pallas_mip_u8,
+            "pallas_env_rgbe": self.pallas_env_rgbe,
+            "pallas_pool_rgbe": self.pallas_pool_rgbe,
         }
 
     def __repr__(self) -> str:
