@@ -9,10 +9,12 @@ of which raises on failure (exit code non-zero, no result line):
 1. toolchain: torch, CUDA, nvcc, triton, and the card's name and power
    limit from nvidia-smi;
 2. build: the CUDA megakernel, its four <USE_TF, HAS_EMI> instantiations
-   on the float32 tables and, for each, its three packed ones (<MIP_U8>,
-   <RGBE>, <MIP_U8, RGBE>: the u8 majorant pyramid, the RGBE environment
-   and NEE pool; all with their STATS twins), the probe kernels and the
-   oracle engine's
+   on the float32 tables (their registers must stay 62 / 64 / 70 / 80, with
+   no spill) and,
+   for each, its three packed ones (the RGBE environment and NEE pool under
+   their flags; the u8 majorant pyramid with them; all three at compile
+   time, volren_tpu's default; all with their STATS twins), the u8
+   pyramid's build kernel, the probe kernels and the oracle engine's
    eight <USE_DDA, USE_TF, HAS_EMI> instantiations, compiled with nvcc for
    sm_90a from volren_tpu_torch/csrc into build/ (one nvcc per source, in
    parallel), with ptxas's registers, stack and spill of each;
@@ -28,7 +30,8 @@ of which raises on failure (exit code non-zero, no result line):
    seed-to-seed noise with the mean within 5%. The same with the packed
    tables (Renderer.pallas_mip_u8 / pallas_env_rgbe / pallas_pool_rgbe):
    all three on, in every variant, on both scenes at both spp, and each
-   alone on the random grid at 4 spp, each launching its instantiation;
+   alone and the u8 pyramid with either RGBE read on the random grid at 4
+   spp, each launching its instantiation;
 4. kernel vs plain at the paths' shapes: one 4-spp dispatch of the whole
    cloud512 at 1024x1024 through both, for the plain path, the TF path,
    the emission path (a 256x256x128 temperature grid made from --seed) and
@@ -42,7 +45,14 @@ of which raises on failure (exit code non-zero, no result line):
    pack alone), timed in turns (CUDA events, three rounds), each with its
    bound from its STATS twin's counts; the RGBE encode kernel (the packed
    tables' feeder) on a dispatch's pool radiance and the sky's texels,
-   bitwise its plain version, timed;
+   bitwise its plain version, timed, and its packed pool (rows and words in
+   one launch) bitwise the plain version's; the u8 pyramid's build kernel
+   bitwise its plain version on cloud512's pyramid (times density_scale and
+   TF-baked), the random grid's and ragged levels with a level of one value
+   and one of zeros, timed beside its bound; the plain path's 64-spp
+   dispatch on the float32 texels and on the RGBE environment under a
+   4096x2048 procedural sky (its texels over the card's L2, its words under
+   it), timed in turns, with the seconds the sky's tables took;
 5. the main path: volren_tpu_torch.cli renders cloud512 at 1024x1024,
    256 spp (four 64-spp dispatches), 100 bounces, under a procedural sky
    made from --seed;
@@ -50,10 +60,12 @@ of which raises on failure (exit code non-zero, no result line):
 7. the emission path: the same scene with the temperature grid, through
    Renderer.trace(256); then each of the four paths through
    Renderer.render(256) at the same shapes on the float32 tables and with
-   all three packs on, in turns (f32, packed, packed, f32): spp/s of each,
-   the packed instantiation and the RGBE encode kernel launched (counts
-   set to 0 before a run, read after it), 0 capped samples, and the packed
-   image's mean within 5% of the float32 image's;
+   all three packs on, each in a Renderer of its own, in turns (f32,
+   packed, packed, f32): spp/s of each, the packed instantiation, the RGBE
+   encode kernel (once a dispatch) and the u8 pyramid's build kernel (once
+   a trace) launched (counts set to 0 before a run, read after it), 0
+   capped samples, the packed image's mean within 5% of the float32
+   image's, and the trace's u8 pyramid baked again with no host sync;
 8. the probe kernels (volren_tpu_torch/csrc/probes.cu, built in phase 2
    beside the megakernel, ptxas's lines printed): for each of the 28 Pallas
    call sites they replace (volren_tpu_torch.probes.sites), one call at the
@@ -160,7 +172,8 @@ instantiation (megakernel.render_stats), which must render the same image
 (phases 3-4), count 0 capped samples, and in phase 4 count the events the
 plain version counts.
 
-The last three lines are the card line from nvidia-smi, a JSON object
+Each phase prints its seconds. The last three lines are the card line
+from nvidia-smi, a JSON object
 describing each kernel, and the device record
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -195,6 +208,10 @@ KERNELS = (("megakernel", "plain", "volren_tpu/ops/pallas/kernel.py:602"),
 NO_PACKS, ALL_PACKS = (False, False, False), (True, True, True)
 PACK_SETS = {"u8": (True, False, False), "env_rgbe": (False, True, False),
              "pool_rgbe": (False, False, True), "all": ALL_PACKS}
+# phase 3 also runs the u8 pyramid with either RGBE read (the flags of the
+# u8 instantiation; all three are another instantiation)
+CMP_PACK_SETS = {**PACK_SETS, "u8+env_rgbe": (True, True, False),
+                 "u8+pool_rgbe": (True, False, True)}
 PACKED_REPLACES = ("volren_tpu/ops/pallas/kernel.py:780-826, :952-958 (mip_u8), :833-838, "
                    ":1753-1794 (env_rgbe), :687, :1626-1635 (pool_rgbe)")
 PACK_ROUNDS = 3                            # phase 4: 64-spp dispatches timed in turns
@@ -202,6 +219,14 @@ PACK_ROUNDS = 3                            # phase 4: 64-spp dispatches timed in
 # and a row's float32 operations (an FMA two) for its bound
 RGBE_ENCODE_REPLACES = "volren_tpu/ops/pallas/pack.py:118 (rgbe_encode; XLA, no pallas_call)"
 RGBE_ENCODE_OPS = 87
+# the u8 pyramid's build kernel: what it replaces, and an entry's float32
+# operations for its bound (the scale's product, min and max, the
+# subtraction, division, ceiling, clamps, FMA, comparison and bump)
+MIP_U8_REPLACES = "volren_tpu/ops/pallas/pack.py:361-384 (_build_mip_u8_jit; XLA, no pallas_call)"
+MIP_U8_OPS = 13
+# phase 4: the large sky (100.7 MB of float32 texels, over the card's 50 MB
+# of L2; 33.6 MB of RGBE words, under it)
+BIG_SKY = (4096, 2048)
 FRAMES = 3                                 # phase 9's animated folder
 ORACLE_SPP, ORACLE_BOUNCES = 16, 16        # phase 10: the full-width path; kernel vs plain
 ORACLE_LAUNCHES = (1, 2, 5, 33)            # 10.1: passes of the launches, one after another
@@ -525,6 +550,23 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
     del straight
     torch.cuda.empty_cache()
     return tf_emission
+
+
+def _ragged_pyramid(dev):
+    """A flat pyramid of 4 levels of ragged sizes, with exact zeros where a
+    level's minimum is 0, a level of one value (scale 0) and a level of
+    zeros: (mip, dims, offsets)."""
+    import numpy as np
+    import torch
+
+    dims = ((7, 5, 13), (4, 3, 7), (2, 2, 4), (1, 1, 2))
+    counts = [int(np.prod(d)) for d in dims]
+    offs = tuple(int(v) for v in np.cumsum([0] + counts[:-1]))
+    mip = (np.random.default_rng(5).random(sum(counts)) ** 3 * 40.0).astype(np.float32)
+    mip[offs[1]:offs[1] + 9] = 0.0
+    mip[offs[2]:offs[3]] = 2.5
+    mip[offs[3]:] = 0.0
+    return torch.as_tensor(mip, device=dev), dims, offs
 
 
 def _spread(n, stride):
@@ -1082,7 +1124,9 @@ def main(argv=None) -> int:
     from volren_tpu_torch.probes._common import Context, interleaved_ms
     from volren_tpu_torch.probes.sites import Q3_OPS, SITES
     from volren_tpu_torch.renderer import DISPATCH_SPP
-    from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params, rgbe_encode_plain
+    from volren_tpu_torch.ops.kernels.pack import bake_mip_u8, bake_tf_majorant, build_env_pool, \
+        build_params, pack_pool_rgbe, rgbe_encode_plain
+    from volren_tpu_torch.ops.kernels.pack import build_mip_u8 as build_mip_u8_plain
     from volren_tpu_torch.scene.environment import Environment, procedural_sky
     from volren_tpu_torch.utils.hdr import write_hdr
     from volren_tpu_torch.voldata import DenseGrid, Volume, read_brick
@@ -1115,6 +1159,13 @@ def main(argv=None) -> int:
                         usage)
     print(f"    megakernel registers with the row band {regs}, before it {PREV_REGISTERS}; "
           f"spill stores (bytes) {spills}", flush=True)
+    f32_frames = dict((k, (int(a), int(b))) for k, a, b in re.findall(
+        r"(<[01],[01]>) (\d+) bytes stack frame, (\d+) bytes spill stores", usage))
+    print(f"    f32 instantiations' (stack, spill stores) bytes {f32_frames}", flush=True)
+    if {k: int(v) for k, v in regs.items()} != PREV_REGISTERS or \
+            any(spill for _stack, spill in f32_frames.values()):
+        raise AssertionError(f"the f32 instantiations' registers or spills changed: {regs}, "
+                             f"{f32_frames}")
     packed = dict(re.findall(r"(<[01],[01]> (?:u8|rgbe|u8\+rgbe)(?: stats)?) Used (\d+) registers",
                              usage))
     packed_spills = re.findall(
@@ -1124,6 +1175,9 @@ def main(argv=None) -> int:
           f"{packed_spills}", flush=True)
     if len(packed) != 24:
         raise AssertionError(f"expected 24 packed instantiations, ptxas reported {sorted(packed)}")
+    print(f"    the u8 pyramid's build kernel: "
+          f"{[u for u in usage.split('; ') if 'mip_u8_build' in u]}", flush=True)
+    print(f"phases 1-2 took {time.time() - t_smoke!r} s", flush=True)
     print(f"    ptxas oracle.cu <USE_DDA,USE_TF,HAS_EMI>: {oracle.resource_usage(oracle_lib)}",
           flush=True)
     for line in probe_kernels.resource_usage(probe_lib):
@@ -1219,7 +1273,7 @@ def main(argv=None) -> int:
                     first = a, plain
                 # the packed instantiations: all three packs everywhere, each
                 # alone on the random grid at 4 spp
-                for pname, packs in PACK_SETS.items():
+                for pname, packs in CMP_PACK_SETS.items():
                     if pname != "all" and (spp != CMP_SPP[0] or name != "random16"):
                         continue
                     plabel = f"{label}, packed {pname}"
@@ -1329,8 +1383,10 @@ def main(argv=None) -> int:
             st = uncapped(f"cloud512 {path} {RES}x{RES}, {DISPATCH_SPP} spp, {pname}", inputs)
             bound_ms, bound_by, _nb, _no = kernel_bound(inputs[0], inputs[1], inputs[3], st)
             med = float(np.median(times[pname]))
+            levels = [st[k] for k in megakernel.LEVEL_COUNTS if k in st]
             line.append(f"{pname} {med!r} ms (rounds {times[pname]!r}), bound {bound_ms!r} ms by "
-                        f"{bound_by}, {st['march']} substeps, {st['test']} tests")
+                        f"{bound_by}, {st['march']} substeps"
+                        + (f" (levels 0-3: {levels})" if levels else "") + f", {st['test']} tests")
             if pname == "all":
                 record[f"{kname}_packed"].update(ms_64spp=med, bound_ms_64spp=bound_ms)
             elif pname == "f32":
@@ -1361,7 +1417,88 @@ def main(argv=None) -> int:
         if label == "pool radiance":
             record["rgbe_encode"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                                      "bound_ms": bound_ms, "bound_by": bound_by}
-    del r, encode_rows
+    pool = build_env_pool(r._env_device, args.seed, 0)
+    got = pack_pool_rgbe(pool)
+    want = torch.cat([pool[:, :4].contiguous().view(torch.int32).reshape(-1),
+                      rgbe_encode_plain(pool[:, 4:7])])
+    if not torch.equal(got, want):
+        raise AssertionError("pack_pool_rgbe: the encode kernel's packed pool is not the plain "
+                             "version's")
+    print(f"pack_pool_rgbe: one launch of the encode kernel, bitwise the plain version's rows "
+          f"and words ({got.numel()} words)", flush=True)
+    del r, encode_rows, pool, got, want
+
+    # the u8 pyramid's build kernel against its plain version (torch ops on
+    # the same CUDA tensors): cloud512's pyramid times density_scale and
+    # TF-baked, the random 16^3 grid's, and ragged levels with a level of
+    # one value, a level of zeros and exact zeros
+    builds = []
+    for label, path in (("cloud512", "plain"), ("cloud512 TF-baked", "tf")):
+        r = path_renderer(Volume(CLOUD), sky, RES, args.seed, path, device=dev)
+        ks, tp = r._kernel_scene(), r._trace_params()
+        builds.append((label, ks.mip_tf if path == "tf" else ks.mip, ks.mip_dims,
+                       ks.mip_offsets, None if path == "tf" else tp.density_scale))
+        del r
+    ks, _pool, _pf, _pi = scene(Volume(DenseGrid(16, 16, 16, g16)), CMP_RES, args.seed, 4)
+    builds.append(("random16", ks.mip, ks.mip_dims, ks.mip_offsets, 1.7))
+    builds.append(("ragged", *_ragged_pyramid(dev), None))
+    for label, mip, dims, offs, scale in builds:
+        q, dq = megakernel.build_mip_u8(mip, dims, offs, scale)
+
+        def plain(mip=mip, dims=dims, offs=offs, scale=scale):
+            base = mip if scale is None else mip * torch.tensor(float(scale), device=dev)
+            q, lo, sc = build_mip_u8_plain(base, dims, offs)
+            return q, torch.stack([lo, sc])
+
+        plain_ms, (want_q, want_dq) = host_ms(plain)
+        if not (torch.equal(q, want_q) and torch.equal(dq, want_dq)):
+            raise AssertionError(f"build_mip_u8 [{label}]: the kernel's bytes or (lo, scale) "
+                                 f"rows are not the plain version's")
+        ms = cuda_ms(lambda: megakernel.build_mip_u8(mip, dims, offs, scale), 20)
+        n = mip.numel()
+        t_bytes, t_ops = (n * 5 + 32) / PEAK_BYTES_S, n * MIP_U8_OPS / PEAK_F32_S
+        bound_ms = max(t_bytes, t_ops) * 1e3
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"build_mip_u8 [{label}, {n} entries, levels {dims}]: bitwise its plain version, "
+              f"(lo, scale) {dq.tolist()}; kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
+              f"{bound_ms!r} ms by {bound_by} on {gpu_line}", flush=True)
+        if label == "cloud512":
+            record["build_mip_u8"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                      "bound_ms": bound_ms, "bound_by": bound_by}
+    del builds, ks
+
+    # where the RGBE environment pays: a sky whose float32 texels overflow
+    # the L2 and whose RGBE words fit in it, the plain path's 64-spp
+    # dispatch on each, in turns
+    t_sky = time.time()
+    big = Environment(procedural_sky(*BIG_SKY, args.seed))
+    r = path_renderer(Volume(CLOUD), big, RES, args.seed, "plain", device=dev)
+    big_sets = {"f32": NO_PACKS, "env_rgbe": PACK_SETS["env_rgbe"]}
+    dispatches = {}
+    for pname, packs in big_sets.items():
+        set_packs(r, packs)
+        ks = r._kernel_scene()
+        pf, pi = build_params(ks, r._trace_params(), RES, RES, 0, DISPATCH_SPP)
+        dispatches[pname] = (ks, r._env_pool(0), pf, pi)
+    torch.cuda.synchronize()
+    t_sky = time.time() - t_sky
+    times = {pname: [] for pname in big_sets}
+    for _ in range(PACK_ROUNDS):
+        for pname, inputs in dispatches.items():
+            times[pname].append(cuda_ms(lambda: megakernel.render(*inputs), 3))
+    line = []
+    for pname, inputs in dispatches.items():
+        st = uncapped(f"cloud512 plain {RES}x{RES} under a {BIG_SKY[0]}x{BIG_SKY[1]} sky, "
+                      f"{pname}", inputs)
+        env = inputs[0].env_rgbe if pname == "env_rgbe" else inputs[0].env
+        line.append(f"{pname} {float(np.median(times[pname]))!r} ms (rounds {times[pname]!r}), "
+                    f"texels {env.numel() * env.element_size()} bytes, {st['escape']} escapes")
+    print(f"cloud512 plain {RES}x{RES}, {DISPATCH_SPP}-spp dispatch under a "
+          f"{BIG_SKY[0]}x{BIG_SKY[1]} procedural sky, in turns: " + "; ".join(line)
+          + f"; the sky and its tables built in {t_sky!r} s (host and card) on {gpu_line}",
+          flush=True)
+    del r, big, dispatches
+    torch.cuda.empty_cache()
     print(f"phase 4 took {time.time() - t_phase!r} s", flush=True)
 
     # ---- 5-7. the three paths through the entry points a user calls
@@ -1425,38 +1562,62 @@ def main(argv=None) -> int:
     check_path("megakernel_emission", "emission", run_emission)
 
     # the four paths again through Renderer.render, on the float32 tables
-    # and with all three packs, in turns: f32, packed, packed, f32
+    # and with all three packs, each layout in a Renderer of its own (its
+    # tables packed by an untimed render first), in turns: f32, packed,
+    # packed, f32
     for kname, path, _ in KERNELS:
-        r = path_renderer(Volume(CLOUD), sky, RES, args.seed, path, device=dev)
+        renderers = {}
+        for packed_run in (False, True):
+            renderers[packed_run] = path_renderer(Volume(CLOUD), sky, RES, args.seed, path,
+                                                  device=dev)
+            set_packs(renderers[packed_run], ALL_PACKS if packed_run else NO_PACKS)
+            renderers[packed_run].render(DISPATCH_SPP)
         runs = {False: [], True: []}
         for packed_run in (False, True, True, False):
             packs = ALL_PACKS if packed_run else NO_PACKS
-            set_packs(r, packs)
+            r = renderers[packed_run]
             key = VARIANT[path] + packs
             megakernel.render.launches = 0
             megakernel.render.launches_by_packs.clear()
             megakernel.rgbe_encode.launches = 0
+            megakernel.build_mip_u8.launches = 0
             seconds, _ = host_ms(lambda: r.render(SPP))
             seconds /= 1e3
             launches = megakernel.render.launches_by_packs.get(key, 0)
             if launches <= 0 or launches != megakernel.render.launches:
                 raise AssertionError(f"the {path} path ({'packed' if packed_run else 'f32'}) "
                                      f"launched {megakernel.render.launches_by_packs}")
-            encodes = megakernel.rgbe_encode.launches
-            if (encodes > 0) != packed_run:
+            encodes, builds = megakernel.rgbe_encode.launches, megakernel.build_mip_u8.launches
+            if (encodes, builds) != ((launches, 1) if packed_run else (0, 0)):
                 raise AssertionError(f"the {path} path ({'packed' if packed_run else 'f32'}) "
-                                     f"launched the RGBE encode {encodes} times")
+                                     f"launched the RGBE encode {encodes} and the u8 pyramid's "
+                                     f"build {builds} times in {launches} dispatches")
             if packed_run and path == "plain" and "launches" not in record["rgbe_encode"]:
                 record["rgbe_encode"]["launches"] = encodes
+                record["build_mip_u8"]["launches"] = builds
             fb = r.framebuffer()
             if tuple(fb.shape) != (RES, RES, 4) or not bool(torch.isfinite(fb).all()):
                 raise AssertionError(f"the packed {path} path's framebuffer is not finite")
             runs[packed_run].append((SPP / seconds, float(fb[..., :3].mean()), launches))
+        r = renderers[True]
         ks, tp = r._kernel_scene(), r._trace_params()
         for base in range(0, SPP, DISPATCH_SPP):
             pf, pi = build_params(ks, tp, RES, RES, base, DISPATCH_SPP)
             uncapped(f"the packed {path} path's dispatch at sample {base}",
                      (ks, r._env_pool(base), pf, pi))
+        # the trace's u8 pyramid, baked with no host sync (torch's sync
+        # debug mode raises on one)
+        frame = r._packed[1]
+        if frame.tf is not None:
+            frame = bake_tf_majorant(frame, tp)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            baked = bake_mip_u8(frame, tp)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if not (torch.equal(baked.mip_u8, ks.mip_u8) and torch.equal(baked.mip_dq, ks.mip_dq)):
+            raise AssertionError(f"the {path} path's u8 pyramid differs from its trace's")
         f32_mean, packed_mean = runs[False][0][1], runs[True][0][1]
         if not (f32_mean > 0.0 and abs(packed_mean - f32_mean) / f32_mean < 0.05):
             raise AssertionError(f"the packed {path} path's mean {packed_mean} is not within 5% "
@@ -1469,8 +1630,10 @@ def main(argv=None) -> int:
         record[f"{kname}_packed"].update(launches=runs[True][0][2],
                                          spp_s=[run[0] for run in runs[True]],
                                          spp_s_f32=[run[0] for run in runs[False]])
-        del r, fb
+        del r, renderers, fb, frame, baked
         torch.cuda.empty_cache()
+    print(f"the u8 pyramid baked with no host sync on each path; {record['build_mip_u8']} ",
+          flush=True)
     main_r = path_renderers.pop("plain")
     clean_fb = main_r.framebuffer()[..., :3].clone()
     main_r.render(MAIN_CMP_SPP)
@@ -1481,6 +1644,7 @@ def main(argv=None) -> int:
     print(f"phases 5-7 took {time.time() - t_phase!r} s", flush=True)
 
     # ---- 8. the probe kernels: kernel vs plain at each call site's shapes
+    t_phase = time.time()
     ctx = Context(dev)
 
     def reps_for(fn, launches_per_call=1):
@@ -1615,10 +1779,13 @@ def main(argv=None) -> int:
         raise AssertionError("the sites' stages are not every probe stage exactly once")
     print(f"probes: {len(every)} stages of python -m volren_tpu_torch.probes ok, in "
           f"{len(SITES)} call sites, on {gpu_line}", flush=True)
+    print(f"phase 8 took {time.time() - t_phase!r} s", flush=True)
 
     # ---- 9. the front ends
+    t_phase = time.time()
     record["megakernel_tf_emission"]["launches"] = front_ends(
         args.seed, sky_path, sky, gpu_line, scene, cuda_ms)
+    print(f"phase 9 took {time.time() - t_phase!r} s", flush=True)
 
     # ---- 10. the oracle engine
     oracle_record = oracle_phase(args.seed, sky_path, sky, gpu_line, cuda_ms, host_ms,
@@ -1641,6 +1808,9 @@ def main(argv=None) -> int:
     kernels.append(dict(name="rgbe_encode", route="cuda",
                         source="volren_tpu_torch/csrc/megakernel.cu",
                         replaces=RGBE_ENCODE_REPLACES, library_ms=None, **record["rgbe_encode"]))
+    kernels.append(dict(name="build_mip_u8", route="cuda",
+                        source="volren_tpu_torch/csrc/megakernel.cu",
+                        replaces=MIP_U8_REPLACES, library_ms=None, **record["build_mip_u8"]))
     kernels += [dict(name=site.name, route="cuda", source="volren_tpu_torch/csrc/probes.cu",
                      replaces=site.replaces, **record[site.name]) for site in SITES]
     kernels += [dict(name=name, route="cuda", source="volren_tpu_torch/csrc/oracle.cu",

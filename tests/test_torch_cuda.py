@@ -146,10 +146,12 @@ def test_kernel_matches_plain_version_at_ragged_shapes(spp, tf, emission):
 
 
 # the packed tables of a dispatch, (mip_u8, env_rgbe, pool_rgbe): each
-# alone (the two RGBE reads are flags of one instantiation) and all three
+# alone and the u8 pyramid with either RGBE read (the RGBE reads are flags
+# of the <MIP_U8> and the f32-pyramid instantiations) and all three (both
+# RGBE reads at compile time)
 PACK_SETS = [(True, False, False), (False, True, False), (False, False, True),
-             (True, True, True)]
-PACK_IDS = ["u8", "env_rgbe", "pool_rgbe", "all"]
+             (True, True, False), (True, False, True), (True, True, True)]
+PACK_IDS = ["u8", "env_rgbe", "pool_rgbe", "u8_env_rgbe", "u8_pool_rgbe", "all"]
 
 
 def _packed_inputs(r, packs, spp=SPP):
@@ -166,12 +168,13 @@ def _packed_inputs(r, packs, spp=SPP):
 @pytest.mark.parametrize("tf,emission", VARIANTS, ids=VARIANT_IDS)
 @pytest.mark.parametrize("spp", [3, 70])
 def test_packed_kernel_matches_plain_version_at_ragged_shapes(spp, tf, emission, packs):
-    """Every packed instantiation, <MIP_U8> and <RGBE> with either RGBE
-    read or both, in every variant, at 37 x 23 with 3 spp (several pixels
-    a warp) and 70 (two rounds of a warp's slots): the image bitwise the
-    plain version's and bitwise run to run, launched as its own
-    instantiation; its STATS twin renders the same image and counts the
-    events the plain version counts."""
+    """Every packed instantiation, with each of its RGBE flags, in every
+    variant, at 37 x 23 with 3 spp (several pixels a warp) and 70 (two
+    rounds of a warp's slots), the u8 pyramid's (lo, scale) read from the
+    device buffer its build kernel wrote: the image bitwise the plain
+    version's and bitwise run to run, launched as its own instantiation;
+    its STATS twin renders the same image and counts the events (and on a
+    u8 pyramid the march substeps at each level) the plain version counts."""
     r = _renderer(_cuda(), tf=tf, emission=emission, width=37, height=23)
     inputs = _packed_inputs(r, packs, spp)
     key = (tf, emission) + packs
@@ -185,6 +188,119 @@ def test_packed_kernel_matches_plain_version_at_ragged_shapes(spp, tf, emission,
     assert torch.equal(a, plain), float((a - plain).abs().max())
     again, counters = megakernel.render_stats(*inputs)
     assert torch.equal(again, a) and {k: counters[k] for k in stats} == stats
+    levels = [k for k in megakernel.LEVEL_COUNTS if k in counters]
+    assert levels == (list(megakernel.LEVEL_COUNTS) if packs[0] else [])
+    assert sum(counters[k] for k in levels) == (counters["march"] if packs[0] else 0)
+
+
+def _ragged_levels(dev, rng):
+    """A flat pyramid of 4 levels of ragged sizes, with a level of one
+    value and a level of zeros (dims, offsets): every case of the build."""
+    dims = ((7, 5, 13), (4, 3, 7), (2, 2, 4), (1, 1, 2))
+    counts = [int(np.prod(d)) for d in dims]
+    offs = tuple(int(v) for v in np.cumsum([0] + counts[:-1]))
+    mip = (rng.random(sum(counts)) ** 3 * 40.0).astype(np.float32)
+    mip[offs[1]:offs[1] + 9] = 0.0            # exact zeros where the level's minimum is 0
+    mip[offs[2]:offs[3]] = 2.5                # a level of one value: scale 0
+    mip[offs[3]:] = 0.0                       # a level of zeros
+    return torch.as_tensor(mip, device=dev), dims, offs
+
+
+def _build_cases(dev):
+    """(label, mip, dims, offsets, scale) at ragged level sizes, the random
+    16^3 scene's pyramid (density_scale and TF-baked) and cloud512's."""
+    rng = np.random.default_rng(5)
+    ragged = _ragged_levels(dev, rng)
+    yield "ragged", *ragged, None
+    yield "ragged x0.7", *ragged, 0.7
+    tiny = torch.as_tensor(rng.random(4).astype(np.float32), device=dev)
+    yield "one entry a level", tiny, ((1, 1, 1),) * 4, (0, 1, 2, 3), None
+    for tf in (False, True):
+        r = _renderer(dev, tf=tf)
+        ks, tp = r._kernel_scene(), r._trace_params()
+        if tf:
+            yield "random16 TF-baked", ks.mip_tf, ks.mip_dims, ks.mip_offsets, None
+        else:
+            yield "random16", ks.mip, ks.mip_dims, ks.mip_offsets, tp.density_scale
+    import os
+    cloud = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         ".scene_cache", "cloud512.brick")
+    r = Renderer(device=dev)
+    r.volume = Volume(cloud)
+    r.scale_and_move_to_unit_cube()
+    r.set_environment(Environment(procedural_sky(64, 32, seed=4)))
+    r.init(16, 16)
+    r.commit()
+    ks, tp = r._kernel_scene(), r._trace_params()
+    yield "cloud512", ks.mip, ks.mip_dims, ks.mip_offsets, tp.density_scale
+
+
+def test_device_build_mip_u8_is_the_plain_build():
+    """The u8 pyramid's build kernel against pack.build_mip_u8 (torch ops on
+    the same CUDA tensors) at ragged level sizes, with a level of one value
+    (scale 0), a level of zeros and exact zeros, one entry a level, with
+    and without a density_scale factor, on the test scene's pyramid and its
+    TF-baked one and on cloud512's: bytes and (lo, scale) rows bitwise, one
+    launch each, the rows left on the card."""
+    from volren_tpu_torch.ops.kernels.pack import build_mip_u8
+
+    dev = _cuda()
+    for label, mip, dims, offs, scale in _build_cases(dev):
+        before = megakernel.build_mip_u8.launches
+        q, dq = megakernel.build_mip_u8(mip, dims, offs, scale)
+        assert megakernel.build_mip_u8.launches == before + 1, label
+        base = mip if scale is None else mip * torch.tensor(float(scale), device=dev)
+        want_q, lo, sc = build_mip_u8(base, dims, offs)
+        assert q.device == dq.device == mip.device and dq.shape == (2, 4)
+        assert torch.equal(q, want_q), (label, int((q != want_q).sum()))
+        assert torch.equal(dq, torch.stack([lo, sc])), (label, dq, lo, sc)
+
+
+def test_bake_mip_u8_makes_no_host_sync():
+    """A trace with pallas_mip_u8 = "1" bakes the u8 pyramid with one launch
+    of the build kernel and no host sync (torch's sync debug mode raises on
+    one), for the plain and the TF scene, and renders as the plain version."""
+    from volren_tpu_torch.ops.kernels import pack
+
+    dev = _cuda()
+    for tf in (False, True):
+        r = _renderer(dev, tf=tf)
+        r.pallas_mip_u8 = "1"
+        r._kernel_scene()                     # the frame's tables, packed once
+        tp, ks = r._trace_params(), r._packed[1]
+        if tf:
+            ks = pack.bake_tf_majorant(ks, tp)
+        torch.cuda.synchronize()
+        before = megakernel.build_mip_u8.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            baked = pack.bake_mip_u8(ks, tp)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert megakernel.build_mip_u8.launches == before + 1
+        assert baked.mip_dq.is_cuda and baked.mip_u8.is_cuda
+        r.trace(3)
+        assert megakernel.build_mip_u8.launches == before + 2
+        inputs = _packed_inputs(r, (True, False, False), 3)
+        assert torch.equal(megakernel.render(*inputs), megakernel.render_plain(*inputs))
+
+
+def test_device_pack_pool_rgbe_is_the_plain_pack():
+    """The packed pool from one launch of the encode kernel (its [w, pdf]
+    rows and its radiance words) against the plain version's rows and
+    words, bitwise."""
+    from volren_tpu_torch.ops.kernels import pack
+
+    dev = _cuda()
+    pool = build_env_pool(_renderer(dev)._env_device, 3, 64)
+    before = megakernel.rgbe_encode.launches
+    got = pack.pack_pool_rgbe(pool)
+    assert megakernel.rgbe_encode.launches == before + 1
+    n = pack.POOL_N
+    rows = pool[:, :4].contiguous().view(torch.int32).reshape(-1)
+    assert got.dtype == torch.int32 and got.shape == (5 * n,)
+    assert torch.equal(got[:4 * n], rows)
+    assert torch.equal(got[4 * n:], pack.rgbe_encode_plain(pool[:, 4:7]))
 
 
 def test_packed_f32_instantiation_is_the_f32_dispatch():

@@ -252,7 +252,7 @@ def test_build_mip_u8_bitwise(grid_scene):
     assert ks.mip_u8.dtype == torch.uint8 and ks.mip_u8.shape == (n,)
     assert np.array_equal(ks.mip_u8.numpy(), _mip_bytes(words, n))
     assert np.array_equal(ks.mip_dq, np.stack([np.asarray(lo), np.asarray(sc)]))
-    assert ks.mip_dq.dtype == np.float32
+    assert ks.mip_dq.dtype == torch.float32 and ks.mip_dq.device == ks.mip.device
 
 
 def test_build_mip_u8_bitwise_on_a_tf_baked_table(grid_scene):
@@ -308,6 +308,56 @@ def test_mip_u8_level_of_one_value():
     assert sc[1] == 0.0 and sc[2] == 0.0 and (q[64:73] == 0).all()
     assert lo[1] + q[64:72].float() * sc[1] == pytest.approx(2.5, abs=0) and lo[2] == 0.0
     assert sc[0] > 0.0 and q[63] == 255
+
+
+def test_device_byte_conversion_is_exact():
+    """The u8 march's byte conversion without I2F, the bits 2^23 + q less
+    2^23 (volren_tpu_torch.packs_measure's "exact byte conversion", measured
+    against the shipped float(q)), equals float(q) for every byte: either
+    conversion gives the plain version's majorant."""
+    q = np.arange(256, dtype=np.uint32)
+    got = (np.uint32(0x4B000000) | q).view(np.float32) - np.float32(8388608.0)
+    assert got.dtype == np.float32 and np.array_equal(got, q.astype(np.float32))
+
+
+def test_build_mip_u8_wrapper_on_the_cpu_is_the_plain_version(grid_scene):
+    """megakernel.build_mip_u8 on CPU tensors is pack.build_mip_u8 of the
+    scaled table, its (lo, scale) rows stacked, with no launch."""
+    ref = grid_scene["reference"]
+    ks = tpack.pack_scene(ref.grid, ref.env)
+    scale = ref.params.density_scale
+    before = megakernel.build_mip_u8.launches
+    q, dq = megakernel.build_mip_u8(ks.mip, ks.mip_dims, ks.mip_offsets, scale)
+    want_q, lo, sc = tpack.build_mip_u8(ks.mip * torch.tensor(float(scale)), ks.mip_dims,
+                                        ks.mip_offsets)
+    assert torch.equal(q, want_q) and torch.equal(dq, torch.stack([lo, sc]))
+    assert megakernel.build_mip_u8.launches == before
+
+
+@pytest.mark.parametrize("variant", ["plain", "tf+emission"])
+def test_plain_level_counts_partition_the_march(variant):
+    """render_plain(stats=) on a u8 pyramid counts the march substeps at
+    each pyramid level (the STATS twin counts the same on the card,
+    tests/test_torch_cuda.py): the counts add up to the march count, every
+    sample's first substep is at level 3 (a ray starts there), and a
+    dispatch on the float32 tables counts no levels."""
+    from volren_tpu_torch.measure import path_renderer
+
+    dense = np.random.default_rng(3).random((16, 16, 16)).astype(np.float32) * 3.0
+    r = path_renderer(Volume(DenseGrid(16, 16, 16, dense)), Environment(_sky()), 12, SEED,
+                      variant, 8, device="cpu")
+    counts = {}
+    for packed in (False, True):
+        r.pallas_mip_u8 = "1" if packed else "0"
+        ks = r._kernel_scene()
+        pf, pi = tpack.build_params(ks, r._trace_params(), 12, 12, 0, 3)
+        stats = {}
+        megakernel.render_plain(ks, r._env_pool(0), pf, pi, stats=stats)
+        counts[packed] = stats
+    levels = [counts[True][k] for k in megakernel.LEVEL_COUNTS]
+    assert sum(levels) == counts[True]["march"] and min(levels) >= 0
+    assert levels[3] >= counts[True]["regen"] == 12 * 12 * 3
+    assert not set(megakernel.LEVEL_COUNTS) & set(counts[False])
 
 
 def test_env_rgbe_table_is_jax_pack_scene(grid_scene):

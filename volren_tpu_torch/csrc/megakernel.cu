@@ -7,8 +7,9 @@
 // parameters USE_TF and HAS_EMI, each with the f32 tables or with the
 // packed tables of its `mip_u8`, `env_rgbe` and `pool_rgbe` modes (the
 // template parameter MIP_U8: kernel.py:780-826, :952-958; RGBE, the two
-// RGBE reads, each under a flag of the parameter block: kernel.py:833-838,
-// :1753-1794 and :687, :1626-1635). For every pixel, `spp` full volumetric
+// RGBE reads, kernel.py:833-838, :1753-1794 and :687, :1626-1635: both at
+// compile time in the all-packs instantiation, volren_tpu's default, or
+// each under a flag of the parameter block). For every pixel, `spp` full volumetric
 // path samples, written once as the per-pixel SUM over samples of (L.rgb,
 // alpha). A dispatch may trace a band of the frame's rows only (pi[PI_ROW0],
 // pi[PI_ROWS]; parallel/sharding.py renders across devices with bands):
@@ -52,6 +53,7 @@
 // sample), so its arithmetic does not depend on the lane that runs it; a
 // sample past its step budget ends and adds nothing, in both versions.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,7 +69,7 @@ constexpr int PF_CAM_POS = 0, PF_CAM_XFORM = 3, PF_ZCAM = 12, PF_BB_MIN = 13,
               PF_INV_XFORM = 26, PF_ENV_INV = 42, PF_ENV_STRENGTH = 51,
               PF_IMP_AVG = 52, PF_SHOW_ENV = 53, PF_TF_LEFT = 54,
               PF_TF_WIDTH = 55, PF_EMI_SCALE = 56, PF_EMI_NORM = 57,
-              PF_EMI_X = 58, PF_MIP_LO = 74, PF_MIP_SCALE = 78;
+              PF_EMI_X = 58;
 constexpr int PI_WIDTH = 0, PI_HEIGHT = 1, PI_SPP_BASE = 2, PI_BOUNCES = 3,
               PI_SEED = 4, PI_SPP = 5, PI_N_BRICKS = 6, PI_N_SLOTS = 9,
               PI_ENV_H = 10, PI_ENV_W = 11, PI_MIP_DIMS = 12,
@@ -77,6 +79,10 @@ constexpr int PI_WIDTH = 0, PI_HEIGHT = 1, PI_SPP_BASE = 2, PI_BOUNCES = 3,
 // the bits of volren_render's `packs`: the tables a dispatch reads packed
 // (ops/kernels/megakernel.py PACKS)
 constexpr int PACK_MIP_U8 = 1, PACK_ENV_RGBE = 2, PACK_POOL_RGBE = 4;
+// the RGBE template parameter: the f32 texels and pool; either RGBE read
+// under its flag of the parameter block (Packed::env_on, pool_on); both
+// RGBE reads, at compile time
+enum { RGBE_OFF = 0, RGBE_FLAGS = 1, RGBE_ALL = 2 };
 constexpr int POOL_N = 16384;
 
 constexpr float INV_2PI = float(1.0 / (2.0 * PI_D));
@@ -117,17 +123,22 @@ struct Tables {
 
 // the packed tables (ops/kernels/pack.py) and their parameters, read only
 // by the packed instantiations: the baked pyramid as one byte an entry
-// (MIP_U8, in place of mip) with its per-level dequantisation, and under
-// RGBE the texels as RGBE words (in place of env) and the pool as POOL_N
-// float4 [w, pdf] rows followed by POOL_N radiance words, each when its
-// flag is set
+// (MIP_U8, in place of mip) with its per-level dequantisation rows (lo[4],
+// scale[4]) in device memory, written there by the pyramid's build kernel
+// (mip_u8_build), and under RGBE the texels as RGBE words (in place of env)
+// and the pool as POOL_N float4 [w, pdf] rows followed by POOL_N radiance
+// words, each when its flag is set (RGBE_FLAGS) or both (RGBE_ALL)
 struct Packed {
   const uint8_t* __restrict__ mip_u8;
+  const float* __restrict__ mip_dq;
   const uint32_t* __restrict__ env_rgbe;
   const uint32_t* __restrict__ pool_le;
-  float mip_lo[4], mip_sc[4];
   int env_on, pool_on;
 };
+
+// the u8 pyramid's (lo, scale) of each level, staged from Packed::mip_dq
+// once a block (MIP_U8 instantiations only)
+__shared__ float2 s_mip_dq[4];
 
 // ---- the STATS instantiation's counters (never launched by the render
 // path): per dispatch, warp-level loop and march-substep issues with the
@@ -135,9 +146,11 @@ struct Packed {
 // lanes that ran each of render_plain's events (regen, march, test,
 // emission, nee, escape, scatter; render_plain(stats=) counts the same),
 // capped samples, the most march substeps of a sample, and each block's
-// start and end on %globaltimer
+// start and end on %globaltimer; the MIP_U8 instantiations' twins also count
+// the march substeps at each pyramid level (where the u8 reads land)
 enum { ST_LOOP = 0, ST_LOOP_LANES, ST_MARCH_ISSUES, ST_MARCH_LANES, ST_REGEN, ST_MARCH,
-       ST_TEST, ST_EMISSION, ST_NEE, ST_ESCAPE, ST_SCATTER, ST_CAPPED, ST_MAX_STEPS, N_STATS };
+       ST_TEST, ST_EMISSION, ST_NEE, ST_ESCAPE, ST_SCATTER, ST_CAPPED, ST_MAX_STEPS, N_STATS,
+       ST_LEVEL0 = N_STATS, N_STATS_U8 = N_STATS + 4 };
 
 __device__ __forceinline__ unsigned long long globaltimer() {
   unsigned long long t;
@@ -155,15 +168,16 @@ __device__ __forceinline__ void warp_tick(unsigned& issues, unsigned& lanes) {
   }
 }
 
+template <int N>
 struct Counters {
-  unsigned v[N_STATS] = {};
+  unsigned v[N] = {};
   // sum (max) over the lanes converged here, one atomic per counter, and
   // the block's end time
   __device__ __forceinline__ void flush(unsigned long long* stats,
                                         unsigned long long* btimes) const {
     const unsigned m = __activemask();
     const bool leader = int(threadIdx.x & 31) == __ffs(m) - 1;
-    for (int k = 0; k < N_STATS; ++k) {
+    for (int k = 0; k < N; ++k) {
       const unsigned x = k == ST_MAX_STEPS ? __reduce_max_sync(m, v[k])
                                            : __reduce_add_sync(m, v[k]);
       if (leader && x) {
@@ -271,25 +285,26 @@ __device__ __forceinline__ float4 rgbe_texel(uint32_t w) {
 }
 
 // the u8 pyramid's majorant (kernel.py:780-826): lo[m] + q * scale[m],
-// quantised up and baked like the TF table, so no density_scale factor
+// quantised up and baked like the TF table, so no density_scale factor.
+// The level's (lo, scale) come from the block's shared copy, off the byte's
+// chain. (Measured against this, in turns: (lo, scale) from the constant
+// bank as kernel parameters, loaded from device memory, the byte converted
+// without I2F, and the next substep's byte fetched before this one's is
+// decoded, were each slower: volren_tpu_torch/packs_measure.py.)
 __device__ __forceinline__ float majorant_u8(const Params& P, const Packed& K, const float c[3],
                                              int mip_i) {
   const int ix = int(floorf(c[0])), iy = int(floorf(c[1])), iz = int(floorf(c[2]));
   int idx = 0;
-  float lo = 0.0f, sc = 0.0f;
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
     const int mz = P.mip_dims[3 * m], my = P.mip_dims[3 * m + 1], mx = P.mip_dims[3 * m + 2];
     const int bxm = clampi(ix >> (3 + m), 0, mx - 1);
     const int bym = clampi(iy >> (3 + m), 0, my - 1);
     const int bzm = clampi(iz >> (3 + m), 0, mz - 1);
-    if (mip_i == m) {
-      idx = P.mip_offsets[m] + (bzm * my + bym) * mx + bxm;
-      lo = K.mip_lo[m];
-      sc = K.mip_sc[m];
-    }
+    if (mip_i == m) idx = P.mip_offsets[m] + (bzm * my + bym) * mx + bxm;
   }
-  return lo + float(__ldg(K.mip_u8 + idx)) * sc;
+  const float2 d = s_mip_dq[mip_i];
+  return d.x + float(__ldg(K.mip_u8 + idx)) * d.y;
 }
 
 template <bool USE_TF, bool MIP_U8>
@@ -496,8 +511,10 @@ __device__ __forceinline__ void resolve_test(const Params& P, const Tables& T, L
   }
 }
 
-// next-event estimation from the alias pool (phase_nee)
-template <bool USE_TF, bool RGBE>
+// next-event estimation from the alias pool (phase_nee). RGBE_ALL issues
+// the sample's [w, pdf] row and radiance word together and decodes the
+// word after the shadow ray's set-up, which needs only the row.
+template <bool USE_TF, int RGBE>
 __device__ __forceinline__ void nee(const Params& P, const Tables& T, const Packed& K, Lane& s) {
   float mult[3] = {P.albedo[0], P.albedo[1], P.albedo[2]};
   if (USE_TF) {
@@ -511,10 +528,15 @@ __device__ __forceinline__ void nee(const Params& P, const Tables& T, const Pack
   rng(s.seed, true);
   const int pidx = clampi(int(u0 * float(POOL_N)), 0, POOL_N - 1);
   // packed: a 16-byte [w, pdf] row and one radiance word
-  const bool packed = RGBE && K.pool_on != 0;
+  const bool packed = RGBE == RGBE_ALL || (RGBE == RGBE_FLAGS && K.pool_on != 0);
   const float4 r0 = reinterpret_cast<const float4*>(T.pool)[packed ? pidx : 2 * pidx];
-  const float4 r1 = packed ? rgbe_texel(__ldg(K.pool_le + pidx))
-                           : reinterpret_cast<const float4*>(T.pool)[2 * pidx + 1];
+  uint32_t word = 0u;
+  float4 r1 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (RGBE == RGBE_ALL)
+    word = __ldg(K.pool_le + pidx);
+  else
+    r1 = packed ? rgbe_texel(__ldg(K.pool_le + pidx))
+                : reinterpret_cast<const float4*>(T.pool)[2 * pidx + 1];
   const float w_i[3] = {r0.x, r0.y, r0.z};
   const float pdf_nee = r0.w;
   const float le[3] = {r1.x, r1.y, r1.z};
@@ -529,21 +551,30 @@ __device__ __forceinline__ void nee(const Params& P, const Tables& T, const Pack
   const bool has_nee = pdf_nee > 0.0f;
   const float wgt = mis * f_p / vmax(pdf_nee, 1e-20f);
   if (has_nee) {
-    for (int k = 0; k < 3; ++k) s.pn[k] = s.th[k] * wgt * le[k];
+    if constexpr (RGBE != RGBE_ALL)
+      for (int k = 0; k < 3; ++k) s.pn[k] = s.th[k] * wgt * le[k];
     s.mode = MODE_SHADOW;
     s.event = EV_NONE;
   } else {
     s.event = EV_SCATTER;
   }
   setup_ray(P, s, org, has_nee ? w_i : s.pd, has_nee);
+  if constexpr (RGBE == RGBE_ALL) {
+    if (has_nee) {
+      float lw[3];
+      rgbe_decode(word, lw);
+      for (int k = 0; k < 3; ++k) s.pn[k] = s.th[k] * wgt * lw[k];
+    }
+  }
 }
 
-// the escape's texel: three floats, or under RGBE its word when the flag
-// is set
-template <bool RGBE>
+// the escape's texel: three floats, or its RGBE word (RGBE_ALL, or
+// RGBE_FLAGS with the flag set)
+template <int RGBE>
 __device__ __forceinline__ float4 env_texel(const Params& P, const Tables& T, const Packed& K,
                                             int i) {
-  if constexpr (RGBE) {
+  if constexpr (RGBE == RGBE_ALL) return rgbe_texel(__ldg(K.env_rgbe + i));
+  if constexpr (RGBE == RGBE_FLAGS) {
     if (K.env_on != 0) return rgbe_texel(__ldg(K.env_rgbe + i));
   }
   const float* e = T.env + size_t(i) * 3;
@@ -553,7 +584,7 @@ __device__ __forceinline__ float4 env_texel(const Params& P, const Tables& T, co
 // shadow / escape accumulation, Russian roulette, HG scatter
 // (phase_finish) of a lane with an event. Returns true when the sample
 // ends, with its sanitized (L.rgb, alpha) in `res`.
-template <bool RGBE>
+template <int RGBE>
 __device__ __forceinline__ bool finish(const Params& P, const Tables& T, const Packed& K,
                                        Lane& s, float4& res) {
   const float g = P.phase_g;
@@ -648,10 +679,10 @@ __device__ __forceinline__ float4 capped_slot() {
 // the item's slot and takes the round's next item (a ballot and a prefix
 // count, no atomics). After a round, lane j adds pixel j's slots in sample
 // order, from 0.0f, as render_plain does; a capped sample adds nothing.
-template <bool USE_TF, bool HAS_EMI, bool STATS, bool MIP_U8, bool RGBE>
+template <bool USE_TF, bool HAS_EMI, bool STATS, bool MIP_U8, int RGBE, int N>
 __device__ __forceinline__ void render_group(const Params& P, const Tables& T, const Packed& K,
                                              float* __restrict__ out, int group,
-                                             float4* slot, Counters& cnt) {
+                                             float4* slot, Counters<N>& cnt) {
   const int lane = threadIdx.x & 31;
   const int x0 = (group % P.tiles_x) * P.tile_w, y0 = P.row0 + (group / P.tiles_x) * P.tile_h;
   const int cw = min(P.tile_w, P.width - x0), ch = min(P.tile_h, P.row0 + P.rows - y0);
@@ -686,6 +717,11 @@ __device__ __forceinline__ void render_group(const Params& P, const Tables& T, c
       // march until an event, one DDA substep at a time
       do {
         if (STATS) warp_tick(cnt.v[ST_MARCH_ISSUES], cnt.v[ST_MARCH_LANES]);
+        if constexpr (STATS && MIP_U8) {   // the substep's pyramid level
+          const int mip_i = int(rintf(s.mip));
+#pragma unroll
+          for (int m = 0; m < 4; ++m) cnt.v[ST_LEVEL0 + m] += mip_i == m ? 1u : 0u;
+        }
         march_substep<USE_TF, MIP_U8>(P, T, K, s);
       } while (s.event == EV_NONE && s.steps < P.budget);
       if (s.event == EV_TEST) {
@@ -746,15 +782,21 @@ __device__ __forceinline__ void render_group(const Params& P, const Tables& T, c
 __device__ int next_group = 0;
 
 // persistent blocks: each warp takes groups from the one global counter
-template <bool USE_TF, bool HAS_EMI, bool STATS, bool MIP_U8, bool RGBE>
+template <bool USE_TF, bool HAS_EMI, bool STATS, bool MIP_U8, int RGBE>
 __global__ void __launch_bounds__(THREADS, min_blocks(USE_TF, HAS_EMI))
 megakernel(const __grid_constant__ Params P, const __grid_constant__ Tables T,
            float* __restrict__ out, unsigned long long* __restrict__ stats,
            unsigned long long* __restrict__ btimes, const __grid_constant__ Packed K) {
   __shared__ float4 slots[WARPS][SLOTS];
   if (STATS && threadIdx.x == 0) btimes[2 * blockIdx.x] = globaltimer();
+  if constexpr (MIP_U8) {
+    if (threadIdx.x < 4)
+      s_mip_dq[threadIdx.x] =
+          make_float2(__ldg(K.mip_dq + threadIdx.x), __ldg(K.mip_dq + 4 + threadIdx.x));
+    __syncthreads();
+  }
   const int last_fetch = P.n_groups + int(gridDim.x) * WARPS - 1;
-  Counters cnt;
+  Counters<MIP_U8 ? N_STATS_U8 : N_STATS> cnt;
   for (;;) {
     int group = 0;
     if ((threadIdx.x & 31) == 0) {
@@ -788,7 +830,7 @@ using Kernel = void (*)(const Params, const Tables, float*, unsigned long long*,
                        unsigned long long*, const Packed);
 
 // the instantiations of one <MIP_U8, RGBE>: [use_tf][has_emi][stats]
-template <bool MIP_U8, bool RGBE>
+template <bool MIP_U8, int RGBE>
 Kernel pick_variant(bool use_tf, bool has_emi, bool stats) {
   const Kernel k[2][2][2] = {
       {{megakernel<false, false, false, MIP_U8, RGBE>, megakernel<false, false, true, MIP_U8, RGBE>},
@@ -798,14 +840,19 @@ Kernel pick_variant(bool use_tf, bool has_emi, bool stats) {
   return k[use_tf][has_emi][stats];
 }
 
-// the f32 tables' instantiations, or a packed one: MIP_U8 for a u8
-// pyramid, RGBE when either RGBE read is on
+// the f32 tables' instantiations, or a packed one: all three packs at
+// compile time (volren_tpu's default), the u8 pyramid with the RGBE reads
+// under their flags (the u8 pyramid alone or with one RGBE read), or the
+// f32 pyramid with the RGBE reads under their flags
 Kernel pick_kernel(bool use_tf, bool has_emi, int packs, bool stats) {
-  const bool mip_u8 = packs & PACK_MIP_U8, rgbe = packs & (PACK_ENV_RGBE | PACK_POOL_RGBE);
-  if (mip_u8) return rgbe ? pick_variant<true, true>(use_tf, has_emi, stats)
-                          : pick_variant<true, false>(use_tf, has_emi, stats);
-  return rgbe ? pick_variant<false, true>(use_tf, has_emi, stats)
-              : pick_variant<false, false>(use_tf, has_emi, stats);
+  const bool mip_u8 = packs & PACK_MIP_U8;
+  const int rgbe = packs & (PACK_ENV_RGBE | PACK_POOL_RGBE);
+  if (mip_u8)
+    return rgbe == (PACK_ENV_RGBE | PACK_POOL_RGBE)
+               ? pick_variant<true, RGBE_ALL>(use_tf, has_emi, stats)
+               : pick_variant<true, RGBE_FLAGS>(use_tf, has_emi, stats);
+  return rgbe ? pick_variant<false, RGBE_FLAGS>(use_tf, has_emi, stats)
+              : pick_variant<false, RGBE_OFF>(use_tf, has_emi, stats);
 }
 
 // ---- the RGBE encode of the packed tables' texels and pool radiance
@@ -874,13 +921,18 @@ __device__ __forceinline__ uint32_t rgbe_encode(float r, float g, float b) {
   return m >= 0x1p-119f ? word : 0u;
 }
 
-// `n` rows of 3 floats, `stride` floats apart, to their words
-__global__ void rgbe_encode_rows(const float* __restrict__ rgb, long long stride,
-                                 uint32_t* __restrict__ words, long long n) {
+// `n` rows of `stride` floats from `rows`: the word of each row's 3 floats
+// from column `col`, and, where `head` is not null, the row's first 4
+// floats copied to head (a packed pool's [w, pdf] rows before its words)
+__global__ void rgbe_encode_rows(const float* __restrict__ rows, long long stride, int col,
+                                 uint32_t* __restrict__ words, float* __restrict__ head,
+                                 long long n) {
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
-    const float* c = rgb + i * stride;
-    words[i] = rgbe_encode(c[0], c[1], c[2]);
+    const float* r = rows + i * stride;
+    words[i] = rgbe_encode(r[col], r[col + 1], r[col + 2]);
+    if (head != nullptr)
+      for (int k = 0; k < 4; ++k) head[4 * i + k] = r[k];
   }
 }
 
@@ -896,6 +948,103 @@ __global__ void rgbe_decode_words(const uint32_t* __restrict__ words, float* __r
     out[3 * i + 1] = c[1];
     out[3 * i + 2] = c[2];
   }
+}
+
+// ---- the u8 majorant pyramid's build (pack.build_mip_u8, bitwise):
+// volren_tpu.ops.pallas.pack.build_mip_u8, which XLA runs as device code
+// with no pallas_call (_build_mip_u8_jit, volren_tpu/ops/pallas/pack.py:361-384).
+// Per level: its min and max, scale = (max - min) * f32(1/254.99), each
+// entry's byte ceil((v - min) / max(scale, 1e-37)) clamped to [0, 255] and
+// bumped by one where min + q * scale, as one FMA (XLA's contraction), is
+// still below v, and the levels' (min, scale) as the (2, 4) rows the
+// megakernel reads. One cooperative launch, no host round trip: each block
+// reduces its share of every level, the grid syncs once, and every block
+// then folds all blocks' partials (min and max are order-free) and writes
+// its share of the bytes. Bound by bytes: a few hundred KB a trace, so in
+// practice by the launch and the one grid sync.
+
+namespace cg = cooperative_groups;
+constexpr int MIPQ_THREADS = 256;             // 8 warps: one a (level, min | max) fold
+constexpr int MIPQ_ITEMS = 4;                 // entries a thread, at most, in a full grid
+constexpr float INV_25499 = float(1.0 / 254.99);
+
+struct MipLevels {
+  int off[4], n[4];
+};
+
+__device__ __forceinline__ float mipq_fold(int k, float a, float b) {
+  return k < 4 ? vmin(a, b) : vmax(a, b);
+}
+
+// `part` holds gridDim.x x 8 floats: each block's (min[4], max[4])
+__global__ void __launch_bounds__(MIPQ_THREADS)
+mip_u8_build(const float* __restrict__ mip, float factor, int scaled, MipLevels L,
+             float* __restrict__ part, uint8_t* __restrict__ q, float* __restrict__ dq) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tid = blockIdx.x * MIPQ_THREADS + threadIdx.x, stride = gridDim.x * MIPQ_THREADS;
+  float r[8];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    float lo = __int_as_float(0x7f800000), hi = -__int_as_float(0x7f800000);
+    for (int i = tid; i < L.n[m]; i += stride) {
+      const float v = scaled ? mip[L.off[m] + i] * factor : mip[L.off[m] + i];
+      lo = vmin(lo, v);
+      hi = vmax(hi, v);
+    }
+    r[m] = lo;
+    r[4 + m] = hi;
+  }
+  __shared__ float red[MIPQ_THREADS / 32][8];
+  __shared__ float lohi[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    for (int o = 16; o > 0; o >>= 1)
+      r[k] = mipq_fold(k, r[k], __shfl_xor_sync(0xffffffffu, r[k], o));
+    if (lane == 0) red[warp][k] = r[k];
+  }
+  __syncthreads();
+  if (threadIdx.x < 8) {
+    float x = red[0][threadIdx.x];
+    for (int w = 1; w < MIPQ_THREADS / 32; ++w) x = mipq_fold(threadIdx.x, x, red[w][threadIdx.x]);
+    part[8 * blockIdx.x + threadIdx.x] = x;
+  }
+  cg::this_grid().sync();
+  {  // warp k folds column k of every block's partials
+    const int k = warp;
+    float x = k < 4 ? __int_as_float(0x7f800000) : -__int_as_float(0x7f800000);
+    for (int b = lane; b < int(gridDim.x); b += 32) x = mipq_fold(k, x, __ldcg(part + 8 * b + k));
+    for (int o = 16; o > 0; o >>= 1) x = mipq_fold(k, x, __shfl_xor_sync(0xffffffffu, x, o));
+    if (lane == 0) lohi[k] = x;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float lo = lohi[m], sc = (lohi[4 + m] - lo) * INV_25499;
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      dq[m] = lo;
+      dq[4 + m] = sc;
+    }
+    for (int i = tid; i < L.n[m]; i += stride) {
+      const float v = scaled ? mip[L.off[m] + i] * factor : mip[L.off[m] + i];
+      float qf = sc > 0.0f ? ceilf((v - lo) / vmax(sc, 1e-37f)) : 0.0f;
+      qf = vmin(vmax(qf, 0.0f), 255.0f);
+      qf = vmin(vmax(__fmaf_rn(qf, sc, lo) < v ? qf + 1.0f : qf, 0.0f), 255.0f);
+      q[L.off[m] + i] = uint8_t(qf);
+    }
+  }
+}
+
+int mipq_blocks(long long n) {
+  static int fit = 0;
+  if (fit == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mip_u8_build, MIPQ_THREADS, 0);
+    fit = sms * per_sm;
+  }
+  const long long need = (n + MIPQ_THREADS * MIPQ_ITEMS - 1) / (MIPQ_THREADS * MIPQ_ITEMS);
+  return int(need < 1 ? 1 : (need < fit ? need : fit));
 }
 
 }  // namespace
@@ -920,17 +1069,49 @@ extern "C" int volren_launch_blocks(int width, int rows, int spp, int use_tf, in
   return fit < need ? fit : need;
 }
 
-// `words` (n) uint32 = the RGBE encode of `n` rows of 3 floats at `rgb`,
-// `stride` floats apart (pack.build_env_pool's pool radiance, pack_scene's
-// texels), on `stream`.
-extern "C" int volren_rgbe_encode(const void* rgb, long long stride, void* words, long long n,
-                                  void* stream) {
+// `words` (n) uint32 = the RGBE encode of the 3 floats from column `col` of
+// `n` rows `stride` floats apart at `rows` (pack_scene's texels; a
+// dispatch's pool radiance), and where `head` is not null the rows' first 4
+// floats into head, (n, 4) (the packed pool's [w, pdf] rows), on `stream`.
+extern "C" int volren_rgbe_encode(const void* rows, long long stride, int col, void* words,
+                                  void* head, long long n, void* stream) {
   if (n <= 0) return 0;
   const long long blocks = (n + 255) / 256;
   rgbe_encode_rows<<<int(blocks < 65536 ? blocks : 65536), 256, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(rgb), stride, static_cast<uint32_t*>(words), n);
+      static_cast<const float*>(rows), stride, col, static_cast<uint32_t*>(words),
+      static_cast<float*>(head), n);
   return int(cudaGetLastError());
+}
+
+// The u8 pyramid build's block count for a pyramid of `n` entries: the
+// length, in blocks, of its scratch (8 floats a block).
+extern "C" int volren_mip_u8_blocks(long long n) { return mipq_blocks(n); }
+
+// `q` (levels' entries) uint8 and `dq` (2, 4) float32 = the u8 pyramid of
+// the flat float32 pyramid `mip` (times `factor` where `scaled`), its levels
+// `counts[m]` entries from `offsets[m]`, in one cooperative launch on
+// `stream` with `part` (volren_mip_u8_blocks(entries) x 8 floats) as its
+// scratch. Entries outside the levels are not written.
+extern "C" int volren_build_mip_u8(const void* mip, float factor, int scaled, const int* offsets,
+                                   const int* counts, void* part, int blocks, void* q, void* dq,
+                                   void* stream) {
+  MipLevels L;
+  long long n = 0;
+  for (int m = 0; m < 4; ++m) {
+    L.off[m] = offsets[m];
+    L.n[m] = counts[m];
+    if (counts[m] <= 0) return int(cudaErrorInvalidValue);
+    n += counts[m];
+  }
+  if (blocks != mipq_blocks(n)) return int(cudaErrorInvalidValue);
+  const float* mip_p = static_cast<const float*>(mip);
+  float* part_p = static_cast<float*>(part);
+  uint8_t* q_p = static_cast<uint8_t*>(q);
+  float* dq_p = static_cast<float*>(dq);
+  void* args[] = {&mip_p, &factor, &scaled, &L, &part_p, &q_p, &dq_p};
+  return int(cudaLaunchCooperativeKernel(mip_u8_build, dim3(blocks), dim3(MIPQ_THREADS), args, 0,
+                                         static_cast<cudaStream_t>(stream)));
 }
 
 // `out` (n, 3) float32 = the decode of `words` (n) uint32, on `stream`.
@@ -951,18 +1132,19 @@ extern "C" int volren_rgbe_decode(const void* words, void* out, long long n, voi
 // (and `mip` is then the TF-baked table), pi[PI_EMI_N_SLOTS] > 0 needs the
 // four emission tables; pointers of an absent variant may be null. `packs`
 // (PACK_* bits) says which tables are packed: PACK_MIP_U8 makes `mip` the
-// (M,) u8 pyramid (pi[PI_MIP_U8] must be 1, the dequantisation rows in
-// pf), PACK_ENV_RGBE makes `env` the (H*W,) RGBE words, PACK_POOL_RGBE
-// makes `pool` POOL_N float4 [w, pdf] rows followed by POOL_N words. The
-// launch goes on `stream`, and launches on two streams must not overlap
-// (they share the group counter); returns cudaGetLastError() of the launch, or
+// (M,) u8 pyramid (pi[PI_MIP_U8] must be 1, its (2, 4) float32 (lo, scale)
+// rows in device memory at `mip_dq`), PACK_ENV_RGBE makes `env` the (H*W,)
+// RGBE words, PACK_POOL_RGBE makes `pool` POOL_N float4 [w, pdf] rows
+// followed by POOL_N words. The launch goes on `stream`, and launches on two
+// streams must not overlap (they share the group counter); returns cudaGetLastError() of the launch, or
 // cudaErrorInvalidValue for a missing table. A non-null `stats` launches the
 // STATS instantiation instead: it adds the counters (N_STATS u64) into
 // `stats` and writes each block's (start, end) into `btimes`
 // (2 x volren_launch_blocks u64, zeroed by the caller); the image is the same.
 extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
                              const void* slot, const void* lo, const void* hi,
-                             const void* mip, const void* env, const void* pool,
+                             const void* mip, const void* mip_dq, const void* env,
+                             const void* pool,
                              const void* tf_lut, const void* emi_atlas,
                              const void* emi_slot, const void* emi_lo,
                              const void* emi_hi, void* out, void* stats,
@@ -1010,7 +1192,8 @@ extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
   P.row0 = pi[PI_ROW0];
   P.rows = pi[PI_ROWS];
   if (P.row0 < 0 || P.rows < 0 || P.row0 + P.rows > P.height || n_pix != P.rows * P.width ||
-      (packs & ~7) != 0 || ((packs & PACK_MIP_U8) != 0) != (pi[PI_MIP_U8] != 0))
+      (packs & ~7) != 0 || ((packs & PACK_MIP_U8) != 0) != (pi[PI_MIP_U8] != 0) ||
+      ((packs & PACK_MIP_U8) != 0 && mip_dq == nullptr))
     return int(cudaErrorInvalidValue);
   group_tile(P.spp, P.tile_w, P.tile_h);
   P.tiles_x = (P.width + P.tile_w - 1) / P.tile_w;
@@ -1029,12 +1212,9 @@ extern "C" int volren_render(const float* pf, const int* pi, const void* atlas,
   T.tf_lut = static_cast<const float*>(tf_lut);
   Packed K;
   K.mip_u8 = static_cast<const uint8_t*>(mip);
+  K.mip_dq = static_cast<const float*>(mip_dq);
   K.env_rgbe = static_cast<const uint32_t*>(env);
   K.pool_le = static_cast<const uint32_t*>(pool) + 4 * POOL_N;
-  for (int k = 0; k < 4; ++k) {
-    K.mip_lo[k] = pf[PF_MIP_LO + k];
-    K.mip_sc[k] = pf[PF_MIP_SCALE + k];
-  }
   K.env_on = (packs & PACK_ENV_RGBE) ? 1 : 0;
   K.pool_on = (packs & PACK_POOL_RGBE) ? 1 : 0;
   const bool use_tf = P.tf_size > 0, has_emi = T.emi.n_slots > 0;

@@ -30,15 +30,18 @@ Three packed tables, each on its own, change what a variant reads, as the
 Pallas kernel's ``mip_u8`` / ``env_rgbe`` / ``pool_rgbe`` do
 (kernel.py:780-838, :1626-1635, :1753-1794; pack.py's module docstring):
 the march's majorant from the u8 pyramid ``ks.mip_u8`` as ``lo[m] + q *
-scale[m]`` (pf's PF_MIP_LO / PF_MIP_SCALE rows; the table bakes
-density_scale and any TF alpha in), the escape's texel from the RGBE words
+scale[m]`` (the (2, 4) rows ``ks.mip_dq``, on the tables' device; the table
+bakes density_scale and any TF alpha in), the escape's texel from the RGBE words
 ``ks.env_rgbe``, and the NEE pool row's radiance from its RGBE word (an
 int32 pool, ``pack.build_env_pool(rgbe=True)``). ``PACKS`` names them.
+``build_mip_u8`` builds the u8 pyramid in one launch of the library's
+build kernel, and ``rgbe_encode`` / ``pack_pool_rgbe`` the RGBE words.
 
 The plain version is the Pallas kernel's state machine with one march
 substep per step: every (pixel, sample) is a lane, and after the regen
-each step runs march -> resolve -> NEE -> finish on all lanes under masks;
-then each pixel adds its samples in sample order. A sample that takes
+each step runs march -> resolve -> NEE -> finish on the live lanes under
+masks (the lanes whose samples ended are set aside once they are half of
+the current set); then each pixel adds its samples in sample order. A sample that takes
 ``pi[PI_MAX_ITERS]`` (``pack.STEP_BUDGET``) substeps is capped: it ends
 and adds nothing. The CUDA kernel runs the same state machine for one
 sample per thread: a warp spreads a group of pixels' samples over its
@@ -67,12 +70,14 @@ from .pack import (
     PF_ALBEDO, PF_BB_MAX, PF_BB_MIN, PF_CAM_POS, PF_CAM_XFORM,
     PF_DENSITY_SCALE, PF_EMI_NORM, PF_EMI_SCALE, PF_EMI_X, PF_ENV_INV,
     PF_ENV_STRENGTH, PF_IMP_AVG, PF_INV_MAJORANT, PF_INV_XFORM, PF_MAJORANT,
-    PF_MIP_LO, PF_MIP_SCALE, PF_PHASE_G, PF_SHOW_ENV, PF_TF_LEFT, PF_TF_WIDTH,
+    PF_PHASE_G, PF_SHOW_ENV, PF_TF_LEFT, PF_TF_WIDTH,
     PF_ZCAM, PI_BOUNCES, PI_EMI_N_BRICKS, PI_EMI_N_SLOTS, PI_ENV_H, PI_ENV_W,
     PI_HEIGHT, PI_MAX_ITERS, PI_MIP_DIMS, PI_MIP_OFFSETS, PI_MIP_U8, PI_N_BRICKS,
     PI_N_SLOTS, PI_ROW0, PI_ROWS, PI_SEED, PI_SPP, PI_SPP_BASE, PI_TF_SIZE,
     PI_WIDTH, POOL_N, PF_SIZE, PI_SIZE, KernelScene,
 )
+from .pack import build_mip_u8 as _plain_build_mip_u8
+from .pack import mip_level_slices
 from .pack import rgbe_decode as _plain_rgbe_decode
 from .pack import rgbe_encode_plain as _plain_rgbe_encode
 
@@ -83,6 +88,9 @@ MODE_INACTIVE, MODE_REGEN, MODE_EXTEND, MODE_SHADOW = 0, 1, 2, 3
 EVENTS = ("regen", "march", "test", "emission", "nee", "escape", "scatter")
 EV_NONE, EV_EXT_HIT, EV_EXT_EXIT, EV_SH_HIT, EV_SH_EXIT = 0, 1, 2, 3, 4
 EV_SCATTER, EV_TEST = 5, 6
+# what render_plain(stats=...) also counts on a u8 pyramid: the march
+# substeps at each of its levels
+LEVEL_COUNTS = tuple(f"march_level{m}" for m in range(4))
 
 # the packed tables a dispatch may read (the module docstring), in the
 # order of the bits of csrc/megakernel.cu's ``packs`` argument
@@ -138,7 +146,8 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     ``pi[PI_MAX_ITERS]`` march substeps without ending is capped: it ends
     and adds nothing. With a ``stats`` dict, adds the number of
     lanes that ran each event (keys of EVENTS) and the capped samples
-    (``"capped"``) to it."""
+    (``"capped"``) to it, and on a u8 pyramid the march substeps at each
+    of its levels (LEVEL_COUNTS)."""
     use_tf, has_emi = _variant(ks, pi)
     mip_u8, env_rgbe, pool_rgbe = _packs(ks, pool)
     dev = ks.atlas.device
@@ -180,7 +189,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     mip_t, env_t = (ks.mip_tf if use_tf else ks.mip), ks.env
     if mip_u8:
         mip_t = ks.mip_u8
-        mip_lo, mip_sc = s3(PF_MIP_LO, 4), s3(PF_MIP_SCALE, 4)
+        mip_lo, mip_sc = ks.mip_dq.to(f32).unbind(0)
     if pool_rgbe:   # POOL_N rows [w, pdf], then POOL_N radiance words
         pool_rows, pool_words = pool[:4 * POOL_N].view(f32).reshape(POOL_N, 4), pool[4 * POOL_N:]
 
@@ -316,6 +325,9 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         st["steps"] = st["steps"] + march.to(i32)
         curr = pos_at()
         mip_i = torch.round(st["mip"]).to(i32)
+        if mip_u8:
+            for m, key in enumerate(LEVEL_COUNTS):
+                count(key, march & (mip_i == m))
         maj = majorant_at(curr, mip_i)
         # dim = 2^(3 + mip) and its exact reciprocal (mip_i is in 0..3)
         dim = dim_tab[mip_i.long()]
@@ -533,6 +545,8 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
             "capped": torch.zeros(n, dtype=torch.bool, device=dev),
         }
         phase_regen()
+        # the lanes' results; ``sel``: the lanes of st (None: all of them)
+        res, capped, sel = st["res"], st["capped"], None
         # every step of a live lane marches once, so every sample ends
         # within budget steps
         for _ in range(budget):
@@ -541,13 +555,32 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
             phase_nee()
             phase_finish()
             phase_cap()
-            if not bool((st["mode"] != MODE_INACTIVE).any()):
+            live = st["mode"] != MODE_INACTIVE
+            n_live = int(live.sum())
+            if n_live == 0:
                 break
+            if 2 * n_live <= n:     # set the ended samples aside
+                res, capped = _put_lanes(res, capped, sel, st)
+                keep = live.nonzero().squeeze(1)
+                sel = keep if sel is None else sel[keep]
+                st = {k: tuple(x[keep] for x in v) if isinstance(v, tuple) else v[keep]
+                      for k, v in st.items()}
+                n = n_live
+                zero = torch.zeros(n, dtype=f32, device=dev)
+        res, capped = _put_lanes(res, capped, sel, st)
         # a pixel's sum adds its samples in sample order
         for j in range(n_spp):
             seg = slice(j * n_pix, (j + 1) * n_pix)
-            acc = torch.where(st["capped"][seg, None], acc, acc + st["res"][seg])
+            acc = torch.where(capped[seg, None], acc, acc + res[seg])
     return acc
+
+
+def _put_lanes(res, capped, sel, st):
+    """The whole chunk's (res, capped) with the lanes ``sel`` of ``st``
+    written in."""
+    if sel is None:
+        return st["res"], st["capped"]
+    return res.index_copy(0, sel, st["res"]), capped.index_copy(0, sel, st["capped"])
 
 
 # ---------------------------------------------------------------------------
@@ -568,12 +601,17 @@ def build(flags: list[str] = NVCC_FLAGS, source: str = SOURCE) -> str:
     return _build.build(source, "volren_megakernel", flags)
 
 
+# a packed instantiation's name by its <MIP_U8, RGBE> template arguments:
+# the RGBE reads under their flags, the u8 pyramid with them, all three
+PACKED_NAMES = {("0", "1"): "rgbe", ("1", "1"): "u8", ("1", "2"): "u8+rgbe"}
+
+
 def _variant_name(kernel: str) -> str:
-    flags = re.search(r"ILb([01])ELb([01])ELb([01])ELb([01])ELb([01])E", kernel)
+    flags = re.search(r"ILb([01])ELb([01])ELb([01])ELb([01])ELi([0-2])E", kernel)
     if not flags:
         return kernel
     tf, emi, stats, mip_u8, rgbe = flags.groups()
-    packs = "+".join(name for name, on in (("u8", mip_u8), ("rgbe", rgbe)) if on == "1")
+    packs = PACKED_NAMES.get((mip_u8, rgbe), "")
     return (f"<{tf},{emi}>" + (f" {packs}" if packs else "")
             + (" stats" if stats == "1" else ""))
 
@@ -581,20 +619,24 @@ def _variant_name(kernel: str) -> str:
 def resource_usage(lib_path: str) -> str:
     """ptxas's register, stack and spill lines for the library at
     ``lib_path``, one entry per kernel instantiation, named by its
-    <USE_TF, HAS_EMI> template arguments, then "u8" (MIP_U8), "rgbe" (the
-    RGBE reads) or "u8+rgbe" for a packed one, and "stats" for the STATS
-    ones."""
+    <USE_TF, HAS_EMI> template arguments, then for a packed one "rgbe" (the
+    RGBE reads under their flags, the f32 pyramid), "u8" (the u8 pyramid,
+    the RGBE reads under their flags: the u8 pyramid alone or with one RGBE
+    read) or "u8+rgbe" (all three packs at compile time, volren_tpu's
+    default), and "stats" for the STATS ones."""
     return "; ".join(_build.resource_usage(lib_path, _variant_name))
 
 
 def load(lib_path: str) -> ctypes.CDLL:
     """Load a built library and declare its C entry point."""
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.load(lib_path, {"volren_render": [p] * 17 + [i, i, p],
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return _build.load(lib_path, {"volren_render": [p] * 18 + [i, i, p],
                                   "volren_launch_blocks": [i] * 7,
-                                  "volren_rgbe_decode": [p, p, ctypes.c_longlong, p],
-                                  "volren_rgbe_encode": [p, ctypes.c_longlong, p,
-                                                         ctypes.c_longlong, p]})
+                                  "volren_rgbe_decode": [p, p, ll, p],
+                                  "volren_rgbe_encode": [p, ll, i, p, p, ll, p],
+                                  "volren_mip_u8_blocks": [ll],
+                                  "volren_build_mip_u8": [p, ctypes.c_float, i, p, p, p, i, p, p,
+                                                          p]})
 
 
 def _lib():
@@ -633,9 +675,12 @@ def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     use_tf, has_emi = _variant(ks, pi)
     mip_u8, env_rgbe, pool_rgbe = _packs(ks, pool)
     _check_grid("", ks.atlas, ks.slot, ks.lo, ks.hi, ks.n_bricks, int(pi[PI_N_SLOTS]))
+    mip_dq = 0
     if mip_u8:
         mip = ks.mip_u8
         _check(mip, "mip_u8", torch.uint8, tuple(ks.mip.shape))
+        _check(ks.mip_dq, "mip_dq", torch.float32, (2, 4))
+        mip_dq = ks.mip_dq.data_ptr()
     else:
         mip = ks.mip_tf if use_tf else ks.mip
         _check(mip, "mip_tf" if use_tf else "mip", torch.float32, tuple(ks.mip.shape))
@@ -667,7 +712,7 @@ def _launch_cuda(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     stream = torch.cuda.current_stream(ks.atlas.device).cuda_stream
     err = (lib or _lib()).volren_render(
         pf.ctypes.data, pi.ctypes.data, ks.atlas.data_ptr(), ks.slot.data_ptr(),
-        ks.lo.data_ptr(), ks.hi.data_ptr(), mip.data_ptr(), env.data_ptr(),
+        ks.lo.data_ptr(), ks.hi.data_ptr(), mip.data_ptr(), mip_dq, env.data_ptr(),
         pool.data_ptr(), *ptrs, out.data_ptr(), 0 if stats is None else stats.data_ptr(),
         0 if btimes is None else btimes.data_ptr(), _pack_bits(mip_u8, env_rgbe, pool_rgbe),
         n_pix, stream)
@@ -708,17 +753,20 @@ render.launches_by_packs = {}
 
 # the STATS instantiation's counters, in csrc/megakernel.cu's order: the
 # warp-level issues of the loop and of a march substep with their active
-# lanes, the lanes that ran each of EVENTS, the capped samples, and the
-# most march substeps of a sample
-STATS = ("loop", "loop_lanes", "march_issues", "march_lanes") + EVENTS + ("capped", "max_steps")
+# lanes, the lanes that ran each of EVENTS, the capped samples, the most
+# march substeps of a sample, and (MIP_U8 instantiations) the march
+# substeps at each pyramid level
+STATS = (("loop", "loop_lanes", "march_issues", "march_lanes") + EVENTS + ("capped", "max_steps")
+         + LEVEL_COUNTS)
 
 
 def render_stats(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
                  pi: np.ndarray) -> tuple[torch.Tensor, dict]:
     """One dispatch through the kernel's STATS instantiation (the same image
     as ``render``; never launched by a render path). Returns the per-pixel
-    sums and the dispatch's counters: the keys of STATS (those of EVENTS
-    and ``"capped"`` count what ``render_plain(stats=)`` counts);
+    sums and the dispatch's counters: the keys of STATS (those of EVENTS,
+    ``"capped"`` and, on a u8 pyramid, LEVEL_COUNTS count what
+    ``render_plain(stats=)`` counts; LEVEL_COUNTS are left out otherwise);
     ``simt_loop`` and ``simt_march``, the active lanes over 32 x the
     warp-level issues of the loop and of a march substep; and from each
     block's (start, end) on the card's %globaltimer: ``blocks``,
@@ -740,6 +788,9 @@ def render_stats(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     out = _launch_cuda(ks, pool, pf, pi, lib=lib, stats=counters, btimes=btimes)
     render_stats.launches += 1
     st = dict(zip(STATS, counters.tolist()))
+    if ks.mip_u8 is None:
+        for key in LEVEL_COUNTS:
+            del st[key]
     st["simt_loop"] = st["loop_lanes"] / max(32 * st["loop"], 1)
     st["simt_march"] = st["march_lanes"] / max(32 * st["march_issues"], 1)
     bt = btimes.cpu().numpy()
@@ -755,29 +806,82 @@ def render_stats(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
 render_stats.launches = 0
 
 
+def _encode_rows(rows: torch.Tensor, col: int, words: torch.Tensor, head: int = 0):
+    err = _lib().volren_rgbe_encode(rows.data_ptr(), rows.stride(0), col, words.data_ptr(), head,
+                                    rows.shape[0],
+                                    torch.cuda.current_stream(rows.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"RGBE encode launch failed: CUDA error {err}")
+    rgbe_encode.launches += 1
+
+
 def rgbe_encode(rgb: torch.Tensor) -> torch.Tensor:
     """(n, 3) float32 -> (n,) int32 RGBE words through the library's encode
     kernel on CUDA tensors (one launch; adds one to
-    ``rgbe_encode.launches``; the rows may be a strided view, such as a
-    pool's radiance columns), ``pack.rgbe_encode_plain`` on CPU tensors:
-    bitwise the same words. ``pack.rgbe_encode`` calls it for CUDA
-    tensors."""
+    ``rgbe_encode.launches``; the rows may be a strided view), and
+    ``pack.rgbe_encode_plain`` on CPU tensors: bitwise the same words.
+    ``pack.rgbe_encode`` calls it for CUDA tensors."""
     if not rgb.is_cuda:
         return _plain_rgbe_encode(rgb)
     if rgb.dtype != torch.float32 or rgb.dim() != 2 or rgb.shape[1] != 3 or rgb.stride(1) != 1:
         raise ValueError(f"rgb must be (n, 3) float32 rows with unit column stride, got "
                          f"{rgb.dtype} {tuple(rgb.shape)} strides {rgb.stride()}")
     words = torch.empty(rgb.shape[0], dtype=torch.int32, device=rgb.device)
-    err = _lib().volren_rgbe_encode(rgb.data_ptr(), rgb.stride(0), words.data_ptr(),
-                                    rgb.shape[0],
-                                    torch.cuda.current_stream(rgb.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"RGBE encode launch failed: CUDA error {err}")
-    rgbe_encode.launches += 1
+    _encode_rows(rgb, 0, words)
     return words
 
 
 rgbe_encode.launches = 0
+
+
+def pack_pool_rgbe(pool: torch.Tensor) -> torch.Tensor:
+    """A CUDA (POOL_N, 8) float32 NEE pool as the packed (5 * POOL_N,) int32
+    one (pack.pack_pool_rgbe): one launch of the encode kernel writes the
+    [w, pdf] rows and, after them, the radiance words (adds one to
+    ``rgbe_encode.launches``)."""
+    _check(pool, "pool", torch.float32, (POOL_N, 8))
+    out = torch.empty(5 * POOL_N, dtype=torch.int32, device=pool.device)
+    _encode_rows(pool, 4, out[4 * POOL_N:], head=out.data_ptr())
+    return out
+
+
+def build_mip_u8(mip: torch.Tensor, mip_dims, mip_offsets, scale: float | None = None):
+    """The u8 majorant pyramid of the flat float32 pyramid ``mip`` (times
+    ``scale`` first, when given): (q (M,) uint8, dq (2, 4) float32, the
+    levels' (lo, scale) rows), bitwise ``pack.build_mip_u8`` of the same
+    table. On CUDA tensors one launch of the library's build kernel, with no
+    host round trip (adds one to ``build_mip_u8.launches``); on CPU tensors
+    the plain version."""
+    levels = mip_level_slices(mip_dims, mip_offsets)
+    if not mip.is_cuda:
+        if scale is not None:
+            mip = mip * torch.tensor(float(scale), dtype=torch.float32)
+        q, lo, sc = _plain_build_mip_u8(mip, mip_dims, mip_offsets)
+        return q, torch.stack([lo, sc])
+    _check(mip, "mip", torch.float32, (mip.numel(),))
+    ends = [0] + [off + n for off, n in levels]
+    if len(levels) != 4 or any(n <= 0 or off != end for (off, n), end in zip(levels, ends)) \
+            or ends[-1] != mip.numel():
+        raise ValueError(f"the kernel takes 4 non-empty levels one after another that fill the "
+                         f"table (scene.upload_grid's layout), not {levels} of {mip.numel()}")
+    lib, dev = _lib(), mip.device
+    q = torch.empty(mip.numel(), dtype=torch.uint8, device=dev)
+    dq = torch.empty(2, 4, dtype=torch.float32, device=dev)
+    blocks = lib.volren_mip_u8_blocks(sum(n for _o, n in levels))
+    part = torch.empty(blocks, 8, dtype=torch.float32, device=dev)
+    offs = (ctypes.c_int * 4)(*(o for o, _n in levels))
+    counts = (ctypes.c_int * 4)(*(n for _o, n in levels))
+    err = lib.volren_build_mip_u8(mip.data_ptr(), 1.0 if scale is None else float(scale),
+                                  int(scale is not None), offs, counts, part.data_ptr(), blocks,
+                                  q.data_ptr(), dq.data_ptr(),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"u8 pyramid build launch failed: CUDA error {err}")
+    build_mip_u8.launches += 1
+    return q, dq
+
+
+build_mip_u8.launches = 0
 
 
 def rgbe_decode(words: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,8 @@ by default):
 
   mip_u8   (M,) uint8         the baked majorant pyramid quantised up per
                               level (build_mip_u8), decoded lo + q * scale
-                              with the per-level rows in ``mip_dq``
+                              with the per-level rows in ``mip_dq``, (2, 4)
+                              float32 on the same device
   env_rgbe (H*W,) int32       the raw texels as shared-exponent words
                               (rgbe_encode)
   pool     (5 * POOL_N,) int32  POOL_N rows [wx, wy, wz, pdf] (float32
@@ -82,8 +83,6 @@ PF_TF_WIDTH = 55
 PF_EMI_SCALE = 56       # emission_scale (common.glsl:324-328)
 PF_EMI_NORM = 57        # 1 / emission majorant
 PF_EMI_X = 58           # 16 row-major (4, 4): density index -> emission index
-PF_MIP_LO = 74          # 4 per-level u8-mip dequantisation offsets (build_mip_u8)
-PF_MIP_SCALE = 78       # 4 per-level u8-mip dequantisation scales
 PF_SIZE = 88
 
 # pi (PI_SIZE,) int32 slots
@@ -105,7 +104,7 @@ PI_EMI_N_BRICKS = 30    # 3: emission grid bx, by, bz
 PI_EMI_N_SLOTS = 33     # emission atlas slots; 0 = no emission
 PI_ROW0 = 34            # the band of rows a dispatch traces: its first row
 PI_ROWS = 35            # and its row count (0, height: the whole frame)
-PI_MIP_U8 = 36          # 1: the march reads the u8 pyramid (PF_MIP_LO / PF_MIP_SCALE)
+PI_MIP_U8 = 36          # 1: the march reads the u8 pyramid (KernelScene.mip_u8, mip_dq)
 PI_SIZE = 40
 
 
@@ -141,11 +140,12 @@ class KernelScene(NamedTuple):
     emi_x: np.ndarray | None = None
     # the packed tables (module docstring): the escape reads env_rgbe in
     # place of env when it is set (pack_scene(env_rgbe=True)); the march
-    # reads mip_u8, decoded with mip_dq's (lo, scale) rows (2, 4) float32,
-    # in place of mip / mip_tf when it is set (bake_mip_u8, per trace)
+    # reads mip_u8, decoded with mip_dq's (lo, scale) rows, (2, 4) float32
+    # on the tables' device, in place of mip / mip_tf when it is set
+    # (bake_mip_u8, per trace)
     env_rgbe: torch.Tensor | None = None
     mip_u8: torch.Tensor | None = None
-    mip_dq: np.ndarray | None = None
+    mip_dq: torch.Tensor | None = None
 
 
 def pack_scene(grid: GridTables, env: EnvTables, tf: TFTables | None = None,
@@ -355,18 +355,20 @@ def bake_mip_u8(ks: KernelScene, params: TraceParams) -> KernelScene:
     """``ks`` with the u8 majorant pyramid of this trace: build_mip_u8 of the
     TF-baked table (``ks.mip_tf``, bake_tf_majorant first) or, without a
     TF, of ``mip * density_scale``, as volren_tpu.renderer._render_pallas
-    builds it; the march then reads it with no density_scale factor."""
+    builds it; the march then reads it with no density_scale factor. On
+    CUDA tables one launch of the megakernel library's build kernel
+    (megakernel.build_mip_u8), which leaves the levels' (lo, scale) rows on
+    the device: no host round trip."""
+    from .megakernel import build_mip_u8 as build_kernel   # it imports this module
+
     if ks.tf is not None:
         if ks.mip_tf is None:
             raise ValueError("a TF scene's u8 pyramid is built from its baked table "
                              "(bake_tf_majorant first)")
-        base = ks.mip_tf
+        q, dq = build_kernel(ks.mip_tf, ks.mip_dims, ks.mip_offsets)
     else:
-        base = ks.mip * torch.tensor(float(params.density_scale), dtype=torch.float32,
-                                     device=ks.mip.device)
-    q, lo, sc = build_mip_u8(base, ks.mip_dims, ks.mip_offsets)
-    dq = torch.stack([lo, sc]).cpu().numpy().astype(np.float32)
-    return ks._replace(mip_u8=q.contiguous(), mip_dq=dq)
+        q, dq = build_kernel(ks.mip, ks.mip_dims, ks.mip_offsets, scale=params.density_scale)
+    return ks._replace(mip_u8=q, mip_dq=dq)
 
 
 def bake_tf_majorant(ks: KernelScene, params: TraceParams) -> KernelScene:
@@ -417,7 +419,12 @@ def build_env_pool(env: EnvTables, seed: int, spp_base: int, rgbe: bool = False)
 def pack_pool_rgbe(pool: torch.Tensor) -> torch.Tensor:
     """A (POOL_N, 8) float32 pool as the packed (5 * POOL_N,) int32 one:
     its [wx, wy, wz, pdf] rows as they are, then rgbe_encode of its
-    radiance columns."""
+    radiance columns. On a CUDA pool one launch of the encode kernel writes
+    both (megakernel.pack_pool_rgbe)."""
+    if pool.is_cuda:
+        from .megakernel import pack_pool_rgbe as pack_kernel   # it imports this module
+
+        return pack_kernel(pool)
     rows = pool[:, :4].contiguous().view(torch.int32).reshape(-1)
     return torch.cat([rows, rgbe_encode(pool[:, 4:7])]).contiguous()
 
@@ -454,9 +461,6 @@ def build_params(ks: KernelScene, params: TraceParams, width: int, height: int,
         pf[PF_EMI_SCALE] = params.emission_scale
         pf[PF_EMI_NORM] = params.emission_norm
         pf[PF_EMI_X:PF_EMI_X + 16] = np.asarray(ks.emi_x, f32).reshape(-1)
-    if ks.mip_u8 is not None:
-        pf[PF_MIP_LO:PF_MIP_LO + 4] = ks.mip_dq[0]
-        pf[PF_MIP_SCALE:PF_MIP_SCALE + 4] = ks.mip_dq[1]
 
     pi = np.zeros(PI_SIZE, np.int32)
     pi[PI_WIDTH] = width
