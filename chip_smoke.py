@@ -46,7 +46,11 @@ of which raises on failure (exit code non-zero, no result line):
    bound from its STATS twin's counts; the RGBE encode kernel (the packed
    tables' feeder) on a dispatch's pool radiance and the sky's texels,
    bitwise its plain version, timed, and its packed pool (rows and words in
-   one launch) bitwise the plain version's; the u8 pyramid's build kernel
+   one launch) bitwise the plain version's; the NEE pool's draw kernel,
+   f32 and packed, bitwise its plain version on the same CUDA uniforms at
+   three (seed, spp_base), on the phases' sky and on the 4096x2048 one,
+   timed (CUDA events) beside its bound, its plain version and
+   build_env_pool's host ms; the u8 pyramid's build kernel
    bitwise its plain version on cloud512's pyramid (times density_scale and
    TF-baked), the random grid's and ragged levels with a level of one value
    and one of zeros, timed beside its bound; the plain path's 64-spp
@@ -61,9 +65,11 @@ of which raises on failure (exit code non-zero, no result line):
    Renderer.trace(256); then each of the four paths through
    Renderer.render(256) at the same shapes on the float32 tables and with
    all three packs on, each in a Renderer of its own, in turns (f32,
-   packed, packed, f32): spp/s of each, the packed instantiation, the RGBE
-   encode kernel (once a dispatch) and the u8 pyramid's build kernel (once
-   a trace) launched (counts set to 0 before a run, read after it), 0
+   packed, packed, f32): spp/s of each, the packed instantiation, the
+   pool's draw kernel (once a dispatch, the packed pool with no encode
+   launch) and the u8 pyramid's build kernel (once a trace) launched
+   (counts set to 0 before a run, read after it; a packed Renderer's
+   first dispatch also encodes the frame's texels, once), 0
    capped samples, the packed image's mean within 5% of the float32
    image's, and the trace's u8 pyramid baked again with no host sync;
 8. the probe kernels (volren_tpu_torch/csrc/probes.cu, built in phase 2
@@ -164,7 +170,8 @@ of which raises on failure (exit code non-zero, no result line):
    256x256 --render denoised with the trained parameters, all under
    build/chip_smoke/scripts.
 In phases 5-11 the launch count of the path's kernel, set to 0 just before
-the run, must have risen during it; in phases 5-7, 9 and 10 the
+the run, must have risen during it, and in phases 5-7 and 9 (in process)
+the NEE pool's draw kernel's too, once a dispatch; in phases 5-7, 9 and 10 the
 framebuffer must be finite with a positive mean and the run must have used
 the CUDA kernel.
 Every dispatch of phases 3-7 is also run through the kernel's STATS
@@ -224,6 +231,16 @@ RGBE_ENCODE_OPS = 87
 # subtraction, division, ceiling, clamps, FMA, comparison and bump)
 MIP_U8_REPLACES = "volren_tpu/ops/pallas/pack.py:361-384 (_build_mip_u8_jit; XLA, no pallas_call)"
 MIP_U8_OPS = 13
+# the NEE pool's draw kernel: what it replaces, a sample's float32
+# operations for its bound (the alias pick 5, the jitter 4, the texel's
+# (px, py) 4, uv 6, theta 4, phi 5, sin and cos 4, the local direction 2,
+# the rotation 15, the radiance 3; the packed pool adds RGBE_ENCODE_OPS),
+# and the (seed, spp_base) pairs phase 4 holds it to its plain version at
+ENV_POOL_REPLACES = ("volren_tpu/ops/pallas/pack.py:413-437 (build_env_pool) and "
+                     "volren_tpu/ops/envmap.py:149-195 (sample_environment_alias); XLA, no "
+                     "pallas_call")
+ENV_POOL_OPS = 52
+ENV_POOL_DRAWS = ((7, 0), (7, 192), (2024, 64))
 # phase 4: the large sky (100.7 MB of float32 texels, over the card's 50 MB
 # of L2; 33.6 MB of RGBE words, under it)
 BIG_SKY = (4096, 2048)
@@ -309,6 +326,7 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
     from volren_tpu_torch.ops.kernels import megakernel
     from volren_tpu_torch.ops.kernels.pack import build_env_pool, build_params, decode_dense, \
         pack_scene
+    from volren_tpu_torch.cli import INTERACTIVE_SPP
     from volren_tpu_torch.renderer import DISPATCH_SPP
     from volren_tpu_torch.utils.hotreload import KernelWatcher
     from volren_tpu_torch.voldata import Volume, read_brick
@@ -320,12 +338,15 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(folder)
 
-    def launched(label, before, variant=None):
-        """The megakernel (or its ``variant``) launched since ``before``."""
+    def launched(label, before, variant=None, pools_before=None):
+        """The megakernel (or its ``variant``) launched since ``before``,
+        and, given ``pools_before``, the pool's draw kernel too."""
         now = (megakernel.render.launches if variant is None
                else megakernel.render.launches_by_variant.get(variant, 0))
         if now <= before:
             raise AssertionError(f"{label}: the megakernel did not launch")
+        if pools_before is not None and megakernel.env_pool.launches <= pools_before:
+            raise AssertionError(f"{label}: the NEE pool's draw kernel did not launch")
         return now - before
 
     def check_fb(label, fb, res):
@@ -367,14 +388,18 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
             str(BOUNCES), "--emission", "100", "--device", "cuda"]
     megakernel.render.launches = 0
     megakernel.render.launches_by_variant.clear()
+    megakernel.env_pool.launches = 0
     t0 = time.perf_counter()
     r, stats = cli.run([folder, sky_path, *base, "--vol_rot_y", "30", "--vol_crop_max", "1",
                         "0.8", "1", "--output", os.path.join(out, "anim.png")])
     wall = time.perf_counter() - t0
-    emission = launched("the animated folder", 0, (False, True))
+    emission = launched("the animated folder", 0, (False, True), 0)
     if emission != megakernel.render.launches or emission < FRAMES * SPP // DISPATCH_SPP:
         raise AssertionError(f"the animated folder ran {megakernel.render.launches_by_variant}, "
                              f"not {FRAMES * SPP // DISPATCH_SPP}+ launches of <0,1>")
+    if megakernel.env_pool.launches != emission:
+        raise AssertionError(f"the animated folder drew {megakernel.env_pool.launches} pools "
+                             f"with the draw kernel in {emission} dispatches")
     if len(stats["outputs"]) != FRAMES or r.last_engine != "cuda_kernel":
         raise AssertionError(f"the animated folder wrote {stats['outputs']} with {r.last_engine}")
     for k, (png, frame) in enumerate(zip(stats["outputs"], stats["frames"])):
@@ -391,12 +416,14 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
     # ---- 9.3 one frame with --turbo: the TF + emission kernel on a user path
     megakernel.render.launches = 0
     megakernel.render.launches_by_variant.clear()
+    megakernel.env_pool.launches = 0
     r, stats = cli.run([frames[0], sky_path, *base, "--turbo", "--output",
                         os.path.join(out, "turbo.png")])
-    tf_emission = launched("--turbo", 0, (True, True))
-    if tf_emission != megakernel.render.launches or r.last_engine != "cuda_kernel":
-        raise AssertionError(f"--turbo ran {megakernel.render.launches_by_variant} with "
-                             f"{r.last_engine}")
+    tf_emission = launched("--turbo", 0, (True, True), 0)
+    if tf_emission != megakernel.render.launches or r.last_engine != "cuda_kernel" or \
+            megakernel.env_pool.launches != tf_emission:
+        raise AssertionError(f"--turbo ran {megakernel.render.launches_by_variant} and "
+                             f"{megakernel.env_pool.launches} pool draws with {r.last_engine}")
     mean = check_fb("--turbo", r.framebuffer(), r.resolution)
     ks, tp = r._kernel_scene(), r._trace_params()
     inputs = (ks, build_env_pool(r._env_device, int(r.seed), 0),
@@ -420,10 +447,10 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
                 "renderer.bounces = 100\n"
                 "renderer.render(64)\n"
                 f"renderer.save({script_png!r})\n")
-    before = megakernel.render.launches
+    before, pools = megakernel.render.launches, megakernel.env_pool.launches
     r, _ = cli.run([script, "--render", "-w", "512", "-h", "512", "--spp", "4", "--device",
                     "cuda", "--output", os.path.join(out, "after_script.png")])
-    launched("the volpy script", before)
+    launched("the volpy script", before, pools_before=pools)
     if not os.path.getsize(script_png) or r.last_engine != "cuda_kernel":
         raise AssertionError(f"the volpy script wrote no {script_png} or ran {r.last_engine}")
     check_fb("the volpy script", r.framebuffer(), r.resolution)
@@ -481,8 +508,9 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
         if m.group(6) != "cuda_kernel" or int(m.group(1)) < 64:
             raise AssertionError(f"the interactive loop: {m.group(0)}")
         print(f"interactive loop (--serve 0, port {port}): {m.group(1)} spp at "
-              f"{m.group(2)}x{m.group(3)}, {m.group(5)} spp/s of tracing; /snapshot "
-              f"{serve_png}; SIGINT -> exit 0 on {gpu_line}", flush=True)
+              f"{m.group(2)}x{m.group(3)}, {m.group(5)} spp/s of tracing "
+              f"({INTERACTIVE_SPP * 1e3 / float(m.group(5))!r} ms a {INTERACTIVE_SPP}-spp step); "
+              f"/snapshot {serve_png}; SIGINT -> exit 0 on {gpu_line}", flush=True)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -492,7 +520,7 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
     def emission_renderer():
         return path_renderer(Volume(CLOUD), sky, RES, seed, "emission", device=dev)
 
-    before = megakernel.render.launches
+    before, pools = megakernel.render.launches, megakernel.env_pool.launches
     ckpt = os.path.join(out, "checkpoint.npz")
     r = emission_renderer()
     r.trace(128)
@@ -502,7 +530,7 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
     resumed.trace(128)
     straight = emission_renderer()
     straight.trace(256)
-    launched("the checkpoint round trip", before)
+    launched("the checkpoint round trip", before, pools_before=pools)
     if not resumed.last_engine == straight.last_engine == "cuda_kernel":
         raise AssertionError(f"the checkpoint round trip ran {resumed.last_engine}")
     check_fb("the checkpoint round trip", resumed.framebuffer(), resumed.resolution)
@@ -532,10 +560,10 @@ def front_ends(seed, sky_path, sky, gpu_line, scene, cuda_ms) -> int:
 
     # ---- 9.8 the profiler
     trace_dir = os.path.join(out, "profile")
-    before = megakernel.render.launches
+    before, pools = megakernel.render.launches, megakernel.env_pool.launches
     with straight.profile(trace_dir):
         straight.trace(64)
-    launched("the profiled trace", before)
+    launched("the profiled trace", before, pools_before=pools)
     if straight.last_engine != "cuda_kernel":
         raise AssertionError(f"the profiled trace ran {straight.last_engine}")
     names = set()
@@ -1125,7 +1153,7 @@ def main(argv=None) -> int:
     from volren_tpu_torch.probes.sites import Q3_OPS, SITES
     from volren_tpu_torch.renderer import DISPATCH_SPP
     from volren_tpu_torch.ops.kernels.pack import bake_mip_u8, bake_tf_majorant, build_env_pool, \
-        build_params, pack_pool_rgbe, rgbe_encode_plain
+        build_params, env_pool_plain, pack_pool_rgbe, pool_uniforms, rgbe_encode_plain
     from volren_tpu_torch.ops.kernels.pack import build_mip_u8 as build_mip_u8_plain
     from volren_tpu_torch.scene.environment import Environment, procedural_sky
     from volren_tpu_torch.utils.hdr import write_hdr
@@ -1228,6 +1256,48 @@ def main(argv=None) -> int:
         if image is not None and not torch.equal(got, image):
             raise AssertionError(f"{name}: the STATS instantiation's image differs")
         return st
+
+    def check_env_pool(label, env):
+        """The NEE pool's draw kernel against its plain version on the same
+        CUDA uniforms, f32 and packed, at each of ENV_POOL_DRAWS, bitwise,
+        then timed beside its bound, the plain version and build_env_pool's
+        host ms (the numpy draw, the pinned copy and the launch; with and
+        without a sync after it). The kernel's ms: CUDA events over 20
+        launches queued behind a spin kernel, so the window holds the
+        device's work and not the wrapper's enqueueing (printed too, as
+        the launches back to back)."""
+        for rgbe in (False, True):
+            name = f"env_pool [{label}, {'packed' if rgbe else 'f32'}]"
+            for seed, base in ENV_POOL_DRAWS:
+                u2 = pool_uniforms(seed, base, dev)
+                got, want = megakernel.env_pool(env, u2, rgbe), env_pool_plain(env, u2, rgbe)
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise AssertionError(f"{name}: the kernel's pool of ({seed}, {base}) is "
+                                         f"not its plain version's")
+                if not torch.equal(build_env_pool(env, seed, base, rgbe), got):
+                    raise AssertionError(f"{name}: build_env_pool is not the kernel's pool")
+            ms = Context(dev).time_ms(lambda: megakernel.env_pool(env, u2, rgbe), 20)
+            enqueue_ms = cuda_ms(lambda: megakernel.env_pool(env, u2, rgbe), 20)
+            plain_ms, _ = host_ms(lambda: env_pool_plain(env, u2, rgbe))
+            build_synced_ms, _ = host_ms(lambda: build_env_pool(env, 7, 0, rgbe))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            build_env_pool(env, 7, 0, rgbe)
+            build_host_ms = (time.perf_counter() - t) * 1e3
+            n = u2.shape[0]
+            t_bytes = n * (8 + 40 + (20 if rgbe else 32)) / PEAK_BYTES_S
+            t_ops = n * (ENV_POOL_OPS + (RGBE_ENCODE_OPS if rgbe else 0)) / PEAK_F32_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            print(f"{name}, {n} samples of {env.alias_packed.shape[0]} alias rows: bitwise its "
+                  f"plain version at (seed, spp_base) {list(ENV_POOL_DRAWS)}; kernel {ms!r} ms "
+                  f"({enqueue_ms!r} back to back with the host's enqueueing), plain "
+                  f"{plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by}; build_env_pool "
+                  f"{build_host_ms!r} ms of host, {build_synced_ms!r} ms synced on {gpu_line}",
+                  flush=True)
+            if label == "phases' sky" and not rgbe:
+                record["env_pool"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                      "bound_ms": bound_ms, "bound_by": bound_by}
 
     def compare(name, kernel, plain):
         """Bitwise equality of kernel and plain output; returns max abs error."""
@@ -1426,6 +1496,7 @@ def main(argv=None) -> int:
                              "version's")
     print(f"pack_pool_rgbe: one launch of the encode kernel, bitwise the plain version's rows "
           f"and words ({got.numel()} words)", flush=True)
+    check_env_pool("phases' sky", r._env_device)
     del r, encode_rows, pool, got, want
 
     # the u8 pyramid's build kernel against its plain version (torch ops on
@@ -1482,6 +1553,7 @@ def main(argv=None) -> int:
         dispatches[pname] = (ks, r._env_pool(0), pf, pi)
     torch.cuda.synchronize()
     t_sky = time.time() - t_sky
+    check_env_pool(f"{BIG_SKY[0]}x{BIG_SKY[1]} sky", r._env_device)
     times = {pname: [] for pname in big_sets}
     for _ in range(PACK_ROUNDS):
         for pname, inputs in dispatches.items():
@@ -1509,11 +1581,16 @@ def main(argv=None) -> int:
         variant = VARIANT[path]
         megakernel.render.launches = 0
         megakernel.render.launches_by_variant.clear()
+        megakernel.env_pool.launches = 0
         r, seconds = run()
         launches = megakernel.render.launches_by_variant.get(variant, 0)
+        pools = megakernel.env_pool.launches
         if launches <= 0 or launches != megakernel.render.launches:
             raise AssertionError(f"the {path} path did not launch (only) its CUDA kernel "
                                  f"variant: {megakernel.render.launches_by_variant}")
+        if pools != launches:
+            raise AssertionError(f"the {path} path drew {pools} NEE pools with the draw kernel "
+                                 f"in {launches} dispatches")
         if r.last_engine != "cuda_kernel":
             raise AssertionError(f"the {path} path ran {r.last_engine}")
         ks, tp = r._kernel_scene(), r._trace_params()
@@ -1529,8 +1606,11 @@ def main(argv=None) -> int:
             raise AssertionError(f"the {path} path's framebuffer is black: mean {mean}")
         print(f"{path} path: cloud512 {RES}x{RES}, {SPP} spp, {BOUNCES} bounces: "
               f"{SPP / seconds!r} spp/s ({seconds!r} s, {launches} kernel launch(es), "
-              f"framebuffer mean {[round(m, 4) for m in mean]}) on {gpu_line}", flush=True)
+              f"{pools} of the pool's draw kernel, framebuffer mean "
+              f"{[round(m, 4) for m in mean]}) on {gpu_line}", flush=True)
         record[kname]["launches"] = launches
+        if kname == "megakernel":
+            record["env_pool"]["launches"] = pools
         path_means[path] = float(fb[..., :3].mean())
         path_renderers[path] = r
 
@@ -1571,7 +1651,20 @@ def main(argv=None) -> int:
             renderers[packed_run] = path_renderer(Volume(CLOUD), sky, RES, args.seed, path,
                                                   device=dev)
             set_packs(renderers[packed_run], ALL_PACKS if packed_run else NO_PACKS)
+            # the packed tables' first dispatch: the frame's RGBE texels, the
+            # trace's u8 pyramid and the dispatch's packed pool, one launch each
+            for counted in (megakernel.render, megakernel.rgbe_encode, megakernel.build_mip_u8,
+                            megakernel.env_pool):
+                counted.launches = 0
             renderers[packed_run].render(DISPATCH_SPP)
+            first = (megakernel.render.launches, megakernel.rgbe_encode.launches,
+                     megakernel.build_mip_u8.launches, megakernel.env_pool.launches)
+            if first != ((1, 1, 1, 1) if packed_run else (1, 0, 0, 1)):
+                raise AssertionError(f"the {path} path's first {'packed' if packed_run else 'f32'} "
+                                     f"dispatch launched (render, rgbe_encode, build_mip_u8, "
+                                     f"env_pool) {first}")
+            if packed_run and path == "plain":
+                record["rgbe_encode"]["launches"] = first[1]
         runs = {False: [], True: []}
         for packed_run in (False, True, True, False):
             packs = ALL_PACKS if packed_run else NO_PACKS
@@ -1581,6 +1674,7 @@ def main(argv=None) -> int:
             megakernel.render.launches_by_packs.clear()
             megakernel.rgbe_encode.launches = 0
             megakernel.build_mip_u8.launches = 0
+            megakernel.env_pool.launches = 0
             seconds, _ = host_ms(lambda: r.render(SPP))
             seconds /= 1e3
             launches = megakernel.render.launches_by_packs.get(key, 0)
@@ -1588,12 +1682,14 @@ def main(argv=None) -> int:
                 raise AssertionError(f"the {path} path ({'packed' if packed_run else 'f32'}) "
                                      f"launched {megakernel.render.launches_by_packs}")
             encodes, builds = megakernel.rgbe_encode.launches, megakernel.build_mip_u8.launches
-            if (encodes, builds) != ((launches, 1) if packed_run else (0, 0)):
+            pools = megakernel.env_pool.launches
+            # a packed pool is drawn packed: no encode launch a dispatch
+            if (encodes, builds, pools) != (0, 1 if packed_run else 0, launches):
                 raise AssertionError(f"the {path} path ({'packed' if packed_run else 'f32'}) "
-                                     f"launched the RGBE encode {encodes} and the u8 pyramid's "
-                                     f"build {builds} times in {launches} dispatches")
-            if packed_run and path == "plain" and "launches" not in record["rgbe_encode"]:
-                record["rgbe_encode"]["launches"] = encodes
+                                     f"launched the RGBE encode {encodes}, the u8 pyramid's "
+                                     f"build {builds} and the pool's draw {pools} times in "
+                                     f"{launches} dispatches")
+            if packed_run and path == "plain" and "launches" not in record["build_mip_u8"]:
                 record["build_mip_u8"]["launches"] = builds
             fb = r.framebuffer()
             if tuple(fb.shape) != (RES, RES, 4) or not bool(torch.isfinite(fb).all()):
@@ -1808,6 +1904,8 @@ def main(argv=None) -> int:
     kernels.append(dict(name="rgbe_encode", route="cuda",
                         source="volren_tpu_torch/csrc/megakernel.cu",
                         replaces=RGBE_ENCODE_REPLACES, library_ms=None, **record["rgbe_encode"]))
+    kernels.append(dict(name="env_pool", route="cuda", source="volren_tpu_torch/csrc/megakernel.cu",
+                        replaces=ENV_POOL_REPLACES, library_ms=None, **record["env_pool"]))
     kernels.append(dict(name="build_mip_u8", route="cuda",
                         source="volren_tpu_torch/csrc/megakernel.cu",
                         replaces=MIP_U8_REPLACES, library_ms=None, **record["build_mip_u8"]))

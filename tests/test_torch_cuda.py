@@ -303,6 +303,103 @@ def test_device_pack_pool_rgbe_is_the_plain_pack():
     assert torch.equal(got[4 * n:], pack.rgbe_encode_plain(pool[:, 4:7]))
 
 
+def _rotated_sky(strength=2.75):
+    """The test sky under a rotation that mixes all three axes, at a
+    strength other than 1."""
+    a, b, c = np.radians([30.0, -50.0, 75.0])
+    rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+    ry = np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0], [-np.sin(b), 0, np.cos(b)]])
+    rz = np.array([[np.cos(c), -np.sin(c), 0], [np.sin(c), np.cos(c), 0], [0, 0, 1]])
+    env = Environment(procedural_sky(64, 32, seed=4))
+    env.transform, env.strength = (rz @ ry @ rx).astype(np.float32), strength
+    return env
+
+
+@pytest.mark.parametrize("rgbe", [False, True], ids=["f32", "packed"])
+@pytest.mark.parametrize("seed,spp_base", [(123, 0), (7, 64), (2024, 192)])
+def test_env_pool_kernel_is_the_plain_version(seed, spp_base, rgbe):
+    """The NEE pool's draw kernel against its plain version
+    (pack.env_pool_plain, torch ops) on the same CUDA uniforms, under a
+    rotated sky at strength 2.75, bitwise, in one launch; build_env_pool
+    is the same pool."""
+    from volren_tpu_torch.ops.kernels import pack
+
+    dev = _cuda()
+    env = _renderer(dev, env=_rotated_sky())._env_device
+    u2 = pack.pool_uniforms(seed, spp_base, dev)
+    before = megakernel.env_pool.launches
+    got = megakernel.env_pool(env, u2, rgbe)
+    assert megakernel.env_pool.launches == before + 1
+    want = pack.env_pool_plain(env, u2, rgbe)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(build_env_pool(env, seed, spp_base, rgbe), got)
+    if rgbe:
+        assert torch.equal(got, pack.pack_pool_rgbe(pack.env_pool_plain(env, u2)))
+
+
+@pytest.mark.parametrize("pool_rgbe", [False, True], ids=["f32", "packed"])
+def test_env_pool_one_launch_per_dispatch(pool_rgbe):
+    """trace() draws each dispatch's pool in one launch of the draw kernel;
+    with pallas_pool_rgbe on, the encode kernel is not launched for it."""
+    r = _renderer(_cuda())
+    r.pallas_pool_rgbe = pool_rgbe
+    r.trace(1)
+    pools, encodes = megakernel.env_pool.launches, megakernel.rgbe_encode.launches
+    dispatches = megakernel.render.launches
+    r.trace(2 * DISPATCH_SPP + 3)
+    assert megakernel.render.launches == dispatches + 3
+    assert megakernel.env_pool.launches == pools + 3
+    assert megakernel.rgbe_encode.launches == encodes
+
+
+def test_env_pool_makes_no_host_sync():
+    """A dispatch's pool, f32 and packed, is built with no host sync
+    (torch's sync debug mode raises on one) and equals the pool built
+    without the mode."""
+    r = _renderer(_cuda(), env=_rotated_sky())
+
+    def pools():
+        out = {}
+        for rgbe in (False, True):
+            r.pallas_pool_rgbe = rgbe
+            out[rgbe] = r._env_pool(64)
+        return out
+
+    want = pools()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = pools()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for rgbe in (False, True):
+        assert torch.equal(got[rgbe], want[rgbe])
+
+
+def test_trace_with_the_pool_kernel_is_the_trace_with_plain_pools(monkeypatch):
+    """trace(128) of the plain path with the draw kernel's pools is
+    bitwise the same trace fed its plain version's pools."""
+    from volren_tpu_torch import renderer as renderer_module
+    from volren_tpu_torch.ops.kernels import pack
+
+    dev = _cuda()
+    a = _renderer(dev, env=_rotated_sky())
+    a.trace(2 * DISPATCH_SPP)
+    plain_pools = []
+
+    def plain_pool(env, seed, spp_base, rgbe=False):
+        plain_pools.append(spp_base)
+        return pack.env_pool_plain(env, pack.pool_uniforms(seed, spp_base, dev), rgbe)
+
+    monkeypatch.setattr(renderer_module, "build_env_pool", plain_pool)
+    b = _renderer(dev, env=_rotated_sky())
+    before = megakernel.env_pool.launches
+    b.trace(2 * DISPATCH_SPP)
+    assert plain_pools == [0, DISPATCH_SPP] and megakernel.env_pool.launches == before
+    assert torch.equal(a.framebuffer(), b.framebuffer())
+
+
 def test_packed_f32_instantiation_is_the_f32_dispatch():
     """With every switch off the tables are the float32 ones, and the
     dispatch is the f32 instantiation's image."""
@@ -518,6 +615,14 @@ def test_kernel_wrapper_rejects_bad_tables():
         megakernel.render(ks._replace(emi_lo=ks.emi_lo[:-1].contiguous()), pool, pf, pi)
     with pytest.raises(ValueError):
         megakernel.render(ks._replace(tf=ks.tf._replace(lut=ks.tf.lut.double())), pool, pf, pi)
+    env = _renderer(_cuda())._env_device
+    u2 = torch.rand(64, 2, device=env.alias_packed.device)
+    with pytest.raises(ValueError):
+        megakernel.env_pool(env, u2.double())
+    with pytest.raises(ValueError):
+        megakernel.env_pool(env, u2.t())
+    with pytest.raises(ValueError):
+        megakernel.env_pool(env._replace(alias_packed=env.alias_packed[:, :9].contiguous()), u2)
 
 
 # ---- the probe kernels (volren_tpu_torch/csrc/probes.cu) against their

@@ -79,9 +79,49 @@ def test_environment_tables_match(envs):
     assert np.array_equal(ours.inv_transform, np.asarray(theirs.inv_transform))
 
 
-@pytest.mark.parametrize("seed,spp_base", [(123, 0), (7, 64)])
-def test_env_pool_matches(envs, seed, spp_base):
-    ours, theirs = envs
+def _rotation() -> np.ndarray:
+    """A rotation that mixes all three axes (every entry of the matrix is
+    used by the pool's written-out product)."""
+    a, b, c = np.radians([30.0, -50.0, 75.0])
+    rx = np.array([[1, 0, 0], [0, np.cos(a), -np.sin(a)], [0, np.sin(a), np.cos(a)]])
+    ry = np.array([[np.cos(b), 0, np.sin(b)], [0, 1, 0], [-np.sin(b), 0, np.cos(b)]])
+    rz = np.array([[np.cos(c), -np.sin(c), 0], [np.sin(c), np.cos(c), 0], [0, 0, 1]])
+    return (rz @ ry @ rx).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def skies(envs):
+    """The test sky under each pool case's transform and strength, in both
+    packages: kind -> (ours, theirs), made once."""
+    made = {"identity": envs}
+
+    def get(kind):
+        if kind not in made:
+            img = procedural_sky(64, 32, seed=4)
+            ours, jenv = Environment(img), JEnvironment(img)
+            if "rotated" in kind:
+                ours.transform = jenv.transform = _rotation()
+            ours.strength = jenv.strength = 2.75 if "strength" in kind else 1.0
+            made[kind] = tscene.upload_environment(ours, "cpu"), jscene.upload_environment(jenv)
+        return made[kind]
+
+    return get
+
+
+@pytest.mark.parametrize("sky,seed,spp_base", [
+    pytest.param("identity", 123, 0, id="123-0"),
+    pytest.param("identity", 7, 64, id="7-64"),
+    pytest.param("identity", 2024, 192, id="2024-192"),
+    pytest.param("rotated", 123, 0, id="rotated-123-0"),
+    pytest.param("strength", 7, 64, id="strength-7-64"),
+    pytest.param("rotated+strength", 2024, 192, id="rotated+strength-2024-192"),
+])
+def test_env_pool_matches(skies, sky, seed, spp_base):
+    """The port's pool (the draw kernel's plain version on the CPU) against
+    volren_tpu's: the pdf bitwise, the directions within 1e-6 (the port
+    writes the rotation out, volren_tpu's CPU product may sum in another
+    order), the radiance within 1e-6 relative."""
+    ours, theirs = skies(sky)
     scene = jscene.SceneDevice(density=None, emission=None, env=theirs, tf=None)
     ref = jpack.build_env_pool(scene, seed, spp_base)
     pool = tpack.build_env_pool(ours, seed, spp_base).numpy()
@@ -92,6 +132,33 @@ def test_env_pool_matches(envs, seed, spp_base):
     for col, key in zip((4, 5, 6), ("ler", "leg", "leb")):
         assert np.allclose(pool[:, col], np.asarray(ref[key]).reshape(-1), rtol=1e-6, atol=0)
     assert not pool[:, 7].any()
+
+
+@pytest.mark.parametrize("sky", ["identity", "rotated+strength"])
+def test_env_pool_packed_is_the_packed_f32_pool(skies, sky):
+    """build_env_pool(rgbe=True), one call (one launch on a card), is
+    bitwise pack_pool_rgbe of the f32 pool of the same (seed, spp_base),
+    and the draw kernel's wrapper on CPU tensors is its plain version."""
+    from volren_tpu_torch.ops.kernels import megakernel
+
+    ours = skies(sky)[0]
+    packed = tpack.build_env_pool(ours, 11, 128, rgbe=True)
+    assert packed.dtype == torch.int32 and packed.shape == (5 * tpack.POOL_N,)
+    assert torch.equal(packed, tpack.pack_pool_rgbe(tpack.build_env_pool(ours, 11, 128)))
+    u2 = tpack.pool_uniforms(11, 128, "cpu")
+    for rgbe in (False, True):
+        assert torch.equal(megakernel.env_pool(ours, u2, rgbe),
+                           tpack.env_pool_plain(ours, u2, rgbe))
+
+
+def test_pool_uniforms_are_the_jax_packages_draw():
+    """The uniforms drawn into a (pinned, on a card) buffer are the draw of
+    volren_tpu.ops.pallas.pack.build_env_pool's generator, bitwise."""
+    for seed, spp_base in ((123, 0), (7, 64), (0xDEADBEEF, 4096)):
+        rng = np.random.default_rng((seed * 2654435761 + spp_base) % 2**63)
+        want = rng.random((tpack.POOL_N, 2), np.float32)
+        got = tpack.pool_uniforms(seed, spp_base, torch.device("cpu"))
+        assert got.dtype == torch.float32 and np.array_equal(got.numpy(), want)
 
 
 def test_params_block_layout(grids, envs):

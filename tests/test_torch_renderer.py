@@ -53,9 +53,9 @@ def test_trace_crosses_dispatch_fence(random_grid16, monkeypatch):
 
     pools = []
 
-    def spy_pool(env, seed, spp_base):
+    def spy_pool(env, seed, spp_base, rgbe=False):
         pools.append((seed, spp_base))
-        return real_pool(env, seed, spp_base)
+        return real_pool(env, seed, spp_base, rgbe)
 
     monkeypatch.setattr(megakernel, "render", spy_render)
     monkeypatch.setattr("volren_tpu_torch.renderer.build_env_pool", spy_pool)

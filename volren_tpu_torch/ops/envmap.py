@@ -118,7 +118,10 @@ def sample_environment_alias(env: EnvTables, u2: torch.Tensor):
     """O(1) environment texel sampling for (N, 2) uniforms: draws the texel
     distribution w / (N * avg) of the importance map with a uniform
     in-texel jitter. Returns (uv_x, uv_y, pdf, w_i (N, 3), le_texel (N, 3)),
-    where le_texel is the chosen texel's box-filtered radiance."""
+    where le_texel is the chosen texel's box-filtered radiance. The
+    plain version of the NEE pool's draw kernel (megakernel.env_pool),
+    which repeats its operation order, the rotation written out
+    (geometry.matvec) in place of volren_tpu's ``w_local @ transform.T``."""
     table = env.alias_packed
     n = int(table.shape[0])
     dim = int(round(n ** 0.5))
@@ -145,6 +148,5 @@ def sample_environment_alias(env: EnvTables, u2: torch.Tensor):
     phi = (torch.clamp(uv_x, 0.0, 1.0) * 2.0 - 1.0) * M_PI
     sin_t = torch.sin(theta)
     w_local = torch.stack([sin_t * torch.cos(phi), torch.cos(theta), sin_t * torch.sin(phi)], dim=-1)
-    transform = torch.as_tensor(env.transform, device=w_local.device)
-    w_i = w_local @ transform.T
+    w_i = matvec(env.transform, w_local)
     return uv_x, uv_y, pdf, w_i, le_texel

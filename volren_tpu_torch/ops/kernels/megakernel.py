@@ -35,7 +35,8 @@ bakes density_scale and any TF alpha in), the escape's texel from the RGBE words
 ``ks.env_rgbe``, and the NEE pool row's radiance from its RGBE word (an
 int32 pool, ``pack.build_env_pool(rgbe=True)``). ``PACKS`` names them.
 ``build_mip_u8`` builds the u8 pyramid in one launch of the library's
-build kernel, and ``rgbe_encode`` / ``pack_pool_rgbe`` the RGBE words.
+build kernel, ``rgbe_encode`` / ``pack_pool_rgbe`` the RGBE words, and
+``env_pool`` a dispatch's NEE pool, f32 or packed, in one launch.
 
 The plain version is the Pallas kernel's state machine with one march
 substep per step: every (pixel, sample) is a lane, and after the regen
@@ -77,6 +78,7 @@ from .pack import (
     PI_WIDTH, POOL_N, PF_SIZE, PI_SIZE, KernelScene,
 )
 from .pack import build_mip_u8 as _plain_build_mip_u8
+from .pack import env_pool_plain as _plain_env_pool
 from .pack import mip_level_slices
 from .pack import rgbe_decode as _plain_rgbe_decode
 from .pack import rgbe_encode_plain as _plain_rgbe_encode
@@ -634,6 +636,7 @@ def load(lib_path: str) -> ctypes.CDLL:
                                   "volren_launch_blocks": [i] * 7,
                                   "volren_rgbe_decode": [p, p, ll, p],
                                   "volren_rgbe_encode": [p, ll, i, p, p, ll, p],
+                                  "volren_env_pool": [p, p, i, i, p, ctypes.c_float, p, i, i, p],
                                   "volren_mip_u8_blocks": [ll],
                                   "volren_build_mip_u8": [p, ctypes.c_float, i, p, p, p, i, p, p,
                                                           p]})
@@ -843,6 +846,42 @@ def pack_pool_rgbe(pool: torch.Tensor) -> torch.Tensor:
     out = torch.empty(5 * POOL_N, dtype=torch.int32, device=pool.device)
     _encode_rows(pool, 4, out[4 * POOL_N:], head=out.data_ptr())
     return out
+
+
+def env_pool(env, u2: torch.Tensor, rgbe: bool = False) -> torch.Tensor:
+    """The NEE pool of the (n, 2) float32 uniforms ``u2`` over the sky
+    ``env`` (a scene.EnvTables): the (n, 8) float32 pool, or with ``rgbe``
+    the packed (5 n,) int32 one, bitwise ``pack.env_pool_plain``. On CUDA
+    tensors one launch of the library's draw kernel, which writes either
+    layout (adds one to ``env_pool.launches``): the sky's transform,
+    strength and table size go as kernel arguments, so nothing is copied
+    and the host does not wait. On CPU tensors the plain version."""
+    if not u2.is_cuda:
+        return _plain_env_pool(env, u2, rgbe)
+    table = env.alias_packed
+    n, n_alias = u2.shape[0], table.shape[0]
+    _check(u2, "u2", torch.float32, (n, 2))
+    _check(table, "alias_packed", torch.float32, (n_alias, 10))
+    if table.device != u2.device:
+        raise ValueError(f"the alias table is on {table.device}, the uniforms on {u2.device}")
+    xform = np.ascontiguousarray(env.transform, np.float32)
+    if xform.shape != (3, 3):
+        raise ValueError(f"the sky's transform has shape {xform.shape}, expected (3, 3)")
+    if rgbe:
+        out = torch.empty(5 * n, dtype=torch.int32, device=u2.device)
+    else:
+        out = torch.empty(n, 8, dtype=torch.float32, device=u2.device)
+    err = _lib().volren_env_pool(u2.data_ptr(), table.data_ptr(), n_alias,
+                                 int(round(n_alias ** 0.5)), xform.ctypes.data,
+                                 float(env.strength), out.data_ptr(), int(rgbe), n,
+                                 torch.cuda.current_stream(u2.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"NEE pool launch failed: CUDA error {err}")
+    env_pool.launches += 1
+    return out
+
+
+env_pool.launches = 0
 
 
 def build_mip_u8(mip: torch.Tensor, mip_dims, mip_offsets, scale: float | None = None):

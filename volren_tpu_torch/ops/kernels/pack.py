@@ -399,34 +399,62 @@ def decode_dense(ks: KernelScene) -> torch.Tensor:
     return vals.reshape(-1)
 
 
+def pool_uniforms(seed: int, spp_base: int, device) -> torch.Tensor:
+    """The (POOL_N, 2) float32 uniforms of the NEE pool of (seed, spp_base)
+    on ``device``: numpy's generator seeded exactly as
+    volren_tpu.ops.pallas.pack.build_env_pool seeds it, so both packages
+    draw the same pool. For a CUDA device they are drawn into a fresh
+    pinned host buffer and copied with ``non_blocking``: no host sync (the
+    caching host allocator keeps the buffer until its copy has run)."""
+    rng = np.random.default_rng((int(seed) * 2654435761 + int(spp_base)) % 2**63)
+    cuda = torch.device(device).type == "cuda"
+    host = torch.empty(POOL_N, 2, dtype=torch.float32, pin_memory=cuda)
+    rng.random(dtype=np.float32, out=host.numpy())
+    return host.to(device, non_blocking=cuda)
+
+
+def env_pool_plain(env: EnvTables, u2: torch.Tensor, rgbe: bool = False) -> torch.Tensor:
+    """The plain version of megakernel.env_pool: the alias-table samples of
+    the (n, 2) uniforms ``u2`` as the (n, 8) float32 pool [w, pdf,
+    strength * texel radiance, 0], or with ``rgbe`` as the packed (5 n,)
+    int32 pool (pack_pool_rgbe_plain), in torch ops on ``u2``'s device."""
+    _ux, _uy, pdf, w_i, le_texel = sample_environment_alias(env, u2)
+    le = env.strength * le_texel
+    pool = torch.cat([w_i, pdf[:, None], le, torch.zeros_like(pdf)[:, None]], dim=1).contiguous()
+    return pack_pool_rgbe_plain(pool) if rgbe else pool
+
+
 def build_env_pool(env: EnvTables, seed: int, spp_base: int, rgbe: bool = False) -> torch.Tensor:
     """POOL_N alias-table environment samples as a (POOL_N, 8) float32
     table or, with ``rgbe``, as the packed (5 * POOL_N,) int32 table (the
     module docstring): the radiance as one word a sample,
     ``rgbe_encode(strength * texel)``, as volren_tpu's pool packs it
-    (``"lergbe"``). The uniforms come from numpy's generator seeded exactly
-    as volren_tpu.ops.pallas.pack.build_env_pool seeds it, so both packages
-    draw the same pool for the same (seed, spp_base)."""
-    rng = np.random.default_rng((int(seed) * 2654435761 + int(spp_base)) % 2**63)
-    device = env.envmap.device
-    u2 = torch.as_tensor(rng.random((POOL_N, 2), np.float32), device=device)
-    _ux, _uy, pdf, w_i, le_texel = sample_environment_alias(env, u2)
-    le = env.strength * le_texel
-    pool = torch.cat([w_i, pdf[:, None], le, torch.zeros_like(pdf)[:, None]], dim=1).contiguous()
-    return pack_pool_rgbe(pool) if rgbe else pool
+    (``"lergbe"``). The uniforms are pool_uniforms(seed, spp_base), the
+    JAX package's; on CUDA tables one launch of the megakernel library's
+    draw kernel writes either layout (megakernel.env_pool), with no host
+    sync; on CPU tables the plain version."""
+    from .megakernel import env_pool   # it imports this module
+
+    return env_pool(env, pool_uniforms(seed, spp_base, env.alias_packed.device), rgbe)
 
 
 def pack_pool_rgbe(pool: torch.Tensor) -> torch.Tensor:
     """A (POOL_N, 8) float32 pool as the packed (5 * POOL_N,) int32 one:
     its [wx, wy, wz, pdf] rows as they are, then rgbe_encode of its
     radiance columns. On a CUDA pool one launch of the encode kernel writes
-    both (megakernel.pack_pool_rgbe)."""
+    both (megakernel.pack_pool_rgbe); build_env_pool(rgbe=True) draws a
+    packed pool directly."""
     if pool.is_cuda:
         from .megakernel import pack_pool_rgbe as pack_kernel   # it imports this module
 
         return pack_kernel(pool)
+    return pack_pool_rgbe_plain(pool)
+
+
+def pack_pool_rgbe_plain(pool: torch.Tensor) -> torch.Tensor:
+    """pack_pool_rgbe in torch ops on the pool's device."""
     rows = pool[:, :4].contiguous().view(torch.int32).reshape(-1)
-    return torch.cat([rows, rgbe_encode(pool[:, 4:7])]).contiguous()
+    return torch.cat([rows, rgbe_encode_plain(pool[:, 4:7])]).contiguous()
 
 
 def build_params(ks: KernelScene, params: TraceParams, width: int, height: int,

@@ -22,11 +22,16 @@ Renderer of its own, so no timed run flips a switch. Per tree and round:
    alone and with a device sync after it, the kernels and copies it put on
    the device with their summed ms (torch.profiler), and the host syncs it
    made (torch.cuda's sync debug mode);
-4. ``pack.pack_pool_rgbe`` of one dispatch's pool: the same;
+4. ``pack.pack_pool_rgbe`` of one dispatch's pool, and
+   ``pack.build_env_pool`` of one dispatch, f32 and packed (the NEE pool
+   drawn from its uniforms): the same;
 5. ``pack.pack_scene(..., env_rgbe=True)``, paid once per frame or switch
    flip: host ms with a sync;
 6. the 64-spp dispatch of the kernel on the f32 tables, with each pack
-   alone and with all three: CUDA-event ms.
+   alone and with all three: CUDA-event ms;
+7. the interactive loop's step (cli's ``--serve`` preview): ``trace(4)``
+   with a device sync on the f32 tables at 256x256, the median of
+   ``STEPS`` steps on the host clock.
 
 Each host-clock number is the median of ``REPS`` calls. With
 ``--variants``, then the u8 march's design alternatives (MARCH_VARIANTS:
@@ -56,6 +61,7 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES, BOUNCES, SPP, DISPATCH_SPP = 1024, 100, 256, 64
 REPS = 20          # host-clock calls a median is taken over
+STEP_RES, STEP_SPP, STEPS = 256, 4, 64   # item 7: the interactive loop's preview step
 # the dispatches of item 6: (mip_u8, env_rgbe, pool_rgbe)
 PACK_SETS = {"f32": (False, False, False), "u8": (True, False, False),
              "env_rgbe": (False, True, False), "pool_rgbe": (False, False, True),
@@ -217,6 +223,9 @@ class Tree:
             _set_packs(r, (packed,) * 3)
             r.render(DISPATCH_SPP)                     # the tables, the kernel build
             self.r[packed] = r
+        self.preview = measure.path_renderer(voldata.Volume(cloud), env_mod.Environment(sky_path),
+                                             STEP_RES, seed, "plain", BOUNCES)
+        self.preview.render(STEP_SPP)
         self.seed = seed
 
 
@@ -277,6 +286,19 @@ def _feeder(label, fn) -> dict:
             "syncs": _syncs(fn)}
 
 
+def _step_ms(r) -> float:
+    """Item 7: the median host ms of a trace(STEP_SPP) and a device sync."""
+    r.reset()
+    out = []
+    for _ in range(STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r.trace(STEP_SPP)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(out)
+
+
 def _set_packs(r, packs):
     r.pallas_mip_u8 = "1" if packs[0] else "0"
     r.pallas_env_rgbe, r.pallas_pool_rgbe = packs[1], packs[2]
@@ -325,9 +347,12 @@ def measure_round(t: Tree) -> dict:
     out["pack_pool_rgbe"] = _feeder("pack_pool_rgbe", lambda: t.pack.pack_pool_rgbe(pool))
     out["build_env_pool"] = _feeder("build_env_pool",
                                     lambda: t.pack.build_env_pool(r._env_device, t.seed, 0))
+    out["build_env_pool_rgbe"] = _feeder(
+        "build_env_pool_rgbe", lambda: t.pack.build_env_pool(r._env_device, t.seed, 0, rgbe=True))
     grid, env = r._density_grids[0], r._env_device
     out["pack_scene_env_rgbe_ms"] = _median_ms(
         lambda: t.pack.pack_scene(grid, env, env_rgbe=True), True)
+    out["step_ms"] = _step_ms(t.preview)
     return out
 
 
@@ -443,8 +468,10 @@ def main(argv=None) -> int:
             **{f: {k: med(lambda x, f=f, k=k: x[f][k])
                    for k in ("host_ms", "host_ms_synced", "kernels", "kernel_ms", "copies",
                              "copy_ms", "syncs")}
-               for f in ("bake_mip_u8", "pack_pool_rgbe", "build_env_pool")},
+               for f in ("bake_mip_u8", "pack_pool_rgbe", "build_env_pool",
+                         "build_env_pool_rgbe")},
             "pack_scene_env_rgbe_ms": med(lambda x: x["pack_scene_env_rgbe_ms"]),
+            "step_ms": med(lambda x: x["step_ms"]),
         }
         print(f"summary [{label}], medians of {args.rounds} rounds: {summary!r} [{card}]",
               flush=True)

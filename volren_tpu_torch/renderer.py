@@ -53,7 +53,7 @@ from .ops import scene as dscene
 from .ops import tonemap as _tonemap
 from .ops.kernels import megakernel, oracle
 from .ops.kernels.pack import (DISPATCH_SPP, bake_mip_u8, bake_tf_majorant, build_env_pool,
-                               pack_pool_rgbe, pack_scene)
+                               pack_scene)
 from .parallel import sharding
 from .scene.camera import Camera
 from .scene.environment import Environment
@@ -290,9 +290,10 @@ class Renderer:
     def _env_pool(self, spp_base: int):
         """The NEE pool of the dispatch whose first sample is ``spp_base``,
         drawn from (seed, spp_base); its radiance as RGBE words when
-        ``pallas_pool_rgbe`` is on."""
-        pool = build_env_pool(self._env_device, int(self.seed), int(spp_base))
-        return pack_pool_rgbe(pool) if self._switch("pallas_pool_rgbe") else pool
+        ``pallas_pool_rgbe`` is on. On a card one launch of the draw kernel
+        writes either layout, with no host sync."""
+        return build_env_pool(self._env_device, int(self.seed), int(spp_base),
+                              rgbe=self._switch("pallas_pool_rgbe"))
 
     # ---- rendering ----
 
