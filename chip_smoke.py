@@ -42,7 +42,7 @@ of which raises on failure (exit code non-zero, no result line):
    then a 4-spp and a 64-spp dispatch of each path at 256x256, bitwise
    equal; then 64-spp 1024x1024 dispatches of each path
    on the float32 tables and with all packs (the plain path also with each
-   pack alone), timed in turns (CUDA events, three rounds), each with its
+   pack alone), timed in turns (CUDA events, PACK_ROUNDS rounds), each with its
    bound from its STATS twin's counts; the RGBE encode kernel (the packed
    tables' feeder) on a dispatch's pool radiance and the sky's texels,
    bitwise its plain version, timed, and its packed pool (rows and words in
@@ -53,7 +53,13 @@ of which raises on failure (exit code non-zero, no result line):
    build_env_pool's host ms; the u8 pyramid's build kernel
    bitwise its plain version on cloud512's pyramid (times density_scale and
    TF-baked), the random grid's and ragged levels with a level of one value
-   and one of zeros, timed beside its bound; the plain path's 64-spp
+   and one of zeros, timed beside its bound; the TF majorant's bake kernel
+   bitwise its plain version on cloud512's and the random grid's raw
+   pyramids through the --fau LUT and a 4-bin LUT under a window whose
+   ends both clamp, timed beside its bound (the feeders -- the RGBE
+   encode, the u8 build, the bake -- by CUDA events over launches queued
+   behind a spin kernel, the device's time, with their back-to-back rate
+   beside it); the plain path's 64-spp
    dispatch on the float32 texels and on the RGBE environment under a
    4096x2048 procedural sky (its texels over the card's L2, its words under
    it), timed in turns, with the seconds the sky's tables took;
@@ -64,14 +70,16 @@ of which raises on failure (exit code non-zero, no result line):
 7. the emission path: the same scene with the temperature grid, through
    Renderer.trace(256); then each of the four paths through
    Renderer.render(256) at the same shapes on the float32 tables and with
-   all three packs on, each in a Renderer of its own, in turns (f32,
-   packed, packed, f32): spp/s of each, the packed instantiation, the
+   all three packs on, each in a Renderer of its own, one after the other:
+   spp/s of each, the packed instantiation, the
    pool's draw kernel (once a dispatch, the packed pool with no encode
    launch) and the u8 pyramid's build kernel (once a trace) launched
    (counts set to 0 before a run, read after it; a packed Renderer's
-   first dispatch also encodes the frame's texels, once), 0
-   capped samples, the packed image's mean within 5% of the float32
-   image's, and the trace's u8 pyramid baked again with no host sync;
+   first dispatch also encodes the frame's texels, once; a TF path bakes
+   its majorant table once a trace), 0 capped samples, the packed image's
+   mean within 5% of the float32 image's, and the trace's TF majorant
+   table and u8 pyramid baked again, and the f32 Renderer's trace set up,
+   with no host sync, one bake launch each;
 8. the probe kernels (volren_tpu_torch/csrc/probes.cu, built in phase 2
    beside the megakernel, ptxas's lines printed): for each of the 28 Pallas
    call sites they replace (volren_tpu_torch.probes.sites), one call at the
@@ -171,7 +179,8 @@ of which raises on failure (exit code non-zero, no result line):
    build/chip_smoke/scripts.
 In phases 5-11 the launch count of the path's kernel, set to 0 just before
 the run, must have risen during it, and in phases 5-7 and 9 (in process)
-the NEE pool's draw kernel's too, once a dispatch; in phases 5-7, 9 and 10 the
+the NEE pool's draw kernel's too, once a dispatch, and in phases 5-7 the TF
+majorant's bake kernel's, once a TF trace; in phases 5-7, 9 and 10 the
 framebuffer must be finite with a positive mean and the run must have used
 the CUDA kernel.
 Every dispatch of phases 3-7 is also run through the kernel's STATS
@@ -221,7 +230,9 @@ CMP_PACK_SETS = {**PACK_SETS, "u8+env_rgbe": (True, True, False),
                  "u8+pool_rgbe": (True, False, True)}
 PACKED_REPLACES = ("volren_tpu/ops/pallas/kernel.py:780-826, :952-958 (mip_u8), :833-838, "
                    ":1753-1794 (env_rgbe), :687, :1626-1635 (pool_rgbe)")
-PACK_ROUNDS = 3                            # phase 4: 64-spp dispatches timed in turns
+# phase 4: rounds of the 64-spp dispatches timed in turns (one: packs_measure
+# times the same dispatches in its rounds)
+PACK_ROUNDS = 1
 # the RGBE encode kernel (the packed tables' feeder): what it replaces,
 # and a row's float32 operations (an FMA two) for its bound
 RGBE_ENCODE_REPLACES = "volren_tpu/ops/pallas/pack.py:118 (rgbe_encode; XLA, no pallas_call)"
@@ -241,6 +252,14 @@ ENV_POOL_REPLACES = ("volren_tpu/ops/pallas/pack.py:413-437 (build_env_pool) and
                      "pallas_call")
 ENV_POOL_OPS = 52
 ENV_POOL_DRAWS = ((7, 0), (7, 192), (2024, 64))
+# the TF majorant's bake kernel: what it replaces, and an entry's float32
+# operations for its bound (the density's two products; the window's
+# subtraction, division, two clamps and scale; the floor, its conversion and
+# the fraction; the lerp's subtraction, two products and sum; the
+# majorant's product)
+BAKE_TF_REPLACES = ("volren_tpu/renderer.py:427-439 through volren_tpu/ops/transfer.py:26 "
+                    "(tf_alpha_majorant, onehot=False); XLA, no pallas_call")
+BAKE_TF_OPS = 15
 # phase 4: the large sky (100.7 MB of float32 texels, over the card's 50 MB
 # of L2; 33.6 MB of RGBE words, under it)
 BIG_SKY = (4096, 2048)
@@ -1152,9 +1171,12 @@ def main(argv=None) -> int:
     from volren_tpu_torch.probes._common import Context, interleaved_ms
     from volren_tpu_torch.probes.sites import Q3_OPS, SITES
     from volren_tpu_torch.renderer import DISPATCH_SPP
-    from volren_tpu_torch.ops.kernels.pack import bake_mip_u8, bake_tf_majorant, build_env_pool, \
-        build_params, env_pool_plain, pack_pool_rgbe, pool_uniforms, rgbe_encode_plain
+    from volren_tpu_torch.ops.kernels.pack import bake_mip_u8, bake_tf_majorant, \
+        bake_tf_majorant_plain, build_env_pool, build_params, env_pool_plain, pack_pool_rgbe, \
+        pool_uniforms, rgbe_encode_plain
     from volren_tpu_torch.ops.kernels.pack import build_mip_u8 as build_mip_u8_plain
+    from volren_tpu_torch.ops.scene import upload_transferfunc
+    from volren_tpu_torch.scene.transferfunc import TransferFunction
     from volren_tpu_torch.scene.environment import Environment, procedural_sky
     from volren_tpu_torch.utils.hdr import write_hdr
     from volren_tpu_torch.voldata import DenseGrid, Volume, read_brick
@@ -1473,7 +1495,8 @@ def main(argv=None) -> int:
                    "sky texels": r._env_device.envmap.reshape(-1, 3)}
     for label, rows in encode_rows.items():
         got = megakernel.rgbe_encode(rows)
-        ms = cuda_ms(lambda: megakernel.rgbe_encode(rows), 20)
+        ms = Context(dev).time_ms(lambda: megakernel.rgbe_encode(rows), 20)
+        rate_ms = cuda_ms(lambda: megakernel.rgbe_encode(rows), 20)
         plain_ms, want = host_ms(lambda: rgbe_encode_plain(rows))
         if not torch.equal(got, want):
             raise AssertionError(f"rgbe_encode [{label}]: the kernel's words are not its plain "
@@ -1481,9 +1504,9 @@ def main(argv=None) -> int:
         n = rows.shape[0]
         t_bytes, t_ops = n * 16 / PEAK_BYTES_S, n * RGBE_ENCODE_OPS / PEAK_F32_S
         bound_ms, bound_by = max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-        print(f"rgbe_encode [{label}, {n} rows]: bitwise its plain version; kernel {ms!r} ms, "
-              f"plain {plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by} on {gpu_line}",
-              flush=True)
+        print(f"rgbe_encode [{label}, {n} rows]: bitwise its plain version; kernel {ms!r} ms "
+              f"(behind a spin; {rate_ms!r} back to back with the wrapper's enqueueing), plain "
+              f"{plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by} on {gpu_line}", flush=True)
         if label == "pool radiance":
             record["rgbe_encode"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                                      "bound_ms": bound_ms, "bound_by": bound_by}
@@ -1525,18 +1548,64 @@ def main(argv=None) -> int:
         if not (torch.equal(q, want_q) and torch.equal(dq, want_dq)):
             raise AssertionError(f"build_mip_u8 [{label}]: the kernel's bytes or (lo, scale) "
                                  f"rows are not the plain version's")
-        ms = cuda_ms(lambda: megakernel.build_mip_u8(mip, dims, offs, scale), 20)
+        ms = Context(dev).time_ms(lambda: megakernel.build_mip_u8(mip, dims, offs, scale), 20)
+        rate_ms = cuda_ms(lambda: megakernel.build_mip_u8(mip, dims, offs, scale), 20)
         n = mip.numel()
         t_bytes, t_ops = (n * 5 + 32) / PEAK_BYTES_S, n * MIP_U8_OPS / PEAK_F32_S
         bound_ms = max(t_bytes, t_ops) * 1e3
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         print(f"build_mip_u8 [{label}, {n} entries, levels {dims}]: bitwise its plain version, "
-              f"(lo, scale) {dq.tolist()}; kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
-              f"{bound_ms!r} ms by {bound_by} on {gpu_line}", flush=True)
+              f"(lo, scale) {dq.tolist()}; kernel {ms!r} ms (behind a spin; {rate_ms!r} back to "
+              f"back with the wrapper's enqueueing), plain {plain_ms!r} ms, bound {bound_ms!r} "
+              f"ms by {bound_by} on {gpu_line}", flush=True)
         if label == "cloud512":
             record["build_mip_u8"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                                       "bound_ms": bound_ms, "bound_by": bound_by}
     del builds, ks
+
+    # the TF majorant's bake kernel against its plain version (torch ops on
+    # the same CUDA tensors): cloud512's and the random 16^3 grid's raw
+    # pyramids through the --fau LUT and through a 4-bin LUT under the window
+    # [0.25, 0.75), whose ends clamp entries of both; timed behind a spin
+    t_bake = time.time()
+    edge = TransferFunction([(0.9, 0.2, 0.1, 0.1), (0.2, 0.9, 0.6, 0.7), (1.0, 1.0, 1.0, 0.4),
+                             (0.5, 0.5, 0.5, 0.9)])
+    edge.window_left, edge.window_width = 0.25, 0.5
+    edge = upload_transferfunc(edge, dev)
+    r = path_renderer(Volume(CLOUD), sky, RES, args.seed, "tf", device=dev)
+    r._kernel_scene()
+    bakes = [("cloud512", r._packed[1], r._trace_params())]
+    r16 = path_renderer(Volume(DenseGrid(16, 16, 16, g16)), sky, CMP_RES, args.seed, "tf",
+                        device=dev)
+    r16._kernel_scene()
+    bakes.append(("random16", r16._packed[1], r16._trace_params()))
+    for label, frame, tp in bakes:
+        for lut_name, tf in (("--fau", frame.tf), ("edge window", edge)):
+            name = f"bake_tf_majorant [{label}, {lut_name}]"
+            before = megakernel.bake_tf_majorant.launches
+            got = megakernel.bake_tf_majorant(frame.mip, tf, tp)
+            if megakernel.bake_tf_majorant.launches != before + 1:
+                raise AssertionError(f"{name}: not one launch of the bake kernel")
+            plain_ms, want = host_ms(lambda: bake_tf_majorant_plain(frame.mip, tf, tp))
+            if not (bool(torch.isfinite(got).all()) and torch.equal(got, want)):
+                raise AssertionError(f"{name}: the kernel's table is not its plain version's "
+                                     f"({int((got != want).sum())} entries differ)")
+            ms = Context(dev).time_ms(lambda: megakernel.bake_tf_majorant(frame.mip, tf, tp), 20)
+            rate_ms = cuda_ms(lambda: megakernel.bake_tf_majorant(frame.mip, tf, tp), 20)
+            n = frame.mip.numel()
+            t_bytes = (n * 8 + tf.lut.numel() * 4) / PEAK_BYTES_S
+            t_ops = n * BAKE_TF_OPS / PEAK_F32_S
+            bound_ms = max(t_bytes, t_ops) * 1e3
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            print(f"{name}, {n} entries, {tf.lut.shape[0]} LUT bins: bitwise its plain version; "
+                  f"kernel {ms!r} ms (behind a spin; {rate_ms!r} back to back with the wrapper's "
+                  f"enqueueing), plain {plain_ms!r} ms, bound {bound_ms!r} ms by {bound_by} on "
+                  f"{gpu_line}", flush=True)
+            if label == "cloud512" and lut_name == "--fau":
+                record["bake_tf_majorant"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                              "bound_ms": bound_ms, "bound_by": bound_by}
+    del r, r16, bakes, got, want
+    print(f"the TF majorant's bake took {time.time() - t_bake!r} s", flush=True)
 
     # where the RGBE environment pays: a sky whose float32 texels overflow
     # the L2 and whose RGBE words fit in it, the plain path's 64-spp
@@ -1582,14 +1651,20 @@ def main(argv=None) -> int:
         megakernel.render.launches = 0
         megakernel.render.launches_by_variant.clear()
         megakernel.env_pool.launches = 0
+        megakernel.bake_tf_majorant.launches = 0
         r, seconds = run()
         launches = megakernel.render.launches_by_variant.get(variant, 0)
-        pools = megakernel.env_pool.launches
+        pools, bakes = megakernel.env_pool.launches, megakernel.bake_tf_majorant.launches
         if launches <= 0 or launches != megakernel.render.launches:
             raise AssertionError(f"the {path} path did not launch (only) its CUDA kernel "
                                  f"variant: {megakernel.render.launches_by_variant}")
         if pools != launches:
             raise AssertionError(f"the {path} path drew {pools} NEE pools with the draw kernel "
+                                 f"in {launches} dispatches")
+        # the offline loop traces a dispatch at a time: a TF path bakes its
+        # majorant table once a trace
+        if bakes != (launches if variant[0] else 0):
+            raise AssertionError(f"the {path} path launched the TF majorant's bake {bakes} times "
                                  f"in {launches} dispatches")
         if r.last_engine != "cuda_kernel":
             raise AssertionError(f"the {path} path ran {r.last_engine}")
@@ -1606,11 +1681,13 @@ def main(argv=None) -> int:
             raise AssertionError(f"the {path} path's framebuffer is black: mean {mean}")
         print(f"{path} path: cloud512 {RES}x{RES}, {SPP} spp, {BOUNCES} bounces: "
               f"{SPP / seconds!r} spp/s ({seconds!r} s, {launches} kernel launch(es), "
-              f"{pools} of the pool's draw kernel, framebuffer mean "
+              f"{pools} of the pool's draw kernel, {bakes} of the TF bake's, framebuffer mean "
               f"{[round(m, 4) for m in mean]}) on {gpu_line}", flush=True)
         record[kname]["launches"] = launches
         if kname == "megakernel":
             record["env_pool"]["launches"] = pools
+        if kname == "megakernel_tf":
+            record["bake_tf_majorant"]["launches"] = bakes
         path_means[path] = float(fb[..., :3].mean())
         path_renderers[path] = r
 
@@ -1643,8 +1720,7 @@ def main(argv=None) -> int:
 
     # the four paths again through Renderer.render, on the float32 tables
     # and with all three packs, each layout in a Renderer of its own (its
-    # tables packed by an untimed render first), in turns: f32, packed,
-    # packed, f32
+    # tables packed by an untimed render first): f32, then packed
     for kname, path, _ in KERNELS:
         renderers = {}
         for packed_run in (False, True):
@@ -1654,19 +1730,20 @@ def main(argv=None) -> int:
             # the packed tables' first dispatch: the frame's RGBE texels, the
             # trace's u8 pyramid and the dispatch's packed pool, one launch each
             for counted in (megakernel.render, megakernel.rgbe_encode, megakernel.build_mip_u8,
-                            megakernel.env_pool):
+                            megakernel.env_pool, megakernel.bake_tf_majorant):
                 counted.launches = 0
             renderers[packed_run].render(DISPATCH_SPP)
             first = (megakernel.render.launches, megakernel.rgbe_encode.launches,
-                     megakernel.build_mip_u8.launches, megakernel.env_pool.launches)
-            if first != ((1, 1, 1, 1) if packed_run else (1, 0, 0, 1)):
+                     megakernel.build_mip_u8.launches, megakernel.env_pool.launches,
+                     megakernel.bake_tf_majorant.launches)
+            if first != ((1, 1, 1, 1) if packed_run else (1, 0, 0, 1)) + (int(VARIANT[path][0]),):
                 raise AssertionError(f"the {path} path's first {'packed' if packed_run else 'f32'} "
                                      f"dispatch launched (render, rgbe_encode, build_mip_u8, "
-                                     f"env_pool) {first}")
+                                     f"env_pool, bake_tf_majorant) {first}")
             if packed_run and path == "plain":
                 record["rgbe_encode"]["launches"] = first[1]
         runs = {False: [], True: []}
-        for packed_run in (False, True, True, False):
+        for packed_run in (False, True):          # packs_measure times both in rounds
             packs = ALL_PACKS if packed_run else NO_PACKS
             r = renderers[packed_run]
             key = VARIANT[path] + packs
@@ -1675,6 +1752,7 @@ def main(argv=None) -> int:
             megakernel.rgbe_encode.launches = 0
             megakernel.build_mip_u8.launches = 0
             megakernel.env_pool.launches = 0
+            megakernel.bake_tf_majorant.launches = 0
             seconds, _ = host_ms(lambda: r.render(SPP))
             seconds /= 1e3
             launches = megakernel.render.launches_by_packs.get(key, 0)
@@ -1682,13 +1760,15 @@ def main(argv=None) -> int:
                 raise AssertionError(f"the {path} path ({'packed' if packed_run else 'f32'}) "
                                      f"launched {megakernel.render.launches_by_packs}")
             encodes, builds = megakernel.rgbe_encode.launches, megakernel.build_mip_u8.launches
-            pools = megakernel.env_pool.launches
-            # a packed pool is drawn packed: no encode launch a dispatch
-            if (encodes, builds, pools) != (0, 1 if packed_run else 0, launches):
+            pools, bakes = megakernel.env_pool.launches, megakernel.bake_tf_majorant.launches
+            # a packed pool is drawn packed: no encode launch a dispatch; a
+            # render is one trace: one TF bake and one u8 build
+            if (encodes, builds, pools, bakes) != (0, 1 if packed_run else 0, launches,
+                                                   int(VARIANT[path][0])):
                 raise AssertionError(f"the {path} path ({'packed' if packed_run else 'f32'}) "
                                      f"launched the RGBE encode {encodes}, the u8 pyramid's "
-                                     f"build {builds} and the pool's draw {pools} times in "
-                                     f"{launches} dispatches")
+                                     f"build {builds}, the pool's draw {pools} and the TF "
+                                     f"bake {bakes} times in {launches} dispatches")
             if packed_run and path == "plain" and "launches" not in record["build_mip_u8"]:
                 record["build_mip_u8"]["launches"] = builds
             fb = r.framebuffer()
@@ -1701,35 +1781,44 @@ def main(argv=None) -> int:
             pf, pi = build_params(ks, tp, RES, RES, base, DISPATCH_SPP)
             uncapped(f"the packed {path} path's dispatch at sample {base}",
                      (ks, r._env_pool(base), pf, pi))
-        # the trace's u8 pyramid, baked with no host sync (torch's sync
-        # debug mode raises on one)
+        # the trace's TF majorant table and u8 pyramid, baked with no host
+        # sync (torch's sync debug mode raises on one), one launch each;
+        # the f32 Renderer's trace set-up too
         frame = r._packed[1]
-        if frame.tf is not None:
-            frame = bake_tf_majorant(frame, tp)
         torch.cuda.synchronize()
+        megakernel.bake_tf_majorant.launches = 0
         torch.cuda.set_sync_debug_mode("error")
         try:
+            if frame.tf is not None:
+                frame = bake_tf_majorant(frame, tp)
             baked = bake_mip_u8(frame, tp)
+            f32_ks = renderers[False]._kernel_scene()
         finally:
             torch.cuda.set_sync_debug_mode("default")
         if not (torch.equal(baked.mip_u8, ks.mip_u8) and torch.equal(baked.mip_dq, ks.mip_dq)):
             raise AssertionError(f"the {path} path's u8 pyramid differs from its trace's")
+        if frame.tf is not None and not (
+                megakernel.bake_tf_majorant.launches == 2 and torch.equal(frame.mip_tf, ks.mip_tf)
+                and torch.equal(f32_ks.mip_tf, bake_tf_majorant_plain(
+                    f32_ks.mip, f32_ks.tf, renderers[False]._trace_params()))):
+            raise AssertionError(f"the {path} path's TF majorant table differs from its "
+                                 f"trace's, or took other than one bake launch a trace")
         f32_mean, packed_mean = runs[False][0][1], runs[True][0][1]
         if not (f32_mean > 0.0 and abs(packed_mean - f32_mean) / f32_mean < 0.05):
             raise AssertionError(f"the packed {path} path's mean {packed_mean} is not within 5% "
                                  f"of the f32 mean {f32_mean}")
         print(f"{path} path through Renderer.render({SPP}), cloud512 {RES}x{RES}, {BOUNCES} "
-              f"bounces, in turns: f32 {[run[0] for run in runs[False]]!r} spp/s, all packs "
+              f"bounces: f32 {[run[0] for run in runs[False]]!r} spp/s, all packs "
               f"{[run[0] for run in runs[True]]!r} spp/s ({runs[True][0][2]} launches of the "
               f"packed instantiation); image mean f32 {f32_mean!r}, packed {packed_mean!r} "
               f"({(packed_mean - f32_mean) / f32_mean:+.4%}) on {gpu_line}", flush=True)
         record[f"{kname}_packed"].update(launches=runs[True][0][2],
                                          spp_s=[run[0] for run in runs[True]],
                                          spp_s_f32=[run[0] for run in runs[False]])
-        del r, renderers, fb, frame, baked
+        del r, renderers, fb, frame, baked, f32_ks
         torch.cuda.empty_cache()
-    print(f"the u8 pyramid baked with no host sync on each path; {record['build_mip_u8']} ",
-          flush=True)
+    print(f"the u8 pyramid and the TF majorant table baked with no host sync on each path; "
+          f"{record['build_mip_u8']}, {record['bake_tf_majorant']}", flush=True)
     main_r = path_renderers.pop("plain")
     clean_fb = main_r.framebuffer()[..., :3].clone()
     main_r.render(MAIN_CMP_SPP)
@@ -1909,6 +1998,9 @@ def main(argv=None) -> int:
     kernels.append(dict(name="build_mip_u8", route="cuda",
                         source="volren_tpu_torch/csrc/megakernel.cu",
                         replaces=MIP_U8_REPLACES, library_ms=None, **record["build_mip_u8"]))
+    kernels.append(dict(name="bake_tf_majorant", route="cuda",
+                        source="volren_tpu_torch/csrc/megakernel.cu",
+                        replaces=BAKE_TF_REPLACES, library_ms=None, **record["bake_tf_majorant"]))
     kernels += [dict(name=site.name, route="cuda", source="volren_tpu_torch/csrc/probes.cu",
                      replaces=site.replaces, **record[site.name]) for site in SITES]
     kernels += [dict(name=name, route="cuda", source="volren_tpu_torch/csrc/oracle.cu",

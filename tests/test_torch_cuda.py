@@ -222,26 +222,50 @@ def _build_cases(dev):
             yield "random16 TF-baked", ks.mip_tf, ks.mip_dims, ks.mip_offsets, None
         else:
             yield "random16", ks.mip, ks.mip_dims, ks.mip_offsets, tp.density_scale
+    r = _cloud512(dev)
+    ks, tp = r._kernel_scene(), r._trace_params()
+    yield "cloud512", ks.mip, ks.mip_dims, ks.mip_offsets, tp.density_scale
+    # a view 4 bytes past an allocation: the build's loads cannot be 16 bytes wide
+    shifted = torch.empty(ks.mip.numel() + 1, dtype=torch.float32, device=dev)[1:]
+    shifted.copy_(ks.mip)
+    yield "cloud512, an unaligned view", shifted, ks.mip_dims, ks.mip_offsets, tp.density_scale
+    # a 1024 x 1024 x 512 volume's pyramid: more entries than the build's
+    # cluster holds in registers
+    dims = ((64, 128, 128), (32, 64, 64), (16, 32, 32), (8, 16, 16))
+    counts = [int(np.prod(d)) for d in dims]
+    offs = tuple(int(v) for v in np.cumsum([0] + counts[:-1]))
+    large = torch.as_tensor((rng.random(sum(counts)) ** 4 * 12.0).astype(np.float32), device=dev)
+    yield "1,198,080 entries", large, dims, offs, None
+    yield "1,198,080 entries x0.7", large, dims, offs, 0.7
+
+
+def _cloud512(dev, tf=False):
+    """cloud512 in a committed 16 x 16 Renderer (the --fau LUT with ``tf``)."""
     import os
+
+    from volren_tpu_torch.cli import FAU_LUT
+
     cloud = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          ".scene_cache", "cloud512.brick")
     r = Renderer(device=dev)
     r.volume = Volume(cloud)
     r.scale_and_move_to_unit_cube()
     r.set_environment(Environment(procedural_sky(64, 32, seed=4)))
+    if tf:
+        r.set_transferfunc(TransferFunction(FAU_LUT))
     r.init(16, 16)
     r.commit()
-    ks, tp = r._kernel_scene(), r._trace_params()
-    yield "cloud512", ks.mip, ks.mip_dims, ks.mip_offsets, tp.density_scale
+    return r
 
 
 def test_device_build_mip_u8_is_the_plain_build():
     """The u8 pyramid's build kernel against pack.build_mip_u8 (torch ops on
-    the same CUDA tensors) at ragged level sizes, with a level of one value
-    (scale 0), a level of zeros and exact zeros, one entry a level, with
-    and without a density_scale factor, on the test scene's pyramid and its
-    TF-baked one and on cloud512's: bytes and (lo, scale) rows bitwise, one
-    launch each, the rows left on the card."""
+    the same CUDA tensors) at ragged level sizes (offsets no multiples of
+    4), with a level of one value (scale 0), a level of zeros and exact
+    zeros, one entry a level, with and without a density_scale factor, on
+    the test scene's pyramid and its TF-baked one, on cloud512's (also from
+    an unaligned view) and on a pyramid of 1,198,080 entries: bytes and
+    (lo, scale) rows bitwise, one launch each, the rows left on the card."""
     from volren_tpu_torch.ops.kernels.pack import build_mip_u8
 
     dev = _cuda()
@@ -283,6 +307,97 @@ def test_bake_mip_u8_makes_no_host_sync():
         assert megakernel.build_mip_u8.launches == before + 2
         inputs = _packed_inputs(r, (True, False, False), 3)
         assert torch.equal(megakernel.render(*inputs), megakernel.render_plain(*inputs))
+
+
+def test_build_mip_u8_allocates_only_its_outputs():
+    """A build allocates its bytes and its (2, 4) rows and nothing else (no
+    scratch), and makes no host sync."""
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    mip, dims, offs = _ragged_levels(dev, rng)
+    megakernel.build_mip_u8(mip, dims, offs)            # the library, loaded
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        megakernel.build_mip_u8(mip, dims, offs, 0.7)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] - before == 2
+
+
+# the bake's cases: cloud512 and the random 16^3 grid, the --fau LUT or a
+# 4-bin LUT under the window [0.25, 0.75), whose ends clamp entries of both
+BAKE_SCENES = ["cloud512", "random16"]
+BAKE_LUTS = ["fau", "edge window"]
+
+
+def _bake_case(dev, scene, lut):
+    from volren_tpu_torch.ops import scene as tscene
+
+    r = _cloud512(dev, tf=True) if scene == "cloud512" else _renderer(dev, tf=True)
+    ks, tp = r._kernel_scene(), r._trace_params()
+    tf = ks.tf
+    if lut == "edge window":
+        edge = TransferFunction([(0.9, 0.2, 0.1, 0.1), (0.2, 0.9, 0.6, 0.7),
+                                 (1.0, 1.0, 1.0, 0.4), (0.5, 0.5, 0.5, 0.9)])
+        edge.window_left, edge.window_width = 0.25, 0.5
+        tf = tscene.upload_transferfunc(edge, dev)
+    return ks.mip, tf, tp
+
+
+@pytest.mark.parametrize("lut", BAKE_LUTS)
+@pytest.mark.parametrize("scene", BAKE_SCENES)
+def test_bake_tf_majorant_kernel_is_the_plain_version(scene, lut):
+    """The TF majorant's bake kernel against pack.bake_tf_majorant_plain
+    (torch ops on the same CUDA tensors, the window divided as the kernel
+    divides): bitwise, one launch; with the edge window some entries clamp
+    at its upper end and, on cloud512 (whose empty bricks' majorant is 0),
+    at its lower end (the random grid's 11 entries all lie above it)."""
+    from volren_tpu_torch.ops.kernels import pack
+    from volren_tpu_torch.ops.transfer import WINDOW_MAX
+
+    dev = _cuda()
+    mip, tf, tp = _bake_case(dev, scene, lut)
+    before = megakernel.bake_tf_majorant.launches
+    got = megakernel.bake_tf_majorant(mip, tf, tp)
+    assert megakernel.bake_tf_majorant.launches == before + 1
+    want = pack.bake_tf_majorant_plain(mip, tf, tp)
+    assert got.shape == mip.shape and got.is_cuda and bool(torch.isfinite(got).all())
+    assert torch.equal(got, want), float((got - want).abs().max())
+    if lut == "edge window":
+        d = (mip * float(tp.density_scale) * float(tp.inv_majorant) - tf.window_left) \
+            / tf.window_width
+        assert bool((d >= WINDOW_MAX).any()) and (scene != "cloud512" or bool((d <= 0.0).any()))
+
+
+@pytest.mark.parametrize("mip_u8", ["0", "1"])
+def test_bake_tf_majorant_once_a_trace_with_no_host_sync(mip_u8):
+    """A TF trace bakes its majorant table with one launch of the bake
+    kernel (and, with the u8 pyramid, one of the build kernel) and no host
+    sync: the kernel scene of a trace is set up under torch's sync debug
+    mode "error". A trace(3) then launches each once, and the baked table
+    is the plain version's."""
+    from volren_tpu_torch.ops.kernels import pack
+
+    dev = _cuda()
+    r = _renderer(dev, tf=True)
+    r.pallas_mip_u8 = mip_u8
+    r._kernel_scene()                     # the frame's tables, packed once
+    torch.cuda.synchronize()
+    bakes, builds = megakernel.bake_tf_majorant.launches, megakernel.build_mip_u8.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ks = r._kernel_scene()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    u8 = mip_u8 == "1"
+    assert megakernel.bake_tf_majorant.launches == bakes + 1
+    assert megakernel.build_mip_u8.launches == builds + u8
+    assert torch.equal(ks.mip_tf, pack.bake_tf_majorant_plain(ks.mip, ks.tf, r._trace_params()))
+    r.trace(3)
+    assert megakernel.bake_tf_majorant.launches == bakes + 2
+    assert megakernel.build_mip_u8.launches == builds + 2 * u8
 
 
 def test_device_pack_pool_rgbe_is_the_plain_pack():

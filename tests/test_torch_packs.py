@@ -16,6 +16,8 @@ tests/test_pallas.py. The CUDA kernel runs only on the card:
 tests/test_torch_cuda.py.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -332,6 +334,45 @@ def test_build_mip_u8_wrapper_on_the_cpu_is_the_plain_version(grid_scene):
                                         ks.mip_offsets)
     assert torch.equal(q, want_q) and torch.equal(dq, torch.stack([lo, sc]))
     assert megakernel.build_mip_u8.launches == before
+
+
+def _pyramid(kind):
+    """(mip, dims, offsets) of a flat 4-level pyramid: "large", the pyramid
+    of a 1024 x 1024 x 512 volume (1,198,080 entries, more than the u8
+    build kernel's cluster holds in registers), or "unaligned", ragged
+    levels whose offsets are no multiples of 4, with exact zeros where a
+    level's minimum is 0, a level of one value and a level of zeros."""
+    if kind == "large":
+        dims = ((64, 128, 128), (32, 64, 64), (16, 32, 32), (8, 16, 16))
+    else:
+        dims = ((7, 5, 13), (4, 3, 7), (2, 2, 4), (1, 1, 2))
+    counts = [int(np.prod(d)) for d in dims]
+    offs = tuple(int(v) for v in np.cumsum([0] + counts[:-1]))
+    mip = (np.random.default_rng(9).random(sum(counts)) ** 3 * 40.0).astype(np.float32)
+    if kind == "unaligned":
+        assert all(off % 4 for off in offs[1:])
+        mip[offs[1]:offs[1] + 9] = 0.0
+        mip[offs[2]:offs[3]] = 2.5
+        mip[offs[3]:] = 0.0
+    return mip, dims, offs
+
+
+@pytest.mark.parametrize("kind", ["large", "unaligned"])
+def test_build_mip_u8_bitwise_on_large_and_unaligned_pyramids(kind):
+    """pack.build_mip_u8 and megakernel.build_mip_u8's CPU path against
+    volren_tpu's build_mip_u8 on the card tests' new shapes: a pyramid of
+    more than 1M entries and levels at offsets that are no multiples of 4:
+    the bytes are volren_tpu's little-endian words, the rows its rows."""
+    mip, dims, offs = _pyramid(kind)
+    meta = SimpleNamespace(mip_dims=dims, mip_offsets=offs)
+    words, lo, sc = jbuild_mip_u8(jnp.asarray(mip), meta)
+    q, tlo, tsc = tpack.build_mip_u8(torch.as_tensor(mip), dims, offs)
+    assert np.array_equal(q.numpy(), _mip_bytes(words, mip.shape[0]))
+    assert np.array_equal(np.stack([tlo, tsc]), np.stack([np.asarray(lo), np.asarray(sc)]))
+    wq, wdq = megakernel.build_mip_u8(torch.as_tensor(mip), dims, offs)
+    assert torch.equal(wq, q) and torch.equal(wdq, torch.stack([tlo, tsc]))
+    if kind == "unaligned":
+        assert tsc[2] == 0.0 and tsc[3] == 0.0 and tlo[3] == 0.0 and int(q[offs[2]:].max()) == 0
 
 
 @pytest.mark.parametrize("variant", ["plain", "tf+emission"])

@@ -389,17 +389,33 @@ __device__ __forceinline__ float trilinear(const Params& P, const BrickGrid& G,
   return P.density_scale * acc;
 }
 
+// the LUT bins of normalised density d under the window (left, width) of a
+// `size`-bin LUT (ops/transfer.py _lerp_index): the lower bin, the upper
+// one and the fraction between them. K2's fetch and the majorant's bake
+// (tf_majorant_bake) both take it from here.
+struct TfBin {
+  int idx, idx1;
+  float fr;
+};
+
+__device__ __forceinline__ TfBin tf_bin(float d, float left, float width, int size) {
+  const float tc = vmin(vmax((d - left) / width, 0.0f), TF_WINDOW_MAX) * float(size);
+  const int idx = clampi(int(floorf(tc)), 0, size - 1);
+  return {idx, min(idx + 1, size - 1), tc - float(idx)};
+}
+
+// the lerp between two LUT entries (ops/transfer.py tf_lookup)
+__device__ __forceinline__ float tf_lerp(float lo, float hi, float fr) {
+  return lo * (1.0f - fr) + hi * fr;
+}
+
 // windowed, lerped LUT fetch (ops/transfer.py, common.glsl:195-212) of
 // channels [c0, c0 + n) at normalised density d
 __device__ __forceinline__ void tf_channels(const Params& P, const float* __restrict__ lut,
                                             float d, int c0, int n, float out[]) {
-  const float tc = vmin(vmax((d - P.tf_left) / P.tf_width, 0.0f), TF_WINDOW_MAX) *
-                   float(P.tf_size);
-  const int idx = clampi(int(floorf(tc)), 0, P.tf_size - 1);
-  const float fr = tc - float(idx);
-  const int idx1 = min(idx + 1, P.tf_size - 1);
+  const TfBin b = tf_bin(d, P.tf_left, P.tf_width, P.tf_size);
   for (int k = 0; k < n; ++k)
-    out[k] = lut[4 * idx + c0 + k] * (1.0f - fr) + lut[4 * idx1 + c0 + k] * fr;
+    out[k] = tf_lerp(lut[4 * b.idx + c0 + k], lut[4 * b.idx1 + c0 + k], b.fr);
 }
 
 // ---- one sample, phase by phase (render_plain's phases for one lane)
@@ -1009,6 +1025,34 @@ env_pool_draw(const float2* __restrict__ u2, const float* __restrict__ alias, in
   }
 }
 
+// ---- the TF majorant's bake (pack.bake_tf_majorant_plain, bitwise):
+// replaces volren_tpu/renderer.py:427-439 through
+// volren_tpu/ops/transfer.py:26 (tf_alpha_majorant, onehot=False), XLA
+// device code with no pallas_call. Each entry of the flat raw majorant
+// pyramid becomes majorant * the lerped LUT alpha at density_scale * raw *
+// inv_majorant, in the plain version's operation order, the window and the
+// lerp those of K2's fetch (tf_bin, tf_lerp). One thread an entry; the
+// LUT's alpha column by __ldg (a few hundred entries at most: it stays in
+// L1). The trace's scalars come as kernel arguments, so nothing is copied
+// and the host does not wait. Bound by bytes: 8 B an entry, 1.2 MB for
+// cloud512's 149,760 entries, 0.36 us at 3.35 TB/s; in practice by its
+// launch.
+
+struct TfBake {
+  float density_scale, inv_majorant, majorant, left, width;
+  int size;
+};
+
+__global__ void __launch_bounds__(256)
+tf_majorant_bake(const float* __restrict__ mip, const float* __restrict__ lut, TfBake B,
+                 float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float d = B.density_scale * __ldg(mip + i) * B.inv_majorant;
+  const TfBin b = tf_bin(d, B.left, B.width, B.size);
+  out[i] = B.majorant * tf_lerp(__ldg(lut + 4 * b.idx + 3), __ldg(lut + 4 * b.idx1 + 3), b.fr);
+}
+
 // ---- the u8 majorant pyramid's build (pack.build_mip_u8, bitwise):
 // volren_tpu.ops.pallas.pack.build_mip_u8, which XLA runs as device code
 // with no pallas_call (_build_mip_u8_jit, volren_tpu/ops/pallas/pack.py:361-384).
@@ -1016,94 +1060,260 @@ env_pool_draw(const float2* __restrict__ u2, const float* __restrict__ alias, in
 // entry's byte ceil((v - min) / max(scale, 1e-37)) clamped to [0, 255] and
 // bumped by one where min + q * scale, as one FMA (XLA's contraction), is
 // still below v, and the levels' (min, scale) as the (2, 4) rows the
-// megakernel reads. One cooperative launch, no host round trip: each block
-// reduces its share of every level, the grid syncs once, and every block
-// then folds all blocks' partials (min and max are order-free) and writes
-// its share of the bytes. Bound by bytes: a few hundred KB a trace, so in
-// practice by the launch and the one grid sync.
+// megakernel reads.
+//
+// Bound by bytes: 5 B an entry, 0.75 MB for cloud512, 0.22 us at 3.35
+// TB/s. What holds it is the reduction across blocks before any byte can
+// be written. The design: one cooperative launch of one 1024-thread block
+// an SM, each block a contiguous run of the table. Each thread loads its
+// entries once, a quad of 4 at a time (one 16-byte load where the table is
+// aligned), into registers (MIPQ_QUADS quads; a pyramid larger than the
+// grid's registers hold folds the rest as it streams them and reads them
+// again, from L2, to quantise them), and folds each level's (min, max):
+// min and max do not depend on the order, and vmin / vmax propagate a NaN
+// as the plain version's do. A warp folds a value with one reduction
+// instruction on order-preserving keys (a warp with no entry skips it), a
+// block in shared memory, a warp a column; each block writes its 8
+// partials to a static table (no allocation), the grid syncs once, and a
+// warp a column folds every block's partials, each lane loading its share
+// at once. Then each thread quantises its registers and stores a quad's 4
+// bytes as one word. The quantise runs on every SM: a single thread block
+// cluster (16 SMs, distributed shared memory, no grid sync) measured
+// slower, its division-bound quantise too much for 16 SMs (PERF.md section
+// 6). Two builds on two streams must not overlap: they share the partials'
+// table.
 
 namespace cg = cooperative_groups;
-constexpr int MIPQ_THREADS = 256;             // 8 warps: one a (level, min | max) fold
-constexpr int MIPQ_ITEMS = 4;                 // entries a thread, at most, in a full grid
+constexpr int MIPQ_THREADS = 1024;
+constexpr int MIPQ_QUADS = 3;                 // quads a thread holds in registers
+constexpr int MIPQ_MAX_BLOCKS = 1024;         // the partials' table, in blocks
 constexpr float INV_25499 = float(1.0 / 254.99);
 
 struct MipLevels {
-  int off[4], n[4];
+  int off[4], n[4];                 // one after another from 0
 };
 
-__device__ __forceinline__ float mipq_fold(int k, float a, float b) {
+// the quad of entries [e, e + 4) of the table (times `factor` where
+// `scaled`); entries from n on read as 0 and are neither folded nor stored
+__device__ __forceinline__ float4 mipq_load(const float* __restrict__ mip, int e, int n, bool vec,
+                                            float factor, int scaled) {
+  float4 v;
+  if (vec && e + 4 <= n) {
+    v = __ldg(reinterpret_cast<const float4*>(mip + e));
+  } else {
+    v.x = __ldg(mip + e);
+    v.y = e + 1 < n ? __ldg(mip + e + 1) : 0.0f;
+    v.z = e + 2 < n ? __ldg(mip + e + 2) : 0.0f;
+    v.w = e + 3 < n ? __ldg(mip + e + 3) : 0.0f;
+  }
+  if (scaled) {
+    v.x = v.x * factor;
+    v.y = v.y * factor;
+    v.z = v.z * factor;
+    v.w = v.w * factor;
+  }
+  return v;
+}
+
+__device__ __forceinline__ int mipq_level(const MipLevels& L, int e) {
+  return (e >= L.off[1]) + (e >= L.off[2]) + (e >= L.off[3]);
+}
+
+__device__ __forceinline__ void mipq_merge(int m, float a, float b, float lo[4], float hi[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (m == k) {
+      lo[k] = vmin(lo[k], a);
+      hi[k] = vmax(hi[k], b);
+    }
+  }
+}
+
+// fold the quad [e, e + 4) into its levels' (min, max): a quad inside one
+// level (all but the few that straddle a level's end) folds its own 4
+// values first and merges once
+__device__ __forceinline__ void mipq_fold4(const MipLevels& L, int e, int n, float4 v,
+                                           float lo[4], float hi[4]) {
+  const int m = mipq_level(L, e);
+  if (e + 3 < n && mipq_level(L, e + 3) == m) {
+    mipq_merge(m, vmin(vmin(v.x, v.y), vmin(v.z, v.w)), vmax(vmax(v.x, v.y), vmax(v.z, v.w)),
+               lo, hi);
+    return;
+  }
+  const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (e + j < n) mipq_merge(mipq_level(L, e + j), w[j], w[j], lo, hi);
+  }
+}
+
+// an entry's byte under its level's (min, scale). An entry at its level's
+// minimum (most of a sparse volume's) keeps the quotient 0, what 0 / x
+// gives for the positive divisor; it divides the divisor by itself in its
+// place, as a zero dividend would take the division's slow path.
+__device__ __forceinline__ uint32_t mipq_byte(float v, float lo, float sc) {
+  const float x = v - lo, den = vmax(sc, 1e-37f);
+  const bool zero = x == 0.0f;
+  const float quot = (zero ? den : x) / den;
+  float qf = sc > 0.0f && !zero ? ceilf(quot) : 0.0f;
+  qf = vmin(vmax(qf, 0.0f), 255.0f);
+  qf = vmin(vmax(__fmaf_rn(qf, sc, lo) < v ? qf + 1.0f : qf, 0.0f), 255.0f);
+  return uint32_t(uint8_t(qf));
+}
+
+// the quad's bytes, its levels' (min, scale) from shared memory: one word
+// where the quad is whole and the table word-aligned, else byte by byte
+__device__ __forceinline__ void mipq_store4(const MipLevels& L, int e, int n, float4 v, bool word,
+                                            const float* lvl_lo, const float* lvl_sc,
+                                            uint8_t* __restrict__ q) {
+  const int m = mipq_level(L, e);
+  if (word && e + 3 < n && mipq_level(L, e + 3) == m) {
+    const float lo = lvl_lo[m], sc = lvl_sc[m];
+    *reinterpret_cast<uint32_t*>(q + e) = mipq_byte(v.x, lo, sc) | (mipq_byte(v.y, lo, sc) << 8) |
+                                          (mipq_byte(v.z, lo, sc) << 16) |
+                                          (mipq_byte(v.w, lo, sc) << 24);
+    return;
+  }
+  const float w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (e + j < n) {
+      const int mj = mipq_level(L, e + j);
+      q[e + j] = uint8_t(mipq_byte(w[j], lvl_lo[mj], lvl_sc[mj]));
+    }
+  }
+}
+
+// column k of a block's rows of (min[4], max[4]) folds by min (k < 4) or max
+__device__ __forceinline__ float mipq_col(int k, float a, float b) {
   return k < 4 ? vmin(a, b) : vmax(a, b);
 }
 
-// `part` holds gridDim.x x 8 floats: each block's (min[4], max[4])
-__global__ void __launch_bounds__(MIPQ_THREADS)
+// a float's unsigned key in the order of the floats (-0 below +0; not for
+// a NaN), and back
+__device__ __forceinline__ uint32_t mipq_key(float f) {
+  const uint32_t b = __float_as_uint(f);
+  return (b & 0x80000000u) ? ~b : (b | 0x80000000u);
+}
+__device__ __forceinline__ float mipq_unkey(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// the warp's fold of x in column k: one reduction instruction on the keys,
+// and a NaN where a lane holds one, as vmin / vmax propagate it
+__device__ __forceinline__ float mipq_warp_col(int k, float x) {
+  if (__any_sync(0xffffffffu, x != x)) return __int_as_float(0x7fffffff);
+  const uint32_t key = mipq_key(x);
+  return mipq_unkey(k < 4 ? __reduce_min_sync(0xffffffffu, key)
+                          : __reduce_max_sync(0xffffffffu, key));
+}
+
+// each block's (min[4], max[4]), a column a row
+__device__ float mipq_part[8][MIPQ_MAX_BLOCKS];
+
+__global__ void __launch_bounds__(MIPQ_THREADS, 1)
 mip_u8_build(const float* __restrict__ mip, float factor, int scaled, MipLevels L,
-             float* __restrict__ part, uint8_t* __restrict__ q, float* __restrict__ dq) {
+             uint8_t* __restrict__ q, float* __restrict__ dq) {
+  const int n = L.off[3] + L.n[3], quads = (n + 3) >> 2;
+  const int per = (quads + int(gridDim.x) - 1) / int(gridDim.x);    // a block's run of quads
+  const int c0 = int(blockIdx.x) * per + int(threadIdx.x), c1 = min(quads, (int(blockIdx.x) + 1) * per);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int tid = blockIdx.x * MIPQ_THREADS + threadIdx.x, stride = gridDim.x * MIPQ_THREADS;
-  float r[8];
+  const bool vec = (reinterpret_cast<uintptr_t>(mip) & 15) == 0;
+  const bool word = (reinterpret_cast<uintptr_t>(q) & 3) == 0;
+  float lo[4], hi[4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
-    float lo = __int_as_float(0x7f800000), hi = -__int_as_float(0x7f800000);
-    for (int i = tid; i < L.n[m]; i += stride) {
-      const float v = scaled ? mip[L.off[m] + i] * factor : mip[L.off[m] + i];
-      lo = vmin(lo, v);
-      hi = vmax(hi, v);
-    }
-    r[m] = lo;
-    r[4 + m] = hi;
+    lo[m] = __int_as_float(0x7f800000);
+    hi[m] = -__int_as_float(0x7f800000);
   }
+  float4 v[MIPQ_QUADS];
+#pragma unroll
+  for (int j = 0; j < MIPQ_QUADS; ++j) {
+    const int c = c0 + j * MIPQ_THREADS;
+    if (c < c1) v[j] = mipq_load(mip, 4 * c, n, vec, factor, scaled);
+  }
+#pragma unroll
+  for (int j = 0; j < MIPQ_QUADS; ++j) {
+    const int c = c0 + j * MIPQ_THREADS;
+    if (c < c1) mipq_fold4(L, 4 * c, n, v[j], lo, hi);
+  }
+  for (int c = c0 + MIPQ_QUADS * MIPQ_THREADS; c < c1; c += MIPQ_THREADS)
+    mipq_fold4(L, 4 * c, n, mipq_load(mip, 4 * c, n, vec, factor, scaled), lo, hi);
+
   __shared__ float red[MIPQ_THREADS / 32][8];
   __shared__ float lohi[8];
+  __shared__ float lvl_lo[4], lvl_sc[4];
+  // a warp with no quad (most of a block's at cloud512's size) keeps the
+  // identities and skips its folds
+  if (int(blockIdx.x) * per + warp * 32 < c1) {
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    for (int o = 16; o > 0; o >>= 1)
-      r[k] = mipq_fold(k, r[k], __shfl_xor_sync(0xffffffffu, r[k], o));
-    if (lane == 0) red[warp][k] = r[k];
+    for (int m = 0; m < 4; ++m) {
+      lo[m] = mipq_warp_col(m, lo[m]);
+      hi[m] = mipq_warp_col(4 + m, hi[m]);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      red[warp][m] = lo[m];
+      red[warp][4 + m] = hi[m];
+    }
   }
   __syncthreads();
-  if (threadIdx.x < 8) {
-    float x = red[0][threadIdx.x];
-    for (int w = 1; w < MIPQ_THREADS / 32; ++w) x = mipq_fold(threadIdx.x, x, red[w][threadIdx.x]);
-    part[8 * blockIdx.x + threadIdx.x] = x;
+  // warp k < 8 folds column k: the block's 32 warps' rows, a row a lane,
+  // then, after the grid's sync, every block's partial, a share a lane
+  const int k = warp;
+  if (k < 8) {
+    const float x = mipq_warp_col(k, red[lane < MIPQ_THREADS / 32 ? lane : 0][k]);
+    if (lane == 0) mipq_part[k][blockIdx.x] = x;
   }
   cg::this_grid().sync();
-  {  // warp k folds column k of every block's partials
-    const int k = warp;
-    float x = k < 4 ? __int_as_float(0x7f800000) : -__int_as_float(0x7f800000);
-    for (int b = lane; b < int(gridDim.x); b += 32) x = mipq_fold(k, x, __ldcg(part + 8 * b + k));
-    for (int o = 16; o > 0; o >>= 1) x = mipq_fold(k, x, __shfl_xor_sync(0xffffffffu, x, o));
+  if (k < 8) {
+    // a lane's share of the partials, loaded before any is folded (5 a
+    // lane cover 160 blocks), then the rest
+    float y[5];
+#pragma unroll
+    for (int i = 0; i < 5; ++i) {
+      const int b = lane + 32 * i;
+      y[i] = __ldcg(&mipq_part[k][b < int(gridDim.x) ? b : 0]);
+    }
+    float x = y[0];
+#pragma unroll
+    for (int i = 1; i < 5; ++i) x = mipq_col(k, x, y[i]);
+    for (int b = lane + 160; b < int(gridDim.x); b += 32) x = mipq_col(k, x, __ldcg(&mipq_part[k][b]));
+    x = mipq_warp_col(k, x);
     if (lane == 0) lohi[k] = x;
   }
   __syncthreads();
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const float lo = lohi[m], sc = (lohi[4 + m] - lo) * INV_25499;
-    if (blockIdx.x == 0 && threadIdx.x == 0) {
-      dq[m] = lo;
+  if (threadIdx.x < 4) {
+    const int m = threadIdx.x;
+    const float l = lohi[m], sc = (lohi[4 + m] - l) * INV_25499;
+    lvl_lo[m] = l;
+    lvl_sc[m] = sc;
+    if (blockIdx.x == 0) {
+      dq[m] = l;
       dq[4 + m] = sc;
     }
-    for (int i = tid; i < L.n[m]; i += stride) {
-      const float v = scaled ? mip[L.off[m] + i] * factor : mip[L.off[m] + i];
-      float qf = sc > 0.0f ? ceilf((v - lo) / vmax(sc, 1e-37f)) : 0.0f;
-      qf = vmin(vmax(qf, 0.0f), 255.0f);
-      qf = vmin(vmax(__fmaf_rn(qf, sc, lo) < v ? qf + 1.0f : qf, 0.0f), 255.0f);
-      q[L.off[m] + i] = uint8_t(qf);
-    }
   }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < MIPQ_QUADS; ++j) {
+    const int c = c0 + j * MIPQ_THREADS;
+    if (c < c1) mipq_store4(L, 4 * c, n, v[j], word, lvl_lo, lvl_sc, q);
+  }
+  for (int c = c0 + MIPQ_QUADS * MIPQ_THREADS; c < c1; c += MIPQ_THREADS)
+    mipq_store4(L, 4 * c, n, mipq_load(mip, 4 * c, n, vec, factor, scaled), word, lvl_lo,
+                lvl_sc, q);
 }
 
-int mipq_blocks(long long n) {
-  static int fit = 0;
-  if (fit == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
+int mipq_blocks() {
+  static const int blocks = [] {
+    int dev = 0, sms = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mip_u8_build, MIPQ_THREADS, 0);
-    fit = sms * per_sm;
-  }
-  const long long need = (n + MIPQ_THREADS * MIPQ_ITEMS - 1) / (MIPQ_THREADS * MIPQ_ITEMS);
-  return int(need < 1 ? 1 : (need < fit ? need : fit));
+    return sms < MIPQ_MAX_BLOCKS ? sms : MIPQ_MAX_BLOCKS;
+  }();
+  return blocks;
 }
 
 }  // namespace
@@ -1163,34 +1373,44 @@ extern "C" int volren_env_pool(const void* u2, const void* alias, int n_alias, i
   return int(cudaGetLastError());
 }
 
-// The u8 pyramid build's block count for a pyramid of `n` entries: the
-// length, in blocks, of its scratch (8 floats a block).
-extern "C" int volren_mip_u8_blocks(long long n) { return mipq_blocks(n); }
-
-// `q` (levels' entries) uint8 and `dq` (2, 4) float32 = the u8 pyramid of
-// the flat float32 pyramid `mip` (times `factor` where `scaled`), its levels
-// `counts[m]` entries from `offsets[m]`, in one cooperative launch on
-// `stream` with `part` (volren_mip_u8_blocks(entries) x 8 floats) as its
-// scratch. Entries outside the levels are not written.
+// `q` (M,) uint8 and `dq` (2, 4) float32 = the u8 pyramid of the flat
+// float32 pyramid `mip` (times `factor` where `scaled`) of M entries, its 4
+// levels `counts[m]` entries from `offsets[m]`, one after another from 0
+// (scene.upload_grid's layout), in one cooperative launch on `stream`: no
+// scratch allocated, no host round trip.
 extern "C" int volren_build_mip_u8(const void* mip, float factor, int scaled, const int* offsets,
-                                   const int* counts, void* part, int blocks, void* q, void* dq,
-                                   void* stream) {
+                                   const int* counts, void* q, void* dq, void* stream) {
   MipLevels L;
   long long n = 0;
   for (int m = 0; m < 4; ++m) {
+    if (counts[m] <= 0 || offsets[m] != n) return int(cudaErrorInvalidValue);
     L.off[m] = offsets[m];
     L.n[m] = counts[m];
-    if (counts[m] <= 0) return int(cudaErrorInvalidValue);
     n += counts[m];
   }
-  if (blocks != mipq_blocks(n)) return int(cudaErrorInvalidValue);
+  if (n > 0x7ffffff0LL) return int(cudaErrorInvalidValue);
   const float* mip_p = static_cast<const float*>(mip);
-  float* part_p = static_cast<float*>(part);
   uint8_t* q_p = static_cast<uint8_t*>(q);
   float* dq_p = static_cast<float*>(dq);
-  void* args[] = {&mip_p, &factor, &scaled, &L, &part_p, &q_p, &dq_p};
-  return int(cudaLaunchCooperativeKernel(mip_u8_build, dim3(blocks), dim3(MIPQ_THREADS), args, 0,
-                                         static_cast<cudaStream_t>(stream)));
+  void* args[] = {&mip_p, &factor, &scaled, &L, &q_p, &dq_p};
+  return int(cudaLaunchCooperativeKernel(mip_u8_build, dim3(mipq_blocks()), dim3(MIPQ_THREADS),
+                                         args, 0, static_cast<cudaStream_t>(stream)));
+}
+
+// `out` (n,) float32 = the TF majorant table of the flat raw pyramid `mip`
+// (n entries) through the alpha column of the (size, 4) float32 LUT `lut`
+// under the window (left, width), with the trace's density_scale,
+// inv_majorant and majorant passed by value, in one launch on `stream`.
+extern "C" int volren_bake_tf_majorant(const void* mip, const void* lut, int size,
+                                       float density_scale, float inv_majorant, float majorant,
+                                       float left, float width, void* out, int n, void* stream) {
+  if (n <= 0) return 0;
+  if (size <= 0) return int(cudaErrorInvalidValue);
+  const TfBake B = {density_scale, inv_majorant, majorant, left, width, size};
+  tf_majorant_bake<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(mip), static_cast<const float*>(lut), B, static_cast<float*>(out),
+      n);
+  return int(cudaGetLastError());
 }
 
 // `out` (n, 3) float32 = the decode of `words` (n) uint32, on `stream`.

@@ -36,7 +36,8 @@ bakes density_scale and any TF alpha in), the escape's texel from the RGBE words
 int32 pool, ``pack.build_env_pool(rgbe=True)``). ``PACKS`` names them.
 ``build_mip_u8`` builds the u8 pyramid in one launch of the library's
 build kernel, ``rgbe_encode`` / ``pack_pool_rgbe`` the RGBE words, and
-``env_pool`` a dispatch's NEE pool, f32 or packed, in one launch.
+``env_pool`` a dispatch's NEE pool, f32 or packed, in one launch;
+``bake_tf_majorant`` bakes a TF trace's majorant table in one launch.
 
 The plain version is the Pallas kernel's state machine with one march
 substep per step: every (pixel, sample) is a lane, and after the regen
@@ -77,6 +78,7 @@ from .pack import (
     PI_N_SLOTS, PI_ROW0, PI_ROWS, PI_SEED, PI_SPP, PI_SPP_BASE, PI_TF_SIZE,
     PI_WIDTH, POOL_N, PF_SIZE, PI_SIZE, KernelScene,
 )
+from .pack import bake_tf_majorant_plain as _plain_bake_tf_majorant
 from .pack import build_mip_u8 as _plain_build_mip_u8
 from .pack import env_pool_plain as _plain_env_pool
 from .pack import mip_level_slices
@@ -631,15 +633,14 @@ def resource_usage(lib_path: str) -> str:
 
 def load(lib_path: str) -> ctypes.CDLL:
     """Load a built library and declare its C entry point."""
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return _build.load(lib_path, {"volren_render": [p] * 18 + [i, i, p],
                                   "volren_launch_blocks": [i] * 7,
                                   "volren_rgbe_decode": [p, p, ll, p],
                                   "volren_rgbe_encode": [p, ll, i, p, p, ll, p],
-                                  "volren_env_pool": [p, p, i, i, p, ctypes.c_float, p, i, i, p],
-                                  "volren_mip_u8_blocks": [ll],
-                                  "volren_build_mip_u8": [p, ctypes.c_float, i, p, p, p, i, p, p,
-                                                          p]})
+                                  "volren_env_pool": [p, p, i, i, p, f, p, i, i, p],
+                                  "volren_build_mip_u8": [p, f, i, p, p, p, p, p],
+                                  "volren_bake_tf_majorant": [p, p, i] + [f] * 5 + [p, i, p]})
 
 
 def _lib():
@@ -889,8 +890,8 @@ def build_mip_u8(mip: torch.Tensor, mip_dims, mip_offsets, scale: float | None =
     ``scale`` first, when given): (q (M,) uint8, dq (2, 4) float32, the
     levels' (lo, scale) rows), bitwise ``pack.build_mip_u8`` of the same
     table. On CUDA tensors one launch of the library's build kernel, with no
-    host round trip (adds one to ``build_mip_u8.launches``); on CPU tensors
-    the plain version."""
+    host round trip and no scratch (adds one to ``build_mip_u8.launches``);
+    on CPU tensors the plain version."""
     levels = mip_level_slices(mip_dims, mip_offsets)
     if not mip.is_cuda:
         if scale is not None:
@@ -903,17 +904,14 @@ def build_mip_u8(mip: torch.Tensor, mip_dims, mip_offsets, scale: float | None =
             or ends[-1] != mip.numel():
         raise ValueError(f"the kernel takes 4 non-empty levels one after another that fill the "
                          f"table (scene.upload_grid's layout), not {levels} of {mip.numel()}")
-    lib, dev = _lib(), mip.device
+    dev = mip.device
     q = torch.empty(mip.numel(), dtype=torch.uint8, device=dev)
     dq = torch.empty(2, 4, dtype=torch.float32, device=dev)
-    blocks = lib.volren_mip_u8_blocks(sum(n for _o, n in levels))
-    part = torch.empty(blocks, 8, dtype=torch.float32, device=dev)
     offs = (ctypes.c_int * 4)(*(o for o, _n in levels))
     counts = (ctypes.c_int * 4)(*(n for _o, n in levels))
-    err = lib.volren_build_mip_u8(mip.data_ptr(), 1.0 if scale is None else float(scale),
-                                  int(scale is not None), offs, counts, part.data_ptr(), blocks,
-                                  q.data_ptr(), dq.data_ptr(),
-                                  torch.cuda.current_stream(dev).cuda_stream)
+    err = _lib().volren_build_mip_u8(mip.data_ptr(), 1.0 if scale is None else float(scale),
+                                     int(scale is not None), offs, counts, q.data_ptr(),
+                                     dq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"u8 pyramid build launch failed: CUDA error {err}")
     build_mip_u8.launches += 1
@@ -921,6 +919,36 @@ def build_mip_u8(mip: torch.Tensor, mip_dims, mip_offsets, scale: float | None =
 
 
 build_mip_u8.launches = 0
+
+
+def bake_tf_majorant(mip: torch.Tensor, tf, params) -> torch.Tensor:
+    """The TF majorant table of the flat raw majorant pyramid ``mip``
+    through the transfer function ``tf`` (a scene.TFTables) at the trace's
+    ``params`` (density_scale, inv_majorant, majorant): (M,) float32,
+    bitwise ``pack.bake_tf_majorant_plain``. On CUDA tensors one launch of
+    the library's bake kernel (adds one to ``bake_tf_majorant.launches``):
+    the scalars and the window go as kernel arguments, so nothing is copied
+    and the host does not wait. On CPU tensors the plain version."""
+    if not mip.is_cuda:
+        return _plain_bake_tf_majorant(mip, tf, params)
+    _check(mip, "mip", torch.float32, (mip.numel(),))
+    size = tf.lut.shape[0]
+    _check(tf.lut, "tf.lut", torch.float32, (size, 4))
+    if tf.lut.device != mip.device:
+        raise ValueError(f"the LUT is on {tf.lut.device}, the pyramid on {mip.device}")
+    out = torch.empty_like(mip)
+    err = _lib().volren_bake_tf_majorant(
+        mip.data_ptr(), tf.lut.data_ptr(), size, float(params.density_scale),
+        float(params.inv_majorant), float(params.majorant), float(tf.window_left),
+        float(tf.window_width), out.data_ptr(), mip.numel(),
+        torch.cuda.current_stream(mip.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"TF majorant bake launch failed: CUDA error {err}")
+    bake_tf_majorant.launches += 1
+    return out
+
+
+bake_tf_majorant.launches = 0
 
 
 def rgbe_decode(words: torch.Tensor) -> torch.Tensor:

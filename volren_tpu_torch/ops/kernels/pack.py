@@ -373,18 +373,34 @@ def bake_mip_u8(ks: KernelScene, params: TraceParams) -> KernelScene:
 
 def bake_tf_majorant(ks: KernelScene, params: TraceParams) -> KernelScene:
     """``ks`` with ``mip_tf``: the raw majorant pyramid through the TF
-    alpha, ``majorant * tf_alpha(density_scale * raw * inv_majorant)``, in
-    the operation order of volren_tpu.renderer._render_pallas. It depends
-    on the trace's parameters, so it is baked once per trace; the kernel
-    then reads it without a density_scale factor."""
+    alpha, ``majorant * tf_alpha(density_scale * raw * inv_majorant)``, as
+    volren_tpu.renderer._render_pallas bakes it. It depends on the trace's
+    parameters, so it is baked once per trace; the kernel then reads it
+    without a density_scale factor. On CUDA tables one launch of the
+    megakernel library's bake kernel (megakernel.bake_tf_majorant), with
+    no copy and no host sync; on CPU tables the plain version."""
+    from .megakernel import bake_tf_majorant as bake_kernel   # it imports this module
+
+    return ks._replace(mip_tf=bake_kernel(ks.mip, ks.tf, params))
+
+
+def bake_tf_majorant_plain(mip: torch.Tensor, tf: TFTables, params) -> torch.Tensor:
+    """The plain version of megakernel.bake_tf_majorant: the flat raw
+    pyramid ``mip`` through ``tf``'s LUT alpha at ``params``'
+    density_scale, inv_majorant and majorant, in torch ops on ``mip``'s
+    device, in the operation order of volren_tpu.renderer._render_pallas.
+    The window divides by a 0-d tensor, as the kernel divides (torch on a
+    card turns a division by a Python float into a product with its
+    reciprocal)."""
     f32 = torch.float32
-    dev = ks.mip.device
+    dev = mip.device
 
     def s(v):
         return torch.tensor(float(v), dtype=f32, device=dev)
 
-    d_norm = s(params.density_scale) * ks.mip * s(params.inv_majorant)
-    return ks._replace(mip_tf=(s(params.majorant) * tf_alpha_majorant(ks.tf, d_norm)).contiguous())
+    tf = tf._replace(window_left=s(tf.window_left), window_width=s(tf.window_width))
+    d_norm = s(params.density_scale) * mip * s(params.inv_majorant)
+    return (s(params.majorant) * tf_alpha_majorant(tf, d_norm)).contiguous()
 
 
 def decode_dense(ks: KernelScene) -> torch.Tensor:

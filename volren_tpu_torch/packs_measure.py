@@ -21,7 +21,9 @@ Renderer of its own, so no timed run flips a switch. Per tree and round:
 3. ``pack.bake_mip_u8`` of the trace's tables: the host ms of the call
    alone and with a device sync after it, the kernels and copies it put on
    the device with their summed ms (torch.profiler), and the host syncs it
-   made (torch.cuda's sync debug mode);
+   made (torch.cuda's sync debug mode); the same of ``pack.bake_tf_majorant``
+   of the TF path's tables (the CLI's --fau LUT), the feeder of every TF
+   trace;
 4. ``pack.pack_pool_rgbe`` of one dispatch's pool, and
    ``pack.build_env_pool`` of one dispatch, f32 and packed (the NEE pool
    drawn from its uniforms): the same;
@@ -31,10 +33,16 @@ Renderer of its own, so no timed run flips a switch. Per tree and round:
    alone and with all three: CUDA-event ms;
 7. the interactive loop's step (cli's ``--serve`` preview): ``trace(4)``
    with a device sync on the f32 tables at 256x256, the median of
-   ``STEPS`` steps on the host clock.
+   ``STEPS`` steps on the host clock; the same on the TF path (--fau), on
+   the f32 tables and with all three packs, whose every step bakes its TF
+   majorant table (and its u8 pyramid).
 
 Each host-clock number is the median of ``REPS`` calls. With
-``--variants``, then the u8 march's design alternatives (MARCH_VARIANTS:
+``--build-variants``, then the u8 pyramid build's design alternative
+(BUILD_VARIANTS: one thread block cluster of 16 or 8 blocks in place of the
+shipped cooperative launch) in turns with every tree's build kernel, device
+ms behind a spin kernel. With ``--variants``, then the u8 march's design
+alternatives (MARCH_VARIANTS:
 edits of csrc/megakernel.cu built under build/variants/, each image
 bitwise the shipped kernel's): the 64-spp dispatch with the u8 pyramid
 alone and with all three packs through each, in turns with the shipped
@@ -182,6 +190,111 @@ _PREFETCH = [("\n// null-collision test (resolve_tests", _PREFETCH_MARCH),
 MARCH_VARIANTS = {"exact byte conversion": _EXACT, "(lo, scale) by __ldg": _DQ_LDG,
                   "(lo, scale) in the constant bank": _CONSTANT, "prefetch": _PREFETCH}
 
+# the u8 pyramid build's design alternative: one thread block cluster of N
+# blocks (16, a cluster's most, or 8, the portable most), which folds its
+# blocks' partials through distributed shared memory with no grid sync and
+# quantises on the cluster's N SMs alone, launched in place of the shipped
+# cooperative kernel (its helpers shared)
+_CLUSTER_KERNEL = r"""
+template <int CLUSTER>
+__global__ void __launch_bounds__(MIPQ_THREADS, 1)
+mip_u8_build_cluster(const float* __restrict__ mip, float factor, int scaled, MipLevels L,
+                     uint8_t* __restrict__ q, float* __restrict__ dq) {
+  constexpr int R = CLUSTER >= 16 ? 3 : 5;     // cloud512's 37,440 quads in registers
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  const int n = L.off[3] + L.n[3], quads = (n + 3) >> 2, stride = CLUSTER * MIPQ_THREADS;
+  const int c0 = rank * MIPQ_THREADS + int(threadIdx.x);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool vec = (reinterpret_cast<uintptr_t>(mip) & 15) == 0;
+  const bool word = (reinterpret_cast<uintptr_t>(q) & 3) == 0;
+  float lo[4], hi[4];
+  for (int m = 0; m < 4; ++m) {
+    lo[m] = __int_as_float(0x7f800000);
+    hi[m] = -__int_as_float(0x7f800000);
+  }
+  float4 v[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    if (c0 + j * stride < quads) v[j] = mipq_load(mip, 4 * (c0 + j * stride), n, vec, factor, scaled);
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    if (c0 + j * stride < quads) mipq_fold4(L, 4 * (c0 + j * stride), n, v[j], lo, hi);
+  for (int c = c0 + R * stride; c < quads; c += stride)
+    mipq_fold4(L, 4 * c, n, mipq_load(mip, 4 * c, n, vec, factor, scaled), lo, hi);
+  __shared__ float red[MIPQ_THREADS / 32][8];
+  __shared__ float part[8], lohi[8], lvl_lo[4], lvl_sc[4];
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    lo[m] = mipq_warp_col(m, lo[m]);
+    hi[m] = mipq_warp_col(4 + m, hi[m]);
+  }
+  if (lane == 0) {
+    for (int m = 0; m < 4; ++m) {
+      red[warp][m] = lo[m];
+      red[warp][4 + m] = hi[m];
+    }
+  }
+  __syncthreads();
+  const int k = warp;
+  if (k < 8) {
+    const float x = mipq_warp_col(k, red[lane][k]);
+    if (lane == 0) part[k] = x;
+  }
+  cluster.sync();
+  if (k < 8) {
+    const float x = mipq_warp_col(k, *cluster.map_shared_rank(&part[k], lane & (CLUSTER - 1)));
+    if (lane == 0) lohi[k] = x;
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x < 4) {
+    const int m = threadIdx.x;
+    const float l = lohi[m], sc = (lohi[4 + m] - l) * INV_25499;
+    lvl_lo[m] = l;
+    lvl_sc[m] = sc;
+    if (rank == 0) {
+      dq[m] = l;
+      dq[4 + m] = sc;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    if (c0 + j * stride < quads)
+      mipq_store4(L, 4 * (c0 + j * stride), n, v[j], word, lvl_lo, lvl_sc, q);
+  for (int c = c0 + R * stride; c < quads; c += stride)
+    mipq_store4(L, 4 * c, n, mipq_load(mip, 4 * c, n, vec, factor, scaled), word, lvl_lo,
+                lvl_sc, q);
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+int mipq_blocks() {"""
+_COOP_LAUNCH = ("  return int(cudaLaunchCooperativeKernel(mip_u8_build, dim3(mipq_blocks()), "
+                "dim3(MIPQ_THREADS),\n                                         args, 0, "
+                "static_cast<cudaStream_t>(stream)));")
+_CLUSTER_LAUNCH = r"""  (void)args;
+  static const cudaError_t ok = cudaFuncSetAttribute(
+      mip_u8_build_cluster<N>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (ok != cudaSuccess) return int(ok);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N);
+  cfg.blockDim = dim3(MIPQ_THREADS);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = N;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return int(cudaLaunchKernelEx(&cfg, mip_u8_build_cluster<N>, mip_p, factor, scaled, L, q_p,
+                                dq_p));"""
+BUILD_VARIANTS = {f"cluster of {n}": [("\nint mipq_blocks() {", _CLUSTER_KERNEL),
+                                      (_COOP_LAUNCH, _CLUSTER_LAUNCH.replace("<N>", f"<{n}>")
+                                       .replace("(N)", f"({n})").replace("= N;", f"= {n};"))]
+                  for n in (16, 8)}
+
 
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -223,9 +336,14 @@ class Tree:
             _set_packs(r, (packed,) * 3)
             r.render(DISPATCH_SPP)                     # the tables, the kernel build
             self.r[packed] = r
-        self.preview = measure.path_renderer(voldata.Volume(cloud), env_mod.Environment(sky_path),
-                                             STEP_RES, seed, "plain", BOUNCES)
-        self.preview.render(STEP_SPP)
+        self.preview = {}
+        for name, path, packs in (("plain", "plain", False), ("tf", "tf", False),
+                                  ("tf_packed", "tf", True)):
+            r = measure.path_renderer(voldata.Volume(cloud), env_mod.Environment(sky_path),
+                                      STEP_RES, seed, path, BOUNCES)
+            _set_packs(r, (packs,) * 3)
+            r.render(STEP_SPP)
+            self.preview[name] = r
         self.seed = seed
 
 
@@ -349,23 +467,30 @@ def measure_round(t: Tree) -> dict:
                                     lambda: t.pack.build_env_pool(r._env_device, t.seed, 0))
     out["build_env_pool_rgbe"] = _feeder(
         "build_env_pool_rgbe", lambda: t.pack.build_env_pool(r._env_device, t.seed, 0, rgbe=True))
+    rt = t.preview["tf"]
+    tf_scene, tf_params = rt._packed[1], rt._trace_params()
+    out["bake_tf_majorant"] = _feeder("bake_tf_majorant",
+                                      lambda: t.pack.bake_tf_majorant(tf_scene, tf_params))
     grid, env = r._density_grids[0], r._env_device
     out["pack_scene_env_rgbe_ms"] = _median_ms(
         lambda: t.pack.pack_scene(grid, env, env_rgbe=True), True)
-    out["step_ms"] = _step_ms(t.preview)
+    out["step_ms"] = _step_ms(t.preview["plain"])
+    out["step_ms_tf"] = _step_ms(t.preview["tf"])
+    out["step_ms_tf_packed"] = _step_ms(t.preview["tf_packed"])
     return out
 
 
-def march_variants(t: Tree, rounds: int, card: str):
-    """The u8 march's design alternatives (MARCH_VARIANTS) of the tree
-    ``t``, in turns with its shipped library."""
+def _build_variants(t: Tree, variants: dict) -> dict:
+    """The libraries of ``variants`` (name: edits of the tree ``t``'s
+    csrc/megakernel.cu, each an old text found once and its replacement),
+    built at once under build/variants/: name -> library path."""
     from .ops.kernels import build as _build
 
     src = open(t.mk.SOURCE).read()
     out_dir = os.path.join(_build.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     paths = {}
-    for name, edits in MARCH_VARIANTS.items():
+    for name, edits in variants.items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
@@ -376,7 +501,57 @@ def march_variants(t: Tree, rounds: int, card: str):
         with open(paths[name], "w") as f:
             f.write(text)
     with ThreadPoolExecutor(len(paths)) as ex:
-        built = dict(zip(paths, ex.map(lambda p: t.mk.build(source=p), paths.values())))
+        return dict(zip(paths, ex.map(lambda p: t.mk.build(source=p), paths.values())))
+
+
+def build_variants(trees: list, rounds: int, card: str):
+    """The u8 build's design alternatives (BUILD_VARIANTS, from this
+    checkout's source) in turns with every tree's shipped build kernel, on
+    cloud512's pyramid times density_scale: each bitwise this checkout's
+    build, then its device ms a build (CUDA events over 20 builds queued
+    behind a spin kernel, probes' Context.time_ms), ``rounds`` rounds."""
+    from .probes._common import Context
+
+    here = next(t for t in trees if t.label == ".")
+    built = _build_variants(here, BUILD_VARIANTS)
+    shipped = here.mk._lib()
+    r = here.r[False]
+    ks, tp = r._kernel_scene(), r._trace_params()
+    args = (ks.mip, ks.mip_dims, ks.mip_offsets, tp.density_scale)
+
+    def run(lib):
+        def fn():
+            here.mk._LIB = lib
+            try:
+                return here.mk.build_mip_u8(*args)
+            finally:
+                here.mk._LIB = shipped
+        return fn
+
+    fns = {f"shipped [{t.label}]": (lambda t=t: t.mk.build_mip_u8(*args)) for t in trees}
+    want_q, want_dq = here.mk.build_mip_u8(*args)
+    for name, path in built.items():
+        print(f"build variant {name}: "
+              f"{[u for u in here.mk.resource_usage(path).split('; ') if 'mip_u8_build' in u]}",
+              flush=True)
+        fns[name] = run(here.mk.load(path))
+    for name, fn in fns.items():
+        q, dq = fn()
+        if not (torch.equal(q, want_q) and torch.equal(dq, want_dq)):
+            raise AssertionError(f"build {name}: not this checkout's bytes and rows")
+    ctx, times = Context(torch.device("cuda")), {name: [] for name in fns}
+    for k in range(rounds):
+        for name, fn in (fns.items() if k % 2 == 0 else list(fns.items())[::-1]):
+            times[name].append(ctx.time_ms(fn, 20))
+    for name, ms in times.items():
+        print(f"build {name}: cloud512's {ks.mip.numel()} entries, device median "
+              f"{statistics.median(ms)!r} ms, rounds {ms!r} [{card}]", flush=True)
+
+
+def march_variants(t: Tree, rounds: int, card: str):
+    """The u8 march's design alternatives (MARCH_VARIANTS) of the tree
+    ``t``, in turns with its shipped library."""
+    built = _build_variants(t, MARCH_VARIANTS)
     shipped = t.mk._lib()
     libs = {"shipped": shipped, **{name: t.mk.load(path) for name, path in built.items()}}
     for name, path in (("shipped", t.mk.build()), *built.items()):
@@ -430,6 +605,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=7, help="seed of the sky and the renders")
     ap.add_argument("--variants", action="store_true",
                     help="then time the u8 march's design alternatives (MARCH_VARIANTS)")
+    ap.add_argument("--build-variants", action="store_true",
+                    help="then time the u8 build's design alternatives (BUILD_VARIANTS) in "
+                         "turns with every tree's build kernel")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("packs_measure: no CUDA device", file=sys.stderr)
@@ -468,13 +646,15 @@ def main(argv=None) -> int:
             **{f: {k: med(lambda x, f=f, k=k: x[f][k])
                    for k in ("host_ms", "host_ms_synced", "kernels", "kernel_ms", "copies",
                              "copy_ms", "syncs")}
-               for f in ("bake_mip_u8", "pack_pool_rgbe", "build_env_pool",
+               for f in ("bake_mip_u8", "bake_tf_majorant", "pack_pool_rgbe", "build_env_pool",
                          "build_env_pool_rgbe")},
             "pack_scene_env_rgbe_ms": med(lambda x: x["pack_scene_env_rgbe_ms"]),
-            "step_ms": med(lambda x: x["step_ms"]),
+            **{f: med(lambda x, f=f: x[f]) for f in ("step_ms", "step_ms_tf", "step_ms_tf_packed")},
         }
         print(f"summary [{label}], medians of {args.rounds} rounds: {summary!r} [{card}]",
               flush=True)
+    if args.build_variants:
+        build_variants(trees, 2 * args.rounds + 1, card)
     if args.variants:
         march_variants(next(t for t in trees if t.label == "."), args.rounds, card)
     return 0
