@@ -100,6 +100,10 @@ of which raises on failure (exit code non-zero, no result line):
    beside its bound;
    the transpose of an 8192 x 8192 f32 array held bitwise to t.t() and
    timed in turns with .t().contiguous() beside its bound by bytes;
+   tea8 (bitwise) and row_scan (rtol 1e-5) at ragged sizes, aligned and
+   from a base one element past a 16-byte boundary (row_scan's word path
+   beside its float4 path), and both at the probes' (8, 128) in turns
+   with P0's launch floor, x * 2 and torch.cumsum, with ptxas's registers;
    then the entry point python -m volren_tpu_torch.probes, run in-process
    one site's stages at a time, every stage ok and the site's kernel
    launched.
@@ -276,6 +280,9 @@ ORACLE_TILE_SPAN = 8
 # launch keeps 8 groups a resident warp; 10.3: it does not)
 ORACLE_ITEMS_MAIN, ORACLE_ITEMS_SMALL = 64, 32
 ORACLE_REPLACES = "volren_tpu/ops/tracer.py:154 (trace_pass; XLA, no pallas_call)"
+# phase 8: tea8's sizes and row_scan's shapes beyond the probes' (8, 128)
+TEA8_SIZES = (3, 1024, 1025, 2 ** 20 + 3)
+ROW_SCAN_SHAPES = ((1, 33), (3, 129), (8, 1024), (1000, 1000))
 # phase 8: the sites timed in turns with their PyTorch call, and the rounds
 PROBES_IN_TURNS = {"probe_P0": 101, "probe_W4": 101, "scan_gather_harness": 31, **{
     f"probe_{name}": 31 for name in ("P3a", "P3c", "P3d", "Q1", "Q2", "Q3", "Q4", "W3",
@@ -1924,6 +1931,37 @@ def main(argv=None) -> int:
         if case.library and case.library_calls != 1:
             record[site.name]["library_calls"] = case.library_calls
         del case
+    # tea8 and row_scan beyond the probes' shapes: ragged sizes, aligned and
+    # one element past a 16-byte boundary (row_scan's word path beside its
+    # float4 path), then both in turns with P0's launch floor and torch.cumsum
+    rng = np.random.default_rng(args.seed)
+    for n in TEA8_SIZES:
+        a_all, b_all = (probe_kernels.u32_bits(torch.from_numpy(
+            rng.integers(0, 2 ** 32, n + 1, dtype=np.uint32).astype(np.int64)).to(dev))
+            for _ in range(2))
+        for off in (0, 1):
+            a, b = a_all[off:off + n], b_all[off:off + n]
+            compare_probe(f"tea8 n {n} offset {off}", probe_kernels.tea8(a, b),
+                          probe_kernels.tea8_plain(a, b), True)
+    for h, w in ROW_SCAN_SHAPES:
+        flat = torch.from_numpy(rng.random(h * w + 1).astype(np.float32)).to(dev)
+        for off in (0, 1):
+            x = flat[off:off + h * w].view(h, w)
+            compare_probe(f"row_scan ({h}, {w}) offset {off}", probe_kernels.row_scan(x),
+                          probe_kernels.row_scan_plain(x), False)
+    sites = {site.name: site for site in SITES}
+    q5, cumsum, p0 = (sites[name].make(ctx) for name in ("probe_Q5", "probe_cumsum", "probe_P0"))
+    turns = interleaved_ms(ctx, {"tea8": q5.kernel, "row_scan": cumsum.kernel,
+                                 "torch.cumsum": cumsum.library, "P0": p0.kernel,
+                                 "x * 2": p0.library}, 31)
+    print(f"tea8 at n {TEA8_SIZES} and row_scan at {ROW_SCAN_SHAPES}, aligned and one element "
+          f"in, agree with their plain versions; at the probes' (8, 128), 31 rounds in turns, "
+          f"ms median (p10, p90): "
+          + ", ".join(f"{k} {v['median']!r} ({v['p10']!r}, {v['p90']!r})" for k, v in turns.items())
+          + f"; tea8: one pair a thread, row_scan: one warp a row, "
+          f"{probe_kernels.SCAN_WARPS} rows a block; "
+          f"ptxas {registers('tea8', 'row_scan')} on {gpu_line}", flush=True)
+    del q5, cumsum, p0
     # Q6's chain floor: a step's latency on one warp alone, times Q6's steps,
     # plus the launch floor (P0's time in this run)
     step_ms = probe_pallas2.q6_step_ms(ctx)

@@ -1131,6 +1131,55 @@ def test_probe_row_scan_matches_cumsum():
     torch.testing.assert_close(got, K.row_scan_plain(x), rtol=1e-5, atol=0)
 
 
+TEA8_SIZES = (1, 3, 4, 1023, 1024, 1025, 2 ** 20 + 3)
+ROW_SCAN_SHAPES = [(h, w) for h in (1, 8, 1000) for w in (1, 3, 31, 32, 33, 127, 128, 129, 1000,
+                                                          1024)]
+
+
+@pytest.mark.parametrize("n", TEA8_SIZES)
+def test_probe_tea8_matches_plain_version_at_ragged_sizes(n):
+    """tea8 at sizes around a quad and a 256-thread block, from int64
+    values and from int32 bits, aligned and one element past a 16-byte
+    boundary, bitwise tea8_plain, one launch a call."""
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    rng = np.random.default_rng(n)
+    a64, b64 = (torch.from_numpy(rng.integers(0, 2 ** 32, n + 1, dtype=np.uint32)
+                                 .astype(np.int64)).to(dev) for _ in range(2))
+    a32, b32 = K.u32_bits(a64), K.u32_bits(b64)
+    assert a32.data_ptr() % 16 == 0 and a32[1:].data_ptr() % 16 == 4
+    cases = {"int64": (a64[:-1], b64[:-1]), "int64 offset": (a64[1:], b64[1:]),
+             "int32": (a32[:-1], b32[:-1]), "int32 offset": (a32[1:], b32[1:])}
+    for label, (a, b) in cases.items():
+        before = K.tea8.launches
+        got = K.tea8(a, b)
+        assert K.tea8.launches == before + 1
+        want = K.tea8_plain(a, b)
+        for g, w in zip(got, want):
+            assert g.is_cuda and g.dtype == a.dtype and torch.equal(g, w), label
+
+
+@pytest.mark.parametrize("h,w", ROW_SCAN_SHAPES, ids=[f"{h}x{w}" for h, w in ROW_SCAN_SHAPES])
+def test_probe_row_scan_matches_plain_version_at_ragged_shapes(h, w):
+    """row_scan's float4 path (whole quads, 16-byte aligned) and its word
+    path (ragged rows, or a base 4 bytes past a 16-byte boundary), a lane's
+    1 to 32 values, within rtol 1e-5 of row_scan_plain (torch.cumsum) on
+    the probe's positive values, one launch a call."""
+    from volren_tpu_torch.ops.kernels import probes as K
+
+    dev = _cuda()
+    x = np.random.default_rng(h * 4096 + w).random(h * w + 1).astype(np.float32)
+    flat = torch.from_numpy(x).to(dev)
+    aligned, offset = flat[:-1].view(h, w), flat[1:].view(h, w)
+    assert aligned.data_ptr() % 16 == 0 and offset.data_ptr() % 16 == 4
+    for t in (aligned, offset):
+        before = K.row_scan.launches
+        got = K.row_scan(t)
+        assert K.row_scan.launches == before + 1
+        torch.testing.assert_close(got, K.row_scan_plain(t), rtol=1e-5, atol=0)
+
+
 # ---- the oracle engine (csrc/oracle.cu)
 
 ORACLE_VARIANTS = [(dda, tf, emi) for dda in (True, False) for tf in (False, True)

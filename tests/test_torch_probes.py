@@ -603,12 +603,13 @@ def test_transpose_takes_a_column_slice():
 def test_variants_edit_the_shipped_kernels_once(name):
     """The design comparison (python -m volren_tpu_torch.probes.variants)
     builds its alternatives by editing csrc/probes.cu: each edit still
-    finds its text, and only the transpose kernel, or only the short
-    loop's launch, changes."""
+    finds its text, and only the transpose kernel, the short loop's
+    launch or row_scan's rows a block changes."""
     src = open(K.SOURCE).read()
     patched = variants.patched_source(name)
-    first, last = (("int probe_affine_loop(", "int probe_gather(") if name.startswith("short")
-                   else ("template <int TR, bool VEC>", "// ---- tea8"))
+    first, last = {"short": ("int probe_affine_loop(", "int probe_gather("),
+                   "row_scan": ("// ---- row_scan", 'extern "C" {')}.get(
+        name.split()[0], ("template <int TR, bool VEC>", "// ---- tea8"))
     head, tail = src.split(first, 1)
     assert patched != src
     assert patched.startswith(head) and patched.endswith(tail.split(last, 1)[1])
@@ -711,6 +712,64 @@ def test_cumsum_row_scan_matches_pallas(probe, monkeypatch):
     x = np.random.default_rng(0).random((8, 128), np.float32)
     got = K.row_scan(_t(x)).numpy()
     np.testing.assert_allclose(got, np.cumsum(x, axis=1), rtol=1e-5)
+
+
+# the sizes and shapes at which the card's tests hold the kernels to these
+# plain versions (tests/test_torch_cuda.py): around a whole quad, a block of
+# threads and a warp's row
+TEA8_SIZES = (1, 3, 4, 1023, 1024, 1025, 2 ** 20 + 3)
+ROW_SCAN_SHAPES = [(h, w) for h in (1, 8, 1000) for w in (1, 3, 31, 32, 33, 127, 128, 129, 1000,
+                                                          1024)]
+
+
+@pytest.mark.parametrize("n", TEA8_SIZES)
+def test_tea8_plain_matches_numpy_oracle_at_ragged_sizes(n):
+    """tea8_plain (and the wrapper on CPU tensors) bitwise the numpy oracle
+    of probes/probe_pallas2.py::q5, from int64 values and from int32 bits."""
+    rng = np.random.default_rng(n)
+    a = rng.integers(0, 2 ** 32, n, dtype=np.uint32)
+    b = rng.integers(0, 2 ** 32, n, dtype=np.uint32)
+    w0, w1 = _tea8_np(a.copy(), b.copy())
+    ta, tb = _t(a.astype(np.int64)), _t(b.astype(np.int64))
+    for fn in (K.tea8_plain, K.tea8):
+        g0, g1 = fn(ta, tb)
+        assert g0.dtype == torch.int64 and np.array_equal(g0.numpy(), w0)
+        assert np.array_equal(g1.numpy(), w1)
+        b0, b1 = fn(K.u32_bits(ta), K.u32_bits(tb))
+        assert b0.dtype == torch.int32 and np.array_equal(b0.numpy().view(np.uint32), w0)
+        assert np.array_equal(b1.numpy().view(np.uint32), w1)
+
+
+@pytest.mark.parametrize("h,w", ROW_SCAN_SHAPES, ids=[f"{h}x{w}" for h, w in ROW_SCAN_SHAPES])
+def test_row_scan_plain_matches_numpy_cumsum_at_ragged_shapes(h, w):
+    """row_scan_plain (and the wrapper on a CPU tensor, also one whose base
+    is one element past an allocation's) within rtol 1e-5 of np.cumsum on
+    the probe's positive values."""
+    x = np.random.default_rng(h * 4096 + w).random(h * w + 1).astype(np.float32)
+    want = np.cumsum(x[1:].reshape(h, w), axis=1)
+    flat = _t(x)
+    for got in (K.row_scan_plain(flat[1:].view(h, w)), K.row_scan(flat[1:].view(h, w)),
+                K.row_scan(_t(x[1:].reshape(h, w)))):
+        assert got.shape == (h, w)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=0)
+
+
+def test_tea8_and_row_scan_check_their_arguments():
+    """What the two wrappers refuse: pairs of other shapes or types, a
+    row_scan array that is not 2-D or wider than 1024, and tea8 on a
+    device other than the CPU and CUDA."""
+    u = torch.zeros(8, 128, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        K.tea8(u, u[:, :64])
+    with pytest.raises(ValueError):
+        K.tea8(u, u.to(torch.int32))
+    with pytest.raises(ValueError):
+        K.row_scan(torch.zeros(8, 1025))
+    with pytest.raises(ValueError):
+        K.row_scan(torch.zeros(128))
+    meta = torch.empty(8, 128, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        K.tea8(meta, meta)
 
 
 # ---------------------------------------------------------------- lcg_gather_sum
@@ -857,6 +916,7 @@ def test_schedule_constants_are_the_kernels():
     assert f"constexpr int GATHER_TABLES = {K.GATHER_TABLES};" in src
     assert f"constexpr int Q6_ROWS = {K.Q6_ROWS}, MARCH_COLS = {K.MARCH_COLS};" in src
     assert f"constexpr int IC_THREADS = {K.IC_THREADS};" in src
+    assert f"constexpr int SCAN_WARPS = {K.SCAN_WARPS};" in src
 
 
 @pytest.mark.parametrize("mangled,name", [

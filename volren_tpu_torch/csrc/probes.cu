@@ -888,6 +888,18 @@ __global__ void __launch_bounds__(T_THREADS)
 }
 
 // ---- tea8: 8 TEA rounds of (v0, v1) (volren_tpu/ops/rng.py's constants)
+//
+// Q5 (probes/probe_pallas2.py:321) on two (8, 128) u32 arrays: one pair a
+// thread in 256-thread blocks. What bounds it: the launch, one round trip to
+// memory (the 16 KiB take 4.9 ns at 3.35 TB/s) and each pair's chain of 16
+// dependent half rounds. A half round is five instructions, LEA, LEA.HI and
+// VIADD on one word, LOP3 (the three-way xor), IMAD.IADD into the other:
+// three on the dependent path, 18.5 ns a round on one warp alone. The
+// kernel ends within 0.06 us of P0's launch plus that chain (PERF.md §6).
+// Several pairs a thread in 16-byte accesses, their chains interleaved,
+// measured no faster (in one 256-thread block: slower, its 8 chains a
+// scheduler wait for instruction slots); they are python -m
+// volren_tpu_torch.probes.variants --only tea8.
 __global__ void tea8_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
                             uint32_t* __restrict__ o0, uint32_t* __restrict__ o1, int n) {
   int k = blockIdx.x * blockDim.x + threadIdx.x;
@@ -904,33 +916,84 @@ __global__ void tea8_kernel(const uint32_t* __restrict__ a, const uint32_t* __re
 }
 
 // ---- row_scan: inclusive prefix sum of each row of an (H, W) f32 array,
-// W <= 1024: one block per row, a shuffle scan inside each warp, then the
-// warps' totals scanned by warp 0 and added back. It adds in another order
-// than a sequential cumsum, so it agrees with one to rounding.
-__global__ void row_scan_kernel(const float* __restrict__ x, float* __restrict__ out, int W) {
-  __shared__ float warp_sum[32];
-  int row = blockIdx.x, j = threadIdx.x, lane = j & 31, warp = j >> 5;
-  float v = j < W ? x[(long long)row * W + j] : 0.0f;
+// W <= 1024 (probes/probe_pallas5.py:243's cumsum on (8, 128)). What bounds
+// it: the launch, one round trip to memory, and a row's dependent chain:
+// PER - 1 adds in a lane, 5 shuffle steps and one more shuffle for the
+// exclusive prefix, one add. One warp a row, SCAN_WARPS rows a block (one
+// block at (8, 128)); each lane holds PER = 2^ceil(log2(ceil(W / 32)))
+// consecutive values of its row (4 at W 128), loaded and stored as float4
+// where the row is whole quads and x and out are 16-byte aligned, word by
+// word otherwise; its values scanned in order, the lanes' totals by
+// __shfl_up_sync, the exclusive prefix added to each value. No shared
+// memory, no block barrier. One block a row and 2 rows a block measured
+// slower at (8, 128) (python -m volren_tpu_torch.probes.variants --only
+// row_scan, PERF.md §6). It adds in another order than a sequential
+// cumsum, so it agrees with one to rounding, not bitwise.
+constexpr int SCAN_WARPS = 8;
+
+// the inclusive scan of a row held PER values a lane, in lane order
+template <int PER>
+__device__ __forceinline__ void warp_row_scan(float (&v)[PER], int lane) {
+#pragma unroll
+  for (int i = 1; i < PER; ++i) v[i] = __fadd_rn(v[i - 1], v[i]);
+  float t = v[PER - 1];
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    float u = __shfl_up_sync(0xFFFFFFFFu, v, d);
-    if (lane >= d) v = __fadd_rn(v, u);
+    const float u = __shfl_up_sync(0xFFFFFFFFu, t, d);
+    if (lane >= d) t = __fadd_rn(u, t);
   }
-  if (lane == 31) warp_sum[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int n_warps = (blockDim.x + 31) >> 5;
-    float w = lane < n_warps ? warp_sum[lane] : 0.0f;
+  const float before = __shfl_up_sync(0xFFFFFFFFu, t, 1);   // the lanes to the left
+  if (lane > 0) {
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      float u = __shfl_up_sync(0xFFFFFFFFu, w, d);
-      if (lane >= d) w = __fadd_rn(w, u);
-    }
-    warp_sum[lane] = w;
+    for (int i = 0; i < PER; ++i) v[i] = __fadd_rn(before, v[i]);
   }
-  __syncthreads();
-  if (warp > 0) v = __fadd_rn(v, warp_sum[warp - 1]);
-  if (j < W) out[(long long)row * W + j] = v;
+}
+
+// VEC: W a multiple of 4, x and out 16-byte aligned, PER a multiple of 4
+template <int PER, bool VEC>
+__global__ void __launch_bounds__(32 * SCAN_WARPS)
+    row_scan_kernel(const float* __restrict__ x, float* __restrict__ out, int H, int W) {
+  const int lane = threadIdx.x & 31, row = blockIdx.x * SCAN_WARPS + (threadIdx.x >> 5);
+  if (row >= H) return;   // the whole warp: its shuffles see every lane
+  const long long base = (long long)row * W;
+  const int c0 = lane * PER;
+  float v[PER];
+  if (VEC) {
+#pragma unroll
+    for (int q = 0; q < PER / 4; ++q) {
+      const float4 f = c0 + 4 * q < W ? *reinterpret_cast<const float4*>(x + base + c0 + 4 * q)
+                                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[4 * q] = f.x, v[4 * q + 1] = f.y, v[4 * q + 2] = f.z, v[4 * q + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) v[i] = c0 + i < W ? x[base + c0 + i] : 0.0f;
+  }
+  warp_row_scan<PER>(v, lane);
+  if (VEC) {
+#pragma unroll
+    for (int q = 0; q < PER / 4; ++q)
+      if (c0 + 4 * q < W)
+        *reinterpret_cast<float4*>(out + base + c0 + 4 * q) =
+            make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < PER; ++i)
+      if (c0 + i < W) out[base + c0 + i] = v[i];
+  }
+}
+
+template <int PER>
+cudaError_t launch_row_scan(bool vec, int grid, cudaStream_t stream, const float* x, float* out,
+                            int H, int W) {
+  if constexpr (PER % 4 == 0) {
+    if (vec) {
+      row_scan_kernel<PER, true><<<grid, 32 * SCAN_WARPS, 0, stream>>>(x, out, H, W);
+      return cudaGetLastError();
+    }
+  }
+  row_scan_kernel<PER, false><<<grid, 32 * SCAN_WARPS, 0, stream>>>(x, out, H, W);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1082,9 +1145,17 @@ int probe_tea8(const uint32_t* a, const uint32_t* b, uint32_t* o0, uint32_t* o1,
   return cudaGetLastError();
 }
 
+// 1 <= W <= 1024: a lane's values PER, the least power of two >= ceil(W / 32)
 int probe_row_scan(const float* x, float* out, int H, int W, cudaStream_t stream) {
-  row_scan_kernel<<<H, ((W + 31) / 32) * 32, 0, stream>>>(x, out, W);
-  return cudaGetLastError();
+  if (H < 1 || W < 1 || W > 1024) return int(cudaErrorInvalidValue);
+  const bool vec = W % 4 == 0 && ((uintptr_t(x) | uintptr_t(out)) % 16) == 0;
+  const int grid = (H + SCAN_WARPS - 1) / SCAN_WARPS, per = (W + 31) / 32;
+  if (per <= 1) return int(launch_row_scan<1>(vec, grid, stream, x, out, H, W));
+  if (per <= 2) return int(launch_row_scan<2>(vec, grid, stream, x, out, H, W));
+  if (per <= 4) return int(launch_row_scan<4>(vec, grid, stream, x, out, H, W));
+  if (per <= 8) return int(launch_row_scan<8>(vec, grid, stream, x, out, H, W));
+  if (per <= 16) return int(launch_row_scan<16>(vec, grid, stream, x, out, H, W));
+  return int(launch_row_scan<32>(vec, grid, stream, x, out, H, W));
 }
 
 }  // extern "C"

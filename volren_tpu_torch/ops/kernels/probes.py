@@ -29,7 +29,9 @@ families:
 - ``index_copy``: transpose (``transpose_plan``), row tiling, column roll,
   row broadcast, iota (4 words of several rows a thread, the op a template
   argument: ``index_copy_args``, ``index_copy_plan``);
-- ``tea8``: 8 TEA rounds; ``row_scan``: cumsum along rows.
+- ``tea8``: 8 TEA rounds; ``row_scan``: cumsum along rows (one warp a
+  row, a lane's values in order, the lanes' totals by shuffles,
+  ``SCAN_WARPS`` rows a block).
 
 u32 values travel as int64 tensors holding [0, 2^32), as in ``ops/rng.py``;
 ``march`` and ``tea8`` also take int32 tensors holding the bits (``u32_bits``).
@@ -66,6 +68,7 @@ CARRY_U = 16          # csrc/probes.cu: carry30's steps a block
 CARRY_PARTS = 8       # csrc/probes.cu: the threads a carry30 lane's values are split over
 GATHER_TABLES = 4     # csrc/probes.cu: the tables one gather launch takes
 GATHER_THREADS = 256  # a gather block's threads, at most
+SCAN_WARPS = 8        # csrc/probes.cu: row_scan's rows (a warp each) a block
 MAX_GRID_Y = 65535    # CUDA's limit on a grid's second axis
 
 _LIB = None
@@ -859,8 +862,10 @@ def row_scan_plain(x):
 
 def row_scan(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum along each row of an (H, W <= 1024) float32
-    array. The kernel adds in a tree order, so it agrees with a sequential
-    cumsum to rounding (relative 1e-5 at the probe's shape), not bitwise."""
+    array. The kernel runs a row on one warp: each lane's values in order,
+    then the lanes' totals by shuffles, so it agrees with a sequential
+    cumsum to rounding (relative 1e-5 on the probe's positive values), not
+    bitwise."""
     if x.dim() != 2 or x.shape[1] > 1024:
         raise ValueError("row_scan takes an (H, W <= 1024) array")
     if not _on_card(x):
