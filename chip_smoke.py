@@ -187,14 +187,20 @@ the NEE pool's draw kernel's too, once a dispatch, and in phases 5-7 the TF
 majorant's bake kernel's, once a TF trace; in phases 5-7, 9 and 10 the
 framebuffer must be finite with a positive mean and the run must have used
 the CUDA kernel.
+The plain versions that phases 3, 4 and 10 hold the kernels against
+(megakernel.render_plain, the oracle's ops/tracer.py) run on the card on
+their chunked schedule (volren_tpu_torch/ops/chunked.py): a host sync once
+a chunk of steps, the chunks replayed as CUDA graphs; the tests hold it
+bitwise to their per-step schedule.
 Every dispatch of phases 3-7 is also run through the kernel's STATS
 instantiation (megakernel.render_stats), which must render the same image
 (phases 3-4), count 0 capped samples, and in phase 4 count the events the
 plain version counts.
 
-Each phase prints its seconds. The last three lines are the card line
-from nvidia-smi, a JSON object
-describing each kernel, and the device record
+Each phase prints its seconds, and the line before the last three prints
+every phase's seconds and the total. The last three lines are the card
+line from nvidia-smi, a JSON object describing each kernel, and the
+device record
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -1234,7 +1240,8 @@ def main(argv=None) -> int:
         raise AssertionError(f"expected 24 packed instantiations, ptxas reported {sorted(packed)}")
     print(f"    the u8 pyramid's build kernel: "
           f"{[u for u in usage.split('; ') if 'mip_u8_build' in u]}", flush=True)
-    print(f"phases 1-2 took {time.time() - t_smoke!r} s", flush=True)
+    phase_s = {"1-2": time.time() - t_smoke}   # each phase's, printed before the card line
+    print(f"phases 1-2 took {phase_s['1-2']!r} s", flush=True)
     print(f"    ptxas oracle.cu <USE_DDA,USE_TF,HAS_EMI>: {oracle.resource_usage(oracle_lib)}",
           flush=True)
     for line in probe_kernels.resource_usage(probe_lib):
@@ -1402,7 +1409,8 @@ def main(argv=None) -> int:
             if not (rmse < 1.5 * noise and mean_rel < 0.05):
                 raise AssertionError(f"{name}: kernel disagrees with its plain version")
 
-    print(f"phase 3 took {time.time() - t_phase!r} s", flush=True)
+    phase_s["3"] = time.time() - t_phase
+    print(f"phase 3 took {phase_s['3']!r} s", flush=True)
 
     # ---- 4. kernel vs plain on one dispatch at each path's shapes
     t_phase = time.time()
@@ -1647,7 +1655,8 @@ def main(argv=None) -> int:
           flush=True)
     del r, big, dispatches
     torch.cuda.empty_cache()
-    print(f"phase 4 took {time.time() - t_phase!r} s", flush=True)
+    phase_s["4"] = time.time() - t_phase
+    print(f"phase 4 took {phase_s['4']!r} s", flush=True)
 
     # ---- 5-7. the three paths through the entry points a user calls
     t_phase = time.time()
@@ -1833,7 +1842,8 @@ def main(argv=None) -> int:
     path_renderers.clear()
     del main_r
 
-    print(f"phases 5-7 took {time.time() - t_phase!r} s", flush=True)
+    phase_s["5-7"] = time.time() - t_phase
+    print(f"phases 5-7 took {phase_s['5-7']!r} s", flush=True)
 
     # ---- 8. the probe kernels: kernel vs plain at each call site's shapes
     t_phase = time.time()
@@ -2002,24 +2012,32 @@ def main(argv=None) -> int:
         raise AssertionError("the sites' stages are not every probe stage exactly once")
     print(f"probes: {len(every)} stages of python -m volren_tpu_torch.probes ok, in "
           f"{len(SITES)} call sites, on {gpu_line}", flush=True)
-    print(f"phase 8 took {time.time() - t_phase!r} s", flush=True)
+    phase_s["8"] = time.time() - t_phase
+    print(f"phase 8 took {phase_s['8']!r} s", flush=True)
 
     # ---- 9. the front ends
     t_phase = time.time()
     record["megakernel_tf_emission"]["launches"] = front_ends(
         args.seed, sky_path, sky, gpu_line, scene, cuda_ms)
-    print(f"phase 9 took {time.time() - t_phase!r} s", flush=True)
+    phase_s["9"] = time.time() - t_phase
+    print(f"phase 9 took {phase_s['9']!r} s", flush=True)
 
     # ---- 10. the oracle engine
+    t_phase = time.time()
     oracle_record = oracle_phase(args.seed, sky_path, sky, gpu_line, cuda_ms, host_ms,
                                  (("random16", g16), ("cloud512_crop64", crop)), path_means)
+    phase_s["10"] = time.time() - t_phase
 
     # ---- 11. rendering across devices
+    t_phase = time.time()
     sharding_phase(args.seed, sky_path, sky, gpu_line, cuda_ms)
+    phase_s["11"] = time.time() - t_phase
 
     # ---- 12. the denoiser and the scripts
+    t_phase = time.time()
     denoiser_phase(args.seed, sky_path, gpu_line, clean_fb, noisy_fb)
     del clean_fb, noisy_fb
+    phase_s["12"] = time.time() - t_phase
 
     kernels = [dict(name=kname, route="cuda", source="volren_tpu_torch/csrc/megakernel.cu",
                     replaces=replaces, library_ms=None, **record[kname])
@@ -2054,7 +2072,9 @@ def main(argv=None) -> int:
     # spp/s of their path's Renderer.render runs, and of the f32 runs in turns
     extra = ("ms_per_pass", "passes_per_launch", "share", "plain_of", "library_calls",
              "chain_floor_ms", "ms_64spp", "bound_ms_64spp", "spp_s", "spp_s_f32")
-    print(f"chip_smoke took {time.time() - t_smoke!r} s", flush=True)
+    phase_s["total"] = time.time() - t_smoke
+    print(f"chip_smoke took {phase_s['total']!r} s; each phase's seconds: "
+          f"{json.dumps(phase_s)}", flush=True)
     print(gpu_line)
     print(json.dumps({"kernels": [{k: entry[k] for k in keys + extra if k in keys or k in entry}
                                   for entry in kernels]}))

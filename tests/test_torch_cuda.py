@@ -5,6 +5,8 @@ without the JAX test configuration:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -1318,3 +1320,152 @@ def test_oracle_renderer_and_cli_launch_the_kernel(tmp_path):
                             "--bounces", "8", "--output", str(tmp_path / "o.png"), *flags])
         assert r.last_engine == "cuda_oracle" and r.sample == 70
         assert oracle.trace_pass.launches_by_variant[variant] == before + 2   # 64 + 6
+
+
+# ---- the plain versions' chunked schedule on the card (ops/chunked.py)
+
+PLAIN_SCENES = ["random16", "cloud512_crop64"]
+PATHS = {"plain": (False, False), "tf": (True, False), "emission": (False, True),
+         "tf+emission": (True, True)}
+
+
+@functools.lru_cache(maxsize=1)
+def _cloud512_crop64():
+    """The 64^3 crop of cloud512 that chip_smoke.py phase 3 renders."""
+    import os
+
+    from volren_tpu_torch.voldata import read_brick
+
+    cloud = read_brick(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    ".scene_cache", "cloud512.brick"))
+    zz, yy, xx = np.meshgrid(np.arange(96, 160), np.arange(224, 288), np.arange(224, 288),
+                             indexing="ij")
+    return cloud.lookup(np.stack([xx, yy, zz], -1))
+
+
+def _path_renderer(dev, scene, path, use_dda=None):
+    """A committed 64 x 64 Renderer of one of the kernel's paths (the --fau
+    LUT, a half-resolution temperature grid), 16 bounces, on the random
+    16^3 grid or the cloud512 crop; with ``use_dda``, the oracle engine."""
+    from volren_tpu_torch.measure import path_renderer
+
+    dense = _grid16() if scene == "random16" else _cloud512_crop64()
+    d, h, w = dense.shape
+    sky = Environment(procedural_sky(64, 32, seed=4))
+    r = path_renderer(Volume(DenseGrid(w, h, d, dense)), sky, 64, 7, path, 16, device=dev)
+    if use_dda is not None:
+        r.engine = "oracle"
+        r._use_dda = use_dda
+    return r
+
+
+def _count_captures(monkeypatch):
+    from volren_tpu_torch.ops import chunked
+
+    captures, capture = [], chunked.Schedule._capture
+
+    def counted(self, *args):
+        captures.append(args[-1])
+        return capture(self, *args)
+
+    monkeypatch.setattr(chunked.Schedule, "_capture", counted)
+    return captures
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("scene", PLAIN_SCENES)
+def test_graph_replayed_render_plain_is_its_eager_per_step_run(scene, path, monkeypatch):
+    """render_plain on the card, whose chunks replay as CUDA graphs, is
+    bitwise its per-step schedule's run on the same tensors, with the same
+    stats, at 64 x 64 and 4 spp."""
+    from volren_tpu_torch.ops import chunked
+
+    dev = _cuda()
+    r = _path_renderer(dev, scene, path)
+    ks = r._kernel_scene()
+    pf, pi = build_params(ks, r._trace_params(), 64, 64, 0, 4)
+    inputs = ks, r._env_pool(0), pf, pi
+    captures = _count_captures(monkeypatch)
+    stats = {}
+    got = megakernel.render_plain(*inputs, stats=stats)
+    assert captures
+    monkeypatch.setattr(chunked, "_FORCE", False)
+    want_stats = {}
+    want = megakernel.render_plain(*inputs, stats=want_stats)
+    assert torch.equal(got, want) and stats == want_stats
+    assert stats["capped"] == 0 and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("use_dda,tf,emission", ORACLE_VARIANTS, ids=ORACLE_IDS)
+@pytest.mark.parametrize("scene", PLAIN_SCENES)
+def test_graph_replayed_oracle_is_its_eager_per_step_run(scene, use_dda, tf, emission,
+                                                         monkeypatch):
+    """The oracle's plain version on the card (its tracking loops' chunks
+    replayed as CUDA graphs inside an eager bounce loop) is bitwise its
+    per-step run, with the same stats: 2 passes at 64 x 64 from a non-zero
+    framebuffer."""
+    from volren_tpu_torch.ops import chunked, tracer
+
+    dev = _cuda()
+    path = {v: k for k, v in PATHS.items()}[(tf, emission)]
+    scene_t, params, cfg = _oracle_inputs(_path_renderer(dev, scene, path, use_dda))
+    fb0 = torch.rand(64, 64, 4, generator=torch.Generator().manual_seed(3)).to(dev)
+    captures = _count_captures(monkeypatch)
+    stats = {}
+    got = tracer.trace_passes(scene_t, params, cfg, fb0, 2, 2, 64, 64, stats)
+    assert captures
+    monkeypatch.setattr(chunked, "_FORCE", False)
+    want_stats = {}
+    want = tracer.trace_passes(scene_t, params, cfg, fb0, 2, 2, 64, 64, want_stats)
+    assert torch.equal(got, want) and stats == want_stats
+    assert stats.get("capped", 0) == 0 and bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("which", ["megakernel", "oracle"])
+def test_plain_chunks_make_no_host_sync_and_return_their_memory(which, monkeypatch):
+    """Every chunk of a plain version's call on the card, its graph's
+    capture and replays included, runs under torch's sync debug mode
+    "error" (its checks between chunks sync, outside them; the oracle's
+    eager bounce loop holds its tracking loops' checks); and once the
+    call returns, its graphs' memory is free again: memory_allocated is
+    back to its value before the call (after a first call, which makes the
+    process's constants)."""
+    from volren_tpu_torch.ops import chunked, tracer
+
+    dev = _cuda()
+    r = _path_renderer(dev, "random16", "tf+emission", None if which == "megakernel" else True)
+    if which == "megakernel":
+        ks = r._kernel_scene()
+        pf, pi = build_params(ks, r._trace_params(), 64, 64, 0, 4)
+        inputs = ks, r._env_pool(0), pf, pi
+
+        def call():
+            return megakernel.render_plain(*inputs, stats={})
+    else:
+        scene_t, params, cfg = _oracle_inputs(r)
+        fb0 = torch.zeros(64, 64, 4, device=dev)
+
+        def call():
+            return tracer.trace_passes(scene_t, params, cfg, fb0, 1, 2, 64, 64, {})
+    want = call()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    chunks, run = [], chunked.Schedule.run
+
+    def strict_run(self, loop, step, state, steps, graph=True):
+        if not graph:   # the oracle's bounce loop: its tracking loops check in it
+            return run(self, loop, step, state, steps, graph)
+        chunks.append(loop)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run(self, loop, step, state, steps, graph)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(chunked.Schedule, "run", strict_run)
+    captures = _count_captures(monkeypatch)
+    got = call()
+    assert chunks and captures and torch.equal(got, want)
+    del got
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before

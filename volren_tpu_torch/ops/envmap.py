@@ -11,12 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from .geometry import INV_4PI, M_PI, cols, luma, matvec
+from .geometry import INV_4PI, M_PI, cols, device_const, luma, matvec
 from .scene import EnvTables
-
-
-def _t(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(float(x), dtype=torch.float32, device=like.device)
 
 
 def _bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -50,8 +46,8 @@ def texture_env(env: EnvTables, u: torch.Tensor, v: torch.Tensor) -> torch.Tenso
 def dir_to_uv(inv_transform, direction: torch.Tensor):
     """World direction (N, 3) -> equirect (u, v) (common.glsl:93-96)."""
     idir = cols(matvec(inv_transform, direction))
-    u = torch.atan2(idir[2], idir[0]) / _t(2.0 * M_PI, direction) + 0.5
-    v = 1.0 - torch.acos(torch.clamp(idir[1], -1.0, 1.0)) / _t(M_PI, direction)
+    u = torch.atan2(idir[2], idir[0]) / device_const(2.0 * M_PI, direction.device) + 0.5
+    v = 1.0 - torch.acos(torch.clamp(idir[1], -1.0, 1.0)) / device_const(M_PI, direction.device)
     return u, v
 
 

@@ -13,12 +13,33 @@ product with a reciprocal), so that csrc/oracle.cu can repeat them.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
 M_PI = 3.14159265358979323846
 INV_4PI = 1.0 / (4.0 * M_PI)
 LUMA_W = (0.212671, 0.715160, 0.072169)
+
+_CONSTS: dict = {}
+_CONSTS_LOCK = threading.Lock()
+
+
+def device_const(x, device) -> torch.Tensor:
+    """``x`` as a float32 tensor on ``device``, copied there once a process
+    and value: a copy from host data waits for the device, and a CUDA graph
+    of the chunked schedule (ops/chunked.py) reads the tensor after the call
+    that asked for it. For a scene's constants, which the loops' steps
+    read, not for values that change from call to call. Never write to
+    it."""
+    a = np.asarray(x, np.float32)
+    key = (a.tobytes(), a.shape, str(torch.device(device)))
+    with _CONSTS_LOCK:
+        t = _CONSTS.get(key)
+        if t is None:
+            t = _CONSTS[key] = torch.tensor(a, device=device)
+    return t
 
 
 def dot3(a, b):
@@ -129,8 +150,8 @@ def matvec(m, v: torch.Tensor) -> torch.Tensor:
 
 def transform_point(m, p: torch.Tensor) -> torch.Tensor:
     """(4, 4) host matrix @ (N, 3) points: p @ m[:3, :3].T + m[:3, 3]."""
-    return matvec(np.asarray(m)[:3, :3], p) + torch.tensor(
-        np.asarray(m, np.float32)[:3, 3], device=p.device)
+    return matvec(np.asarray(m)[:3, :3], p) + device_const(np.asarray(m, np.float32)[:3, 3],
+                                                           p.device)
 
 
 def transform_vector(m, v: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import rng as _rng
-from .geometry import transform_point
+from .geometry import device_const, transform_point
 from .scene import GridTables
 
 
@@ -75,7 +75,7 @@ def lookup_density_trilinear(grid: GridTables, ipos: torch.Tensor,
             for dx in (0, 1):
                 w = ((f[:, 0] if dx else 1.0 - f[:, 0]) * (f[:, 1] if dy else 1.0 - f[:, 1])
                      * (f[:, 2] if dz else 1.0 - f[:, 2]))
-                offs = torch.tensor([dx, dy, dz], dtype=torch.float32, device=ipos.device)
+                offs = device_const([dx, dy, dz], ipos.device)
                 acc = acc + w * lookup_density_brick(grid, base + offs)
     return density_scale * acc
 

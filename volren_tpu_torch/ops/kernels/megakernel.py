@@ -54,6 +54,7 @@ csrc/megakernel.cu). ``render_stats`` runs its counting twin.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import re
@@ -62,6 +63,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import chunked as _chunked
 from . import build as _build
 from ..geometry import (INV_4PI, M_PI, dot3, intersect_box, luma, mat3_vec,
                         norm3, sanitize, xform_point, xform_vec)
@@ -151,7 +153,8 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
     and adds nothing. With a ``stats`` dict, adds the number of
     lanes that ran each event (keys of EVENTS) and the capped samples
     (``"capped"``) to it, and on a u8 pyramid the march substeps at each
-    of its levels (LEVEL_COUNTS)."""
+    of its levels (LEVEL_COUNTS). On CUDA tensors the steps run on the
+    chunked schedule of ops/chunked.py: the same image and counts."""
     use_tf, has_emi = _variant(ks, pi)
     mip_u8, env_rgbe, pool_rgbe = _packs(ks, pool)
     dev = ks.atlas.device
@@ -196,10 +199,15 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         mip_lo, mip_sc = ks.mip_dq.to(f32).unbind(0)
     if pool_rgbe:   # POOL_N rows [w, pdf], then POOL_N radiance words
         pool_rows, pool_words = pool[:4 * POOL_N].view(f32).reshape(POOL_N, 4), pool[4 * POOL_N:]
+    # on the card: the chunked schedule (ops/chunked.py), whose steps run
+    # every phase on every lane and count on the device
+    sched = _chunked.Schedule(dev, stats) if _chunked.chunked(dev) else None
 
     def count(event, mask):
-        if stats is not None:
-            stats[event] = stats.get(event, 0) + int(mask.sum())
+        _chunked.count(sched if sched is not None else stats, event, mask)
+
+    def idle(act):  # the per-step schedule skips a phase no lane runs
+        return sched is None and not bool(act.any())
 
     n_pix = W * rows
     s_h = torch.tensor(float(H), dtype=f32, device=dev)
@@ -360,7 +368,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
 
     def resolve_tests():
         act = st["event"] == EV_TEST
-        if not bool(act.any()):
+        if idle(act):
             return
         is_extend = st["mode"] == MODE_EXTEND
         count("test", act)
@@ -403,7 +411,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
 
     def phase_nee():
         act = st["event"] == EV_EXT_HIT
-        if not bool(act.any()):
+        if idle(act):
             return
         count("nee", act)
         if use_tf:
@@ -455,7 +463,7 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         thr, pd = st["th"], st["pd"]
         esc = event == EV_EXT_EXIT
         count("escape", esc)
-        if bool(esc.any()):
+        if not idle(esc):
             idir = mat3_vec(env_inv, pd)
             uu = torch.atan2(idir[2], idir[0]) * (1.0 / (2.0 * M_PI)) + 0.5
             vv = 1.0 - torch.acos(torch.clamp(idir[1], -1.0, 1.0)) * (1.0 / M_PI)
@@ -520,63 +528,98 @@ def render_plain(ks: KernelScene, pool: torch.Tensor, pf: np.ndarray,
         st["capped"] = st["capped"] | over
         st["mode"] = torch.where(over, MODE_INACTIVE, st["mode"]).to(i32)
 
+    def step(state):
+        nonlocal st
+        st = dict(state)
+        phase_march()
+        resolve_tests()
+        phase_nee()
+        phase_finish()
+        phase_cap()
+        return st
+
     acc = torch.zeros(n_pix, 4, dtype=f32, device=dev)
     if n_pix == 0:
         return acc
-    per_chunk = max(1, PLAIN_LANES // n_pix)
-    for k0 in range(0, spp, per_chunk):
-        n_spp = min(per_chunk, spp - k0)
-        # lane j * n_pix + p traces sample k0 + j of pixel p
-        n = n_spp * n_pix
-        pix = torch.arange(n, device=dev, dtype=torch.int64) % n_pix
-        px, py = pix % W, row0 + pix // W
-        lane_u = (mul32(py, W) + px) & 0xFFFFFFFF       # uint32 py * W + px
-        sample = spp_base + k0 + torch.arange(n, device=dev, dtype=torch.int64) // n_pix
-        lane_seed = tea(mul32(lane_u, seed0), (sample + 1) & 0xFFFFFFFF)
-        zero = torch.zeros(n, dtype=f32, device=dev)
-        zi = torch.zeros(n, dtype=i32, device=dev)
-        st = {
-            "mode": torch.full((n,), MODE_REGEN, dtype=i32, device=dev),
-            "event": zi.clone(), "seed": torch.zeros(n, dtype=torch.int64, device=dev),
-            "po": (zero, zero, zero), "pd": (zero, zero, zero + 1.0),
-            "th": (zero, zero, zero), "L": (zero, zero, zero),
-            "pn": (zero, zero, zero),
-            "n_paths": zi.clone(), "last_f_p": zero, "free": zi.clone(),
-            "t": zero, "far": zero, "tau": zero, "mip": zero,
-            "i0": (zero, zero, zero), "id": (zero, zero, zero + 1.0),
-            "ri": (zero, zero, zero + 1.0), "steps": zi.clone(),
-            "res": torch.zeros(n, 4, dtype=f32, device=dev),
-            "capped": torch.zeros(n, dtype=torch.bool, device=dev),
-        }
-        phase_regen()
-        # the lanes' results; ``sel``: the lanes of st (None: all of them)
-        res, capped, sel = st["res"], st["capped"], None
-        # every step of a live lane marches once, so every sample ends
-        # within budget steps
-        for _ in range(budget):
-            phase_march()
-            resolve_tests()
-            phase_nee()
-            phase_finish()
-            phase_cap()
-            live = st["mode"] != MODE_INACTIVE
-            n_live = int(live.sum())
-            if n_live == 0:
-                break
-            if 2 * n_live <= n:     # set the ended samples aside
-                res, capped = _put_lanes(res, capped, sel, st)
-                keep = live.nonzero().squeeze(1)
-                sel = keep if sel is None else sel[keep]
-                st = {k: tuple(x[keep] for x in v) if isinstance(v, tuple) else v[keep]
-                      for k, v in st.items()}
-                n = n_live
-                zero = torch.zeros(n, dtype=f32, device=dev)
-        res, capped = _put_lanes(res, capped, sel, st)
-        # a pixel's sum adds its samples in sample order
-        for j in range(n_spp):
-            seg = slice(j * n_pix, (j + 1) * n_pix)
-            acc = torch.where(capped[seg, None], acc, acc + res[seg])
+    zeros = {}
+
+    def zero_lanes(m):  # one zero vector a lane count: a graph reads its own
+        if m not in zeros:
+            zeros[m] = torch.zeros(m, dtype=f32, device=dev)
+        return zeros[m]
+
+    with sched if sched is not None else contextlib.nullcontext():
+        per_chunk = max(1, PLAIN_LANES // n_pix)
+        for k0 in range(0, spp, per_chunk):
+            n_spp = min(per_chunk, spp - k0)
+            # lane j * n_pix + p traces sample k0 + j of pixel p
+            n = n_spp * n_pix
+            pix = torch.arange(n, device=dev, dtype=torch.int64) % n_pix
+            px, py = pix % W, row0 + pix // W
+            lane_u = (mul32(py, W) + px) & 0xFFFFFFFF       # uint32 py * W + px
+            sample = spp_base + k0 + torch.arange(n, device=dev, dtype=torch.int64) // n_pix
+            lane_seed = tea(mul32(lane_u, seed0), (sample + 1) & 0xFFFFFFFF)
+            zero = zero_lanes(n)
+            zi = torch.zeros(n, dtype=i32, device=dev)
+            st = {
+                "mode": torch.full((n,), MODE_REGEN, dtype=i32, device=dev),
+                "event": zi.clone(), "seed": torch.zeros(n, dtype=torch.int64, device=dev),
+                "po": (zero, zero, zero), "pd": (zero, zero, zero + 1.0),
+                "th": (zero, zero, zero), "L": (zero, zero, zero),
+                "pn": (zero, zero, zero),
+                "n_paths": zi.clone(), "last_f_p": zero, "free": zi.clone(),
+                "t": zero, "far": zero, "tau": zero, "mip": zero,
+                "i0": (zero, zero, zero), "id": (zero, zero, zero + 1.0),
+                "ri": (zero, zero, zero + 1.0), "steps": zi.clone(),
+                "res": torch.zeros(n, 4, dtype=f32, device=dev),
+                "capped": torch.zeros(n, dtype=torch.bool, device=dev),
+            }
+            phase_regen()
+            # the lanes' results; ``sel``: the lanes of st (None: all of them)
+            res, capped, sel = st["res"], st["capped"], None
+            # every step of a live lane marches once, so every sample ends
+            # within budget steps; the chunked schedule checks every chunk
+            i = 0
+            while i < budget:
+                if sched is None:
+                    st = step(st)
+                    i += 1
+                else:
+                    steps = min(_chunked.chunk(n), budget - i)
+                    st = sched.run("render_plain", step, st, steps)
+                    i += steps
+                live = st["mode"] != MODE_INACTIVE
+                n_live = int(live.sum())
+                if n_live == 0:
+                    break
+                m = n_live if sched is None else _chunked.cut(n_live, n)
+                if 2 * n_live <= n and m < n:     # set the ended samples aside
+                    res, capped = _put_lanes(res, capped, sel, st)
+                    keep = (live.nonzero().squeeze(1) if sched is None
+                            else _chunked.keep(live, m))
+                    sel = keep if sel is None else sel[keep]
+                    st = {k: tuple(x[keep] for x in v) if isinstance(v, tuple) else v[keep]
+                          for k, v in st.items()}
+                    n = keep.shape[0]
+                    zero = zero_lanes(n)
+            res, capped = _put_lanes(res, capped, sel, st)
+            # a pixel's sum adds its samples in sample order
+            for j in range(n_spp):
+                seg = slice(j * n_pix, (j + 1) * n_pix)
+                acc = torch.where(capped[seg, None], acc, acc + res[seg])
+    if sched is not None and stats is not None:
+        counts = sched.counts()
+        for key, v in counts.items():
+            # the per-step schedule counts a phase's events only on a step
+            # where a lane runs it
+            if key not in _RUN_BY or counts[_RUN_BY[key]]:
+                stats[key] = stats.get(key, 0) + v
     return acc
+
+
+# the guarded phases' counts, and the count that says whether a lane ran
+# the phase on some step
+_RUN_BY = {"test": "test", "emission": "test", "nee": "nee"}
 
 
 def _put_lanes(res, capped, sel, st):

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import chunked as _chunked
 from . import rng as _rng
 from .envmap import lookup_environment, pdf_environment, sample_environment
 from .geometry import cols, dot3, luma, power_heuristic, sanitize, view_dir
@@ -34,15 +35,27 @@ def _neg_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def trace_path(scene, params, cfg, org, direction, seed, stats=None):
-    """Trace one path per lane. Returns (L (N, 3), alpha (N,), seed)."""
+    """Trace one path per lane. Returns (L (N, 3), alpha (N,), seed). On
+    the card the bounce loop and the tracking loops run on one chunked
+    schedule (ops/chunked.py): the same bits, the same ``stats``."""
+    if isinstance(stats, _chunked.Schedule) or not _chunked.chunked(org.device):
+        return _trace_path(scene, params, cfg, org, direction, seed, stats)
+    with _chunked.Schedule(org.device, stats) as sched:
+        out = _trace_path(scene, params, cfg, org, direction, seed, sched)
+    if stats is not None:
+        for key, v in sched.counts().items():
+            stats[key] = stats.get(key, 0) + v
+    return out
+
+
+def _trace_path(scene, params, cfg, org, direction, seed, stats):
     n, dev = org.shape[0], org.device
     f32 = torch.float32
     g = torch.tensor(np.float32(params.phase_g), device=dev)
     show = int(params.show_environment) > 0
     sample_fn = sample_volume_dda if cfg.use_dda else sample_volume
     trans_fn = transmittance_dda if cfg.use_dda else transmittance
-    if stats is not None:
-        stats["paths"] = stats.get("paths", 0) + n
+    _chunked.count(stats, "paths", n)
 
     def body(c):
         active, direction = c["running"], c["dir"]
@@ -91,7 +104,8 @@ def trace_path(scene, params, cfg, org, direction, seed, stats=None):
                  n_paths=torch.zeros(n, dtype=torch.int32, device=dev),
                  last_f_p=torch.zeros(n, dtype=f32, device=dev),
                  free=torch.ones(n, dtype=torch.bool, device=dev))
-    state = run_loop(state, body, 1 << 62, stats, "bounce")
+    # the body runs tracking loops of its own: no graph of it
+    state = run_loop(state, body, 1 << 62, stats, "bounce", graph=False)
 
     # free path -> environment contribution (common.glsl:645-649)
     le, throughput, n_paths, direction = state["L"], state["th"], state["n_paths"], state["dir"]

@@ -26,11 +26,11 @@ inverse majorant while collisions are tested at the local majorant's rate
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from . import chunked as _chunked
 from . import rng as _rng
-from .geometry import cols, intersect_box, transform_point, transform_vector
+from .geometry import cols, device_const, intersect_box, transform_point, transform_vector
 from .grid import (lookup_density_stochastic, lookup_density_trilinear, lookup_emission,
                    lookup_majorant)
 from .transfer import tf_lookup
@@ -40,33 +40,52 @@ MIP_SPEED_UP = 0.25
 MIP_SPEED_DOWN = 2.0
 
 
-def _count(stats, key, n):
-    """stats[key] += n (a count, or a mask's lanes), where there are stats."""
-    if stats is not None:
-        stats[key] = stats.get(key, 0) + int(n.sum() if torch.is_tensor(n) else n)
-
-
-def run_loop(state: dict, body, max_steps: int, stats=None, name: str = "loop") -> dict:
+def run_loop(state: dict, body, max_steps: int, stats=None, name: str = "loop",
+             graph: bool = True) -> dict:
     """Run ``body`` (state dict -> state dict, lane axis first,
     ``state["running"]`` the lane mask) while any lane runs and fewer than
     ``max_steps`` iterations have run. Lanes that stopped are set aside
-    once they are half of the current set. Returns the final state."""
+    once they are half of the current set. Returns the final state.
+
+    ``stats``: None, a dict, or a ``chunked.Schedule``, which runs the loop
+    on its chunked schedule: a check every ``chunked.chunk(lanes)``
+    iterations (the cap's last iteration after a check of its own, as the
+    per-step loop runs it only while a lane runs), the chunks replayed as
+    CUDA graphs unless ``graph`` is False (a body with loops of its own)."""
+    sched = stats if isinstance(stats, _chunked.Schedule) else None
+
+    def step(c):
+        sched.count(f"{name}_iters", c["running"])
+        return body(c)
+
     full, sel, cur, i = state, None, state, 0
     while i < max_steps:
         running = cur["running"]
         n_run = int(running.sum())
         if n_run == 0:
             break
-        _count(stats, f"{name}_iters", n_run)
-        if 2 * n_run <= running.shape[0]:
-            keep = running.nonzero().squeeze(1)
+        n = running.shape[0]
+        m = n_run if sched is None else _chunked.cut(n_run, n)
+        if 2 * n_run <= n and m < n:
+            keep = running.nonzero().squeeze(1) if sched is None else _chunked.keep(running, m)
             full = _put(full, sel, cur)
             sel = keep if sel is None else sel[keep]
             cur = {k: v[keep] for k, v in cur.items()}
-        cur = body(cur)
-        i += 1
+        if sched is None:
+            _chunked.count(stats, f"{name}_iters", n_run)
+            cur = body(cur)
+            i += 1
+            continue
+        steps = min(_chunked.chunk(m), max_steps - i)
+        if 1 < steps == max_steps - i:
+            steps -= 1
+        cur = sched.run(name, step, cur, steps, graph)
+        i += steps
     if i == max_steps:
-        _count(stats, "capped", cur["running"])
+        _chunked.count(stats, "capped", cur["running"])
+    if sched is not None and sel is None:
+        # the caller owns what it gets: a graph's next replay overwrites it
+        return {k: v.clone() for k, v in cur.items()}
     return _put(full, sel, cur)
 
 
@@ -77,7 +96,7 @@ def _put(full: dict, sel, cur: dict) -> dict:
 
 
 def _t(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(np.asarray(x, np.float32), device=like.device)
+    return device_const(x, like.device)
 
 
 def _tf_tensors(tf, like):
@@ -114,7 +133,7 @@ def _add_emission(scene, params, cfg, pos, weight, throughput, le, seed, active,
     """le += throughput * (1 - albedo) * emission * weight (masked)."""
     if not cfg.has_emission:
         return le, seed
-    _count(stats, "emission", active)
+    _chunked.count(stats, "emission", active)
     e, seed = lookup_emission(scene.emission, scene.density.transform, pos, seed, active,
                               params.emission_scale, params.emission_norm)
     one_minus_albedo = 1.0 - _t(params.albedo, pos)
@@ -249,7 +268,7 @@ def _dda_loop(scene, params, cfg, org, direction, seed, active, collide_fn, extr
         t = torch.where(collide, t_col, torch.where(running, t_adv, t))
         exited = collide & (t >= c["far"])
         do_test = collide & ~exited
-        _count(stats, f"{name}_tests", do_test)
+        _chunked.count(stats, f"{name}_tests", do_test)
 
         pos = c["ipos"] + t[:, None] * c["idir"]
         c = dict(c)
