@@ -312,7 +312,9 @@ def test_describe_save_and_profile(random_grid16, tmp_path, capsys):
     assert trace.endswith(".pt.trace.json")
     with open(tmp_path / "prof" / trace) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "volren_tpu_torch.megakernel" in names
+    assert {f"volren_tpu_torch.{n}" for n in ("trace", "tables", "params", "pool", "launch",
+                                             "mean")} <= names
+    assert "volren_tpu_torch.megakernel" not in names
     r.save_with_alpha(str(tmp_path / "img.jpg"))
     png = (tmp_path / "img.png").read_bytes()
     assert png[:8] == b"\x89PNG\r\n\x1a\n" and png[25] == 6  # RGBA

@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import spans
+
 
 class GridTables(NamedTuple):
     """One brick grid on the device."""
@@ -183,32 +185,33 @@ def upload_environment(env, device) -> EnvTables:
     [keep_prob, alias_idx, own_pdf, alias_pdf, own_rgb(3), alias_rgb(3)]:
     pdf = w / avg / 4pi (the solid-angle convention of common.glsl:143-145)
     and the rgb is each importance texel's box-filtered radiance."""
-    prob, alias = build_alias_table(env.impmap_mips[0])
-    w = np.asarray(env.impmap_mips[0], np.float32).reshape(-1)
-    avg = float(env.impmap_mips[-1].reshape(()))
-    pdf = w / max(avg, 1e-20) * (1.0 / (4.0 * np.pi))
-    dim = int(np.asarray(env.impmap_mips[0]).shape[0])
-    emap = np.asarray(env.envmap, np.float32)
-    eh, ew = emap.shape[:2]
-    fy, fx = eh // dim or 1, ew // dim or 1
-    ph, pw = dim * fy - eh, dim * fx - ew
-    if ph or pw:  # envmap smaller than the importance map: edge-pad
-        emap = np.pad(emap, ((0, max(0, ph)), (0, max(0, pw)), (0, 0)), mode="edge")
-    texel_rgb = (emap[: dim * fy, : dim * fx].reshape(dim, fy, dim, fx, 3)
-                 .mean(axis=(1, 3)).reshape(dim * dim, 3))
-    packed = np.concatenate(
-        [np.stack([prob, alias.astype(np.float32), pdf, pdf[alias]], axis=-1),
-         texel_rgb, texel_rgb[alias]], axis=-1).astype(np.float32)
-    transform = np.asarray(env.transform, np.float32)
-    return EnvTables(
-        envmap=torch.as_tensor(np.array(env.envmap[..., :3], np.float32), device=device),
-        alias_packed=torch.as_tensor(packed, device=device),
-        imp_avg=avg,
-        transform=transform,
-        inv_transform=np.linalg.inv(transform.astype(np.float64)).astype(np.float32),
-        strength=float(np.float32(env.strength)),
-        imp_mips=imp_pyramid(env.impmap_mips, device),
-    )
+    with spans.span("volren_tpu_torch.alias"):
+        prob, alias = build_alias_table(env.impmap_mips[0])
+        w = np.asarray(env.impmap_mips[0], np.float32).reshape(-1)
+        avg = float(env.impmap_mips[-1].reshape(()))
+        pdf = w / max(avg, 1e-20) * (1.0 / (4.0 * np.pi))
+        dim = int(np.asarray(env.impmap_mips[0]).shape[0])
+        emap = np.asarray(env.envmap, np.float32)
+        eh, ew = emap.shape[:2]
+        fy, fx = eh // dim or 1, ew // dim or 1
+        ph, pw = dim * fy - eh, dim * fx - ew
+        if ph or pw:  # envmap smaller than the importance map: edge-pad
+            emap = np.pad(emap, ((0, max(0, ph)), (0, max(0, pw)), (0, 0)), mode="edge")
+        texel_rgb = (emap[: dim * fy, : dim * fx].reshape(dim, fy, dim, fx, 3)
+                     .mean(axis=(1, 3)).reshape(dim * dim, 3))
+        packed = np.concatenate(
+            [np.stack([prob, alias.astype(np.float32), pdf, pdf[alias]], axis=-1),
+             texel_rgb, texel_rgb[alias]], axis=-1).astype(np.float32)
+        transform = np.asarray(env.transform, np.float32)
+        return EnvTables(
+            envmap=torch.as_tensor(np.array(env.envmap[..., :3], np.float32), device=device),
+            alias_packed=torch.as_tensor(packed, device=device),
+            imp_avg=avg,
+            transform=transform,
+            inv_transform=np.linalg.inv(transform.astype(np.float64)).astype(np.float32),
+            strength=float(np.float32(env.strength)),
+            imp_mips=imp_pyramid(env.impmap_mips, device),
+        )
 
 
 def upload_transferfunc(tf, device) -> TFTables:

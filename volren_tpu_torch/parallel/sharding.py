@@ -46,6 +46,7 @@ import torch.distributed as dist
 from ..ops.kernels import megakernel
 from ..ops.kernels.pack import DISPATCH_SPP, KernelScene, build_params
 from ..ops.scene import TraceParams
+from ..utils import spans
 
 
 @dataclass
@@ -174,16 +175,17 @@ def render_sharded(ks: KernelScene, pool: torch.Tensor, params: TraceParams, wid
     it is the whole frame's on every rank, the contract of volren_tpu's
     render_sharded. ``Renderer.trace`` keeps each band's running mean on its
     own rank and gathers once per trace."""
-    if spp > DISPATCH_SPP:
-        raise ValueError(f"a dispatch has at most {DISPATCH_SPP} samples, not {spp}")
-    row0, rows = band_rows(height, mesh.n_tiles, mesh.tile)
-    k0, count = spp_share(spp, mesh.n_spp, mesh.spp_shard)
-    if count > 0:
-        pf, pi = build_params(ks, params, width, height, spp_base + k0, count, row0, rows)
-        band = megakernel.render(ks, pool, pf, pi)
-    else:
-        band = torch.zeros(rows * width, 4, dtype=torch.float32, device=ks.atlas.device)
-    return reduce_shards(band, mesh)
+    with spans.span("volren_tpu_torch.launch"):
+        if spp > DISPATCH_SPP:
+            raise ValueError(f"a dispatch has at most {DISPATCH_SPP} samples, not {spp}")
+        row0, rows = band_rows(height, mesh.n_tiles, mesh.tile)
+        k0, count = spp_share(spp, mesh.n_spp, mesh.spp_shard)
+        if count > 0:
+            pf, pi = build_params(ks, params, width, height, spp_base + k0, count, row0, rows)
+            band = megakernel.render(ks, pool, pf, pi)
+        else:
+            band = torch.zeros(rows * width, 4, dtype=torch.float32, device=ks.atlas.device)
+        return reduce_shards(band, mesh)
 
 
 __all__ = ["Mesh", "band_rows", "gather_bands", "make_mesh", "reduce_shards", "render_sharded",

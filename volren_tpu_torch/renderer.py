@@ -58,6 +58,7 @@ from .parallel import sharding
 from .scene.camera import Camera
 from .scene.environment import Environment
 from .scene.transferfunc import TransferFunction
+from .utils import spans
 from .utils.image import save_ldr
 from .voldata import Volume
 from .voldata.brick import to_brick_grid
@@ -185,20 +186,21 @@ class Renderer:
         normalises the emission lookup. Each frame's density majorant is
         kept for ``_trace_params``: a dense grid's is a scan of every voxel
         (tens of ms for a 512x512x256 frame), too slow to repeat per trace."""
-        self._density_grids, self._emission_grids, self._density_ranges = [], [], []
-        self._majorant_emission = 0.0
-        for frame in self.volume.grids:
-            self._density_grids.append(dscene.upload_grid(
-                to_brick_grid(frame["density"]), self.volume.transform, self.device))
-            self._density_ranges.append((frame["density"], frame["density"].minorant_majorant()))
-            emission = next((frame[n] for n in EMISSION_GRID_NAMES if n in frame), None)
-            if emission is not None:
-                self._majorant_emission = max(self._majorant_emission,
-                                              emission.minorant_majorant()[1])
-                emission = dscene.upload_grid(to_brick_grid(emission), self.volume.transform,
-                                              self.device)
-            self._emission_grids.append(emission)
-        self._packed = None
+        with spans.span("volren_tpu_torch.commit"):
+            self._density_grids, self._emission_grids, self._density_ranges = [], [], []
+            self._majorant_emission = 0.0
+            for frame in self.volume.grids:
+                self._density_grids.append(dscene.upload_grid(
+                    to_brick_grid(frame["density"]), self.volume.transform, self.device))
+                self._density_ranges.append((frame["density"], frame["density"].minorant_majorant()))
+                emission = next((frame[n] for n in EMISSION_GRID_NAMES if n in frame), None)
+                if emission is not None:
+                    self._majorant_emission = max(self._majorant_emission,
+                                                  emission.minorant_majorant()[1])
+                    emission = dscene.upload_grid(to_brick_grid(emission), self.volume.transform,
+                                                  self.device)
+                self._emission_grids.append(emission)
+            self._packed = None
 
     def reset(self):
         self.sample = 0
@@ -206,33 +208,34 @@ class Renderer:
     # ---- parameter assembly ----
 
     def _trace_params(self) -> dscene.TraceParams:
-        bb_min, bb_max = self.volume.AABB()
-        extent = bb_max - bb_min
-        frame, grid = self.volume.grid_frame_counter, self.volume.current_grid()
-        if frame < len(self._density_ranges) and self._density_ranges[frame][0] is grid:
-            _mn, mj = self._density_ranges[frame][1]   # the committed frame's
-        else:
-            _mn, mj = self.volume.minorant_majorant()
-        maj = max(mj * self.density_scale, 1e-20)
-        f32 = np.float32
-        return dscene.TraceParams(
-            cam_pos=np.asarray(self.cam.pos, f32),
-            cam_transform=np.asarray(self.cam.transform, f32),
-            cam_fov=float(f32(self.cam.fov_degree)),
-            bb_min=(bb_min + self.vol_clip_min * extent).astype(f32),
-            bb_max=(bb_min + self.vol_clip_max * extent).astype(f32),
-            majorant=float(f32(maj)),
-            inv_majorant=float(f32(1.0 / maj)),
-            albedo=np.broadcast_to(self.albedo, (3,)).astype(f32),
-            phase_g=float(f32(self.phase)),
-            density_scale=float(f32(self.density_scale)),
-            bounces=int(self.bounces),
-            show_environment=1 if self.show_environment else 0,
-            seed=int(np.uint32(self.seed)),
-            emission_scale=float(f32(self.emission_scale)),
-            emission_norm=float(f32(1.0 / max(self._majorant_emission, 1e-4)
-                                    if self._majorant_emission > 0.0 else 1.0)),
-        )
+        with spans.span("volren_tpu_torch.params"):
+            bb_min, bb_max = self.volume.AABB()
+            extent = bb_max - bb_min
+            frame, grid = self.volume.grid_frame_counter, self.volume.current_grid()
+            if frame < len(self._density_ranges) and self._density_ranges[frame][0] is grid:
+                _mn, mj = self._density_ranges[frame][1]   # the committed frame's
+            else:
+                _mn, mj = self.volume.minorant_majorant()
+            maj = max(mj * self.density_scale, 1e-20)
+            f32 = np.float32
+            return dscene.TraceParams(
+                cam_pos=np.asarray(self.cam.pos, f32),
+                cam_transform=np.asarray(self.cam.transform, f32),
+                cam_fov=float(f32(self.cam.fov_degree)),
+                bb_min=(bb_min + self.vol_clip_min * extent).astype(f32),
+                bb_max=(bb_min + self.vol_clip_max * extent).astype(f32),
+                majorant=float(f32(maj)),
+                inv_majorant=float(f32(1.0 / maj)),
+                albedo=np.broadcast_to(self.albedo, (3,)).astype(f32),
+                phase_g=float(f32(self.phase)),
+                density_scale=float(f32(self.density_scale)),
+                bounces=int(self.bounces),
+                show_environment=1 if self.show_environment else 0,
+                seed=int(np.uint32(self.seed)),
+                emission_scale=float(f32(self.emission_scale)),
+                emission_norm=float(f32(1.0 / max(self._majorant_emission, 1e-4)
+                                        if self._majorant_emission > 0.0 else 1.0)),
+            )
 
     def _frame_emission(self):
         """The current frame's own emission grid, or None."""
@@ -273,27 +276,30 @@ class Renderer:
         is on), with the TF majorant table baked for the current trace
         parameters when a transfer function is set, and then the u8
         pyramid of the baked table when ``pallas_mip_u8`` is "1"."""
-        frame, env_rgbe = self.volume.grid_frame_counter, self._switch("pallas_env_rgbe")
-        if self._packed is None or self._packed[0] != (frame, env_rgbe):
-            self._packed = ((frame, env_rgbe), pack_scene(
-                self._density_grids[frame], self._env_device, tf=self._tf_device,
-                emission=self._emission_grids[frame], env_rgbe=env_rgbe))
-        ks = self._packed[1]
-        mip_u8 = self._mip_u8()
-        if ks.tf is None and not mip_u8:
-            return ks
-        params = self._trace_params()
-        if ks.tf is not None:
-            ks = bake_tf_majorant(ks, params)
-        return bake_mip_u8(ks, params) if mip_u8 else ks
+        with spans.span("volren_tpu_torch.tables"):
+            frame, env_rgbe = self.volume.grid_frame_counter, self._switch("pallas_env_rgbe")
+            if self._packed is None or self._packed[0] != (frame, env_rgbe):
+                with spans.span("volren_tpu_torch.pack"):
+                    self._packed = ((frame, env_rgbe), pack_scene(
+                        self._density_grids[frame], self._env_device, tf=self._tf_device,
+                        emission=self._emission_grids[frame], env_rgbe=env_rgbe))
+            ks = self._packed[1]
+            mip_u8 = self._mip_u8()
+            if ks.tf is None and not mip_u8:
+                return ks
+            params = self._trace_params()
+            if ks.tf is not None:
+                ks = bake_tf_majorant(ks, params)
+            return bake_mip_u8(ks, params) if mip_u8 else ks
 
     def _env_pool(self, spp_base: int):
         """The NEE pool of the dispatch whose first sample is ``spp_base``,
         drawn from (seed, spp_base); its radiance as RGBE words when
         ``pallas_pool_rgbe`` is on. On a card one launch of the draw kernel
         writes either layout, with no host sync."""
-        return build_env_pool(self._env_device, int(self.seed), int(spp_base),
-                              rgbe=self._switch("pallas_pool_rgbe"))
+        with spans.span("volren_tpu_torch.pool"):
+            return build_env_pool(self._env_device, int(self.seed), int(spp_base),
+                                  rgbe=self._switch("pallas_pool_rgbe"))
 
     # ---- rendering ----
 
@@ -304,42 +310,43 @@ class Renderer:
         per trace; with the oracle, one pass per sample
         (volren_tpu/renderer.py:700-711), in launches of at most
         DISPATCH_SPP passes."""
-        if not self._density_grids:
-            self.commit()
-        spp = int(spp)
-        if self._engine == ORACLE:
-            scene, params, cfg = self._scene_tables(), self._trace_params(), self._config()
+        with spans.span("volren_tpu_torch.trace"):
+            if not self._density_grids:
+                self.commit()
+            spp = int(spp)
+            if self._engine == ORACLE:
+                scene, params, cfg = self._scene_tables(), self._trace_params(), self._config()
+                while spp > 0:
+                    n = min(DISPATCH_SPP, spp)
+                    with spans.span("volren_tpu_torch.oracle"):
+                        self._fb = oracle.trace_passes(scene, params, cfg, self._fb,
+                                                       self.sample + 1, n)
+                    self.last_engine = ("cuda_oracle" if self.device.type == "cuda"
+                                        else "torch_oracle")
+                    self.sample += n
+                    spp -= n
+                return
+            if not self._use_dda:
+                raise NotImplementedError("the megakernel engine is DDA-only; use "
+                                          "engine='oracle' for the global-majorant estimators")
+            ks, params = self._kernel_scene(), self._trace_params()
+            # this rank's band of the running mean: the whole frame in a world
+            # of one, gathered from every rank after the dispatches otherwise
+            row0, rows = sharding.band_rows(self._height, self.mesh.n_tiles, self.mesh.tile)
+            band = self._fb[row0:row0 + rows]
             while spp > 0:
                 n = min(DISPATCH_SPP, spp)
-                with torch.profiler.record_function("volren_tpu_torch.oracle"):
-                    self._fb = oracle.trace_passes(scene, params, cfg, self._fb, self.sample + 1,
-                                                   n)
-                self.last_engine = ("cuda_oracle" if self.device.type == "cuda"
-                                    else "torch_oracle")
-                self.sample += n
-                spp -= n
-            return
-        if not self._use_dda:
-            raise NotImplementedError("the megakernel engine is DDA-only; use engine='oracle' "
-                                      "for the global-majorant estimators")
-        ks, params = self._kernel_scene(), self._trace_params()
-        # this rank's band of the running mean: the whole frame in a world
-        # of one, gathered from every rank after the dispatches otherwise
-        row0, rows = sharding.band_rows(self._height, self.mesh.n_tiles, self.mesh.tile)
-        band = self._fb[row0:row0 + rows]
-        while spp > 0:
-            n = min(DISPATCH_SPP, spp)
-            with torch.profiler.record_function("volren_tpu_torch.megakernel"):
                 # the NEE pool is redrawn for every dispatch from (seed, sample)
                 pool = self._env_pool(self.sample)
                 accum = sharding.render_sharded(ks, pool, params, self._width, self._height,
                                                 n, self.sample, self.mesh)
-            self.last_engine = "cuda_kernel" if self.device.type == "cuda" else "torch_plain"
-            prev = self.sample
-            self.sample += n
-            band = (band * prev + accum.reshape(rows, self._width, 4)) / self.sample
-            spp -= n
-        self._fb = sharding.gather_bands(band, self.mesh, self._width, self._height)
+                self.last_engine = "cuda_kernel" if self.device.type == "cuda" else "torch_plain"
+                with spans.span("volren_tpu_torch.mean"):
+                    prev = self.sample
+                    self.sample += n
+                    band = (band * prev + accum.reshape(rows, self._width, 4)) / self.sample
+                spp -= n
+            self._fb = sharding.gather_bands(band, self.mesh, self._width, self._height)
 
     def render(self, spp: int):
         """Render spp samples from scratch (bindings.cpp:124-132)."""
@@ -471,7 +478,14 @@ class Renderer:
         """Context manager: a torch.profiler trace (the card's kernels too
         on a CUDA device) of the calls inside it, written to ``log_dir`` as
         a Chrome trace (``*.pt.trace.json``, for Perfetto or TensorBoard).
-        Yields the profiler."""
+        Yields the profiler. The trace names the renderer's spans
+        (``utils.spans``): ``volren_tpu_torch.trace`` around each call,
+        inside it ``tables`` (``pack`` where the tables are packed again),
+        ``params``, and per dispatch ``pool``, ``launch`` and ``mean`` (or
+        ``oracle``); ``environment``, ``alias`` and ``commit`` in the scene's
+        set-up. Without a profiler, ``spans.recording()`` keeps the same
+        spans for ``spans.recorded()``, and ``spans.totals()`` counts and
+        times every span always."""
         activities = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)

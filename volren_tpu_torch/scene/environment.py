@@ -19,6 +19,8 @@ import os
 
 import numpy as np
 
+from ..utils import spans
+
 DIMENSION = 512  # importance map resolution (reference: environment.cpp:6)
 
 # (abspath, mtime_ns, size) -> impmap mips; see Environment.__init__
@@ -89,7 +91,8 @@ class Environment:
         if cache_key is not None and cache_key in _IMPMAP_CACHE:
             self.impmap_mips = _IMPMAP_CACHE[cache_key]
         else:
-            self.impmap_mips = build_importance_pyramid(self.envmap)
+            with spans.span("volren_tpu_torch.environment"):
+                self.impmap_mips = build_importance_pyramid(self.envmap)
             if cache_key is not None:
                 _IMPMAP_CACHE[cache_key] = self.impmap_mips
 
